@@ -1,0 +1,1 @@
+"""geometry of the PyTorch/CUDA port (counterpart of leafgrasp_tpu/geometry)."""

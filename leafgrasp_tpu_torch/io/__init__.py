@@ -1,0 +1,1 @@
+"""io of the PyTorch/CUDA port (counterpart of leafgrasp_tpu/io)."""

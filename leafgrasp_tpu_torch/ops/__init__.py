@@ -1,0 +1,1 @@
+"""ops of the PyTorch/CUDA port (counterpart of leafgrasp_tpu/ops)."""

@@ -1,0 +1,1 @@
+"""pipeline of the PyTorch/CUDA port (counterpart of leafgrasp_tpu/pipeline)."""

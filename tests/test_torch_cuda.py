@@ -1,0 +1,105 @@
+"""Each CUDA kernel of the port against its plain version, on the card.
+
+This file imports neither JAX nor the JAX package, so it runs where only
+PyTorch is installed; ``tests/conftest.py`` imports JAX, so on such a
+machine run it alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Without a CUDA device every test here skips. Tolerances: min-plus
+bit-exact (integer-valued f32 below 2^24); fused scoring 1e-5 absolute,
+valid mask equal; attention gate 1e-5 absolute.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from leafgrasp_tpu_torch import kernels
+from leafgrasp_tpu_torch.config import GraspScoringConfig
+from leafgrasp_tpu_torch.geometry.grasp_scorer import stem_penalty_map
+from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
+from leafgrasp_tpu_torch.kernels.attention import (MODES,
+                                                   attention_gate_plain,
+                                                   fused_attention_gate)
+from leafgrasp_tpu_torch.kernels.minplus import (BAND_ROWS, minplus_pass2,
+                                                 minplus_pass2_plain)
+from leafgrasp_tpu_torch.kernels.scoring import (fused_score_maps,
+                                                 fused_score_maps_plain)
+from leafgrasp_tpu_torch.ops.edt import edt, nearest_seed_dist_1d
+
+CX, CY, F = np.float32(80.0), np.float32(48.0), np.float32(400.0)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def test_minplus_kernel_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(5)
+    dense = rng.random((96, 160)) < 0.1
+    sparse = np.zeros((96, 160), bool)
+    sparse[7, 140] = True
+    seeds = torch.as_tensor(np.stack([dense, sparse, np.zeros_like(sparse)]),
+                            device=cuda)
+    g = nearest_seed_dist_1d(seeds, axis=1).to(torch.float32)
+    c, h, w = g.shape
+    g2 = (g * g).reshape(c * h, w).contiguous()
+    js = torch.tensor([0, 16, 32, 159], dtype=torch.int32, device=cuda)
+    per_row = torch.randint(0, w, (c * h, 5), dtype=torch.int32,
+                            device=cuda)
+    band = torch.ones((c * h // BAND_ROWS, 2), dtype=torch.int32,
+                      device=cuda)
+    forms = [{}, {"qcol": js}, {"qcol": per_row}, {"band": band},
+             {"qcol": js, "s_lo": 10, "s_hi": 100}]
+    kernels.reset_launch_counts()
+    for kw in forms:
+        assert torch.equal(minplus_pass2(g2, **kw),
+                           minplus_pass2_plain(g2, **kw)), kw
+    assert kernels.launch_counts()["minplus_pass2"] == len(forms)
+
+
+def test_scoring_kernel_matches_plain_on_card(cuda):
+    mask, _ = make_leaf_scene(height=96, width=160, num_leaves=3, seed=1,
+                              margin=20)
+    mask = torch.as_tensor(mask, device=cuda)
+    leaf = mask == 2
+    other = (mask > 0) & ~leaf
+    grad = torch.as_tensor(
+        np.random.default_rng(2).random((96, 160)).astype(np.float32) * 0.3,
+        device=cuda)
+    fields = [edt(~leaf), torch.zeros(leaf.shape, device=cuda), edt(other),
+              edt(mask == 1) * 0.5, grad, leaf.to(torch.float32),
+              stem_penalty_map(leaf, GraspScoringConfig())]
+    scal = [torch.tensor(v, device=cuda) for v in (CX, CY, F)]
+    kernels.reset_launch_counts()
+    for valid in (True, False):
+        args = (*fields, *scal, torch.tensor(0.7, device=cuda),
+                torch.tensor(valid, device=cuda))
+        got = fused_score_maps(*args)
+        want = fused_score_maps_plain(*args)
+        for a, b in zip(got[:8], want[:8]):
+            assert float((a - b).abs().max()) <= 1e-5
+        assert torch.equal(got[8], want[8])
+    assert kernels.launch_counts()["fused_score_maps"] == 2
+
+
+def test_attention_kernel_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(3)
+
+    def t(*shape, s=1.0):
+        return torch.as_tensor((rng.normal(size=shape) * s)
+                               .astype(np.float32), device=cuda)
+
+    x = t(20, 16, 256)
+    params = (t(256, 1, s=0.1), t(1, s=0.1), t(256, 16, s=0.1),
+              t(16, s=0.1), t(16, 256, s=0.1), t(256, s=0.1))
+    for mode in MODES:
+        got = fused_attention_gate(x, *params, mode)
+        want = attention_gate_plain(x, *params, mode)
+        assert float((got - want).abs().max()) <= 1e-5, mode

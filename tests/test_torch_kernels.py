@@ -1,0 +1,262 @@
+"""The port's three kernel modules: plain versions against the JAX
+package's Pallas kernels (interpret mode) and oracles, the wrappers'
+CPU dispatch and argument checks, and the build's flags. The kernels
+themselves are held against their plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances: min-plus bit-exact (integer-valued f32 below 2^24); fused
+scoring 1e-5 absolute, valid mask equal; attention gate 1e-5 absolute.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from leafgrasp_tpu.config import GraspScoringConfig as JScoringConfig
+from leafgrasp_tpu.io.scenes import make_leaf_scene
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from leafgrasp_tpu_torch import kernels
+from leafgrasp_tpu_torch.config import GraspScoringConfig
+from leafgrasp_tpu_torch.kernels import build
+from leafgrasp_tpu_torch.kernels.attention import (MODES,
+                                                   attention_gate_plain,
+                                                   fused_attention_gate)
+from leafgrasp_tpu_torch.kernels.minplus import (BAND_COLS, BAND_ROWS,
+                                                 minplus_pass2,
+                                                 minplus_pass2_plain)
+from leafgrasp_tpu_torch.kernels.scoring import (fused_score_maps,
+                                                 fused_score_maps_plain)
+
+CX, CY, F = np.float32(80.0), np.float32(48.0), np.float32(400.0)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def g2_stack():
+    """(3, 96, 160) pass-1 squared fields: dense, sparse, seedless."""
+    from leafgrasp_tpu.ops.edt import nearest_seed_dist_1d
+    rng = np.random.default_rng(5)
+    dense = rng.random((96, 160)) < 0.1
+    sparse = np.zeros((96, 160), bool)
+    sparse[7, 140] = True
+    seeds = np.stack([dense, sparse, np.zeros((96, 160), bool)])
+    g = np.asarray(nearest_seed_dist_1d(jnp.asarray(seeds), axis=1),
+                   np.float32)
+    return g * g
+
+
+def _brute(g2, qcol, lo, hi):
+    """float64 reference: out[r, q] = min_{lo[r,q] <= s < hi[r,q]} ..."""
+    r, w = g2.shape
+    s = np.arange(w)[None, None, :]
+    q = qcol[:, :, None].astype(np.float64)
+    cand = g2[:, None, :].astype(np.float64) + (q - s) ** 2
+    cand = np.where((s >= lo[:, :, None]) & (s < hi[:, :, None]), cand,
+                    np.inf)
+    return cand.min(axis=-1).astype(np.float32)
+
+
+# ---- min-plus --------------------------------------------------------------
+
+def test_minplus_plain_matches_pallas_full_and_banded(g2_stack):
+    from leafgrasp_tpu.ops.pallas_edt import (squared_edt_pass2,
+                                              squared_edt_pass2_banded)
+    c, h, w = g2_stack.shape
+    want = np.asarray(squared_edt_pass2(g2_stack, interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(squared_edt_pass2_banded(g2_stack, interpret=True)), want)
+    flat = _t(g2_stack.reshape(c * h, w))
+    np.testing.assert_array_equal(
+        minplus_pass2_plain(flat).reshape(c, h, w).numpy(), want)
+    # the per-tile radii of the Pallas banded kernel (pallas_edt.py:139-155)
+    big = np.float32((h + w) ** 2)
+    nc = -(-w // BAND_COLS)
+    g2p = np.pad(g2_stack, ((0, 0), (0, 0), (0, nc * BAND_COLS - w)),
+                 constant_values=big)
+    upper = g2p.copy()
+    for delta in (1, 4, 16, 64):
+        sp = np.pad(g2p[:, :, delta:], ((0, 0), (0, 0), (0, delta)),
+                    constant_values=big) + np.float32(delta * delta)
+        sm = np.pad(g2p[:, :, :-delta], ((0, 0), (0, 0), (delta, 0)),
+                    constant_values=big) + np.float32(delta * delta)
+        upper = np.minimum(upper, np.minimum(sp, sm))
+    tile_max = upper.reshape(c, h // BAND_ROWS, BAND_ROWS, nc,
+                             BAND_COLS).max(axis=(2, 4))
+    nb = np.minimum((np.sqrt(tile_max) / BAND_COLS).astype(np.int32) + 1,
+                    nc - 1)
+    band = _t(nb.reshape(c * h // BAND_ROWS, nc))
+    np.testing.assert_array_equal(
+        minplus_pass2_plain(flat, band=band).reshape(c, h, w).numpy(), want)
+
+
+def test_minplus_plain_query_forms_match_bruteforce(g2_stack):
+    g2 = g2_stack.reshape(-1, g2_stack.shape[-1])[:120]
+    r, w = g2.shape
+    rng = np.random.default_rng(1)
+    shared = np.array([0, 3, 16, 17, 100, 159], np.int32)
+    per_row = rng.integers(0, w, (r, 5)).astype(np.int32)
+    zeros, full = np.zeros((r, 1), int), np.full((r, 1), w)
+    for qcol, lo, hi in (
+            (shared, 0, w), (per_row, 0, w), (shared, 30, 90),
+            (np.arange(40, 72, dtype=np.int32), 10, 100)):
+        kw = {"qcol": _t(qcol)}
+        if (lo, hi) != (0, w):
+            kw.update(s_lo=lo, s_hi=hi)
+        got = minplus_pass2_plain(_t(g2), **kw).numpy()
+        q2 = np.broadcast_to(qcol, (r, qcol.shape[-1]))
+        want = _brute(g2, q2, zeros + lo, full - w + hi)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_minplus_band_restricts_sources(g2_stack):
+    """A too-narrow band gives the min over exactly the banded chunks."""
+    g2 = g2_stack[1]                           # the sparse field
+    h, w = g2.shape
+    nb = np.zeros((h // BAND_ROWS, -(-w // BAND_COLS)), np.int32)
+    nb[::2] = 1
+    got = minplus_pass2_plain(_t(g2), band=_t(nb)).numpy()
+    qt = np.arange(w) // BAND_COLS
+    rad = nb[np.arange(h) // BAND_ROWS][:, qt]
+    lo = (qt[None, :] - rad) * BAND_COLS
+    hi = (qt[None, :] + rad + 1) * BAND_COLS
+    want = _brute(g2, np.broadcast_to(np.arange(w), (h, w)), lo, hi)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_minplus_wrapper_cpu_and_checks(g2_stack):
+    kernels.reset_launch_counts()
+    g2 = _t(g2_stack[0])
+    np.testing.assert_array_equal(minplus_pass2(g2).numpy(),
+                                  minplus_pass2_plain(g2).numpy())
+    assert kernels.launch_counts()["minplus_pass2"] == 0
+    bad = [
+        dict(g2=g2.double()),
+        dict(g2=g2, qcol=torch.arange(4)),                  # not int32
+        dict(g2=g2, qcol=torch.zeros((3, 2), dtype=torch.int32)),
+        dict(g2=g2, s_lo=50, s_hi=10),
+        dict(g2=g2, band=torch.zeros((2, 2), dtype=torch.int32)),
+        dict(g2=g2, qcol=torch.arange(4, dtype=torch.int32),
+             band=torch.zeros((12, 2), dtype=torch.int32)),
+    ]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            minplus_pass2(**kw)
+    with pytest.raises(ValueError):
+        minplus_pass2(g2.to("meta"))
+
+
+# ---- fused scoring -----------------------------------------------------------
+
+def _scoring_inputs():
+    from leafgrasp_tpu.geometry.grasp_scorer import stem_penalty_map
+    from leafgrasp_tpu.ops.edt import edt
+    mask, depth = make_leaf_scene(height=96, width=160, num_leaves=3,
+                                  seed=1, margin=20)
+    leaf = mask == 2
+    other = (mask > 0) & ~leaf
+    rng = np.random.default_rng(2)
+    fields = [np.asarray(edt(~leaf)), np.zeros(leaf.shape, np.float32),
+              np.asarray(edt(other)), np.asarray(edt(mask == 1)) * 0.5,
+              (rng.random(leaf.shape) * 0.3).astype(np.float32),
+              leaf.astype(np.float32),
+              np.asarray(stem_penalty_map(leaf, JScoringConfig()))]
+    return [np.asarray(f, np.float32) for f in fields]
+
+
+@pytest.mark.parametrize("angle_valid", [True, False])
+@pytest.mark.parametrize("row0", [0, 8])
+def test_fused_scoring_plain_matches_pallas(angle_valid, row0):
+    from leafgrasp_tpu.ops.pallas_scoring import fused_score_maps as jfused
+    fields = _scoring_inputs()
+    angle = np.float32(0.7)
+    frame_h = None if row0 == 0 else 120
+    extra = {} if row0 == 0 else dict(max_sdf=np.float32(30.0),
+                                      max_close=np.float32(25.0),
+                                      max_wide=np.float32(12.0))
+    want = jfused(*fields, CX, CY, F, angle, angle_valid,
+                  cfg=JScoringConfig(), interpret=True,
+                  row0=None if row0 == 0 else row0, frame_height=frame_h,
+                  **extra)
+    got = fused_score_maps_plain(
+        *map(_t, fields), _t(CX), _t(CY), _t(F), _t(angle),
+        _t(angle_valid), cfg=GraspScoringConfig(), row0=row0,
+        frame_height=frame_h, **{k: _t(v) for k, v in extra.items()})
+    assert len(got) == len(want) == 9
+    for i, (a, b) in enumerate(zip(want[:8], got[:8])):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=str(i))
+    np.testing.assert_array_equal(np.asarray(want[8]), got[8].numpy())
+    # the wrapper on CPU tensors is the plain version, with no launch
+    kernels.reset_launch_counts()
+    again = fused_score_maps(
+        *map(_t, fields), _t(CX), _t(CY), _t(F), _t(angle),
+        _t(angle_valid), cfg=GraspScoringConfig(), row0=row0,
+        frame_height=frame_h, **{k: _t(v) for k, v in extra.items()})
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert kernels.launch_counts()["fused_score_maps"] == 0
+
+
+# ---- attention gate ---------------------------------------------------------
+
+def _gate_params(rng, c, r):
+    def n(*shape, s=0.1):
+        return (rng.normal(size=shape) * s).astype(np.float32)
+    return n(c, 1), n(1), n(c, r), n(r), n(r, c), n(c)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_attention_plain_matches_jax(mode):
+    from leafgrasp_tpu.models.attention_pallas import (
+        attention_gate_reference, fused_attention_gate as jfused)
+    rng = np.random.default_rng(0)
+    n, h, w, c, r = 4, 4, 4, 64, 4
+    x = rng.normal(size=(n, h, w, c)).astype(np.float32)
+    params = _gate_params(rng, c, r)
+    ref = np.asarray(attention_gate_reference(x, *params, mode))
+    pallas = np.asarray(jfused(x, *params, mode, interpret=True))
+    xs = _t(x.reshape(n, h * w, c))
+    tp = [_t(p) for p in params]
+    got = attention_gate_plain(xs, *tp, mode).numpy().reshape(n, h, w, c)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
+    kernels.reset_launch_counts()
+    assert torch.equal(fused_attention_gate(xs, *tp, mode),
+                       attention_gate_plain(xs, *tp, mode))
+    assert kernels.launch_counts()["fused_attention_gate"] == 0
+
+
+def test_attention_rejects_unknown_mode():
+    x = torch.zeros((1, 4, 8))
+    params = [torch.zeros(s) for s in ((8, 1), (1,), (8, 2), (2,), (2, 8),
+                                       (8,))]
+    with pytest.raises(ValueError):
+        fused_attention_gate(x, *params, "both")
+
+
+# ---- build ------------------------------------------------------------------
+
+def test_build_flags_and_sources():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    names = sorted(p.name for p in build._sources())
+    assert names == ["attention.cu", "minplus.cu", "scoring.cu"]
+    for p in build._sources():
+        text = p.read_text()
+        assert "extern \"C\" int " in text and "Replaces" in text
+    assert set(build._SIGNATURES) == set(kernels.LAUNCHES)
+    assert len(build._digest(build._sources())) == 16
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._nvcc()
+
