@@ -5,21 +5,35 @@
 
 Phases, each a hard failure (non-zero exit):
 
-1. build the CUDA kernels from ``leafgrasp_tpu_torch/kernels/csrc`` into
-   ``build/kernels/`` (one ``nvcc`` per source, all started together);
+1. build the five CUDA kernels from ``leafgrasp_tpu_torch/kernels/csrc``
+   into ``build/kernels/`` (one ``nvcc`` per source, all started
+   together);
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: fused scoring at 1080 x 1440 (max abs diff
    <= 1e-5, valid mask equal), the attention gate at (20, 16, 256) in all
-   four modes (<= 1e-5), and the min-plus in its full, window, sampled,
-   refinement and banded forms (bit-exact);
+   four modes (<= 1e-5), the min-plus in its full, window, sampled,
+   refinement and banded forms (bit-exact), the row-banded EDT at
+   (1, 540, 720) and (3, 1080, 1440) (bit-exact, radii included), and the
+   segment histogram at 1080 x 1440 with 18 segments (counts equal; the
+   histogram median within range / 256^2 of the sorted median);
 3. drive ``make_frame_fn(with_cnn=True)`` at 1080 x 1440 with the
    standard CNN (seeded weights) on the three ``bench.py`` scene families
-   in the ``reference_self`` and ``union`` modes, with every launch count
-   and the host-read count set to 0 just before and read just after; then
-   hold the first frame of each family and mode against the port's own
-   CPU path (same leaf id and grasp pixel);
+   in the ``reference_self``, ``union`` and ``union_half`` modes, and
+   ``select_optimal_leaf(hist_median=True)`` on each family (same leaf
+   as the default), with every launch count and the host-read count set
+   to 0 just before and read just after; then hold the first frame of
+   each family and mode against the port's own CPU path (same leaf id
+   and grasp pixel);
 4. profile one frame per mode (``torch.profiler``): device busy time and
-   the kernels that take it.
+   the kernels that take it;
+5. drive a ``GraspService`` (``union_half``, standard CNN) on the card
+   through ``on_mask`` / ``on_depth`` / ``process_pending``: once with
+   ``pipeline_depth=0`` and a recorder, once with depth 2 plus
+   ``flush()``, once replaying the recorded log; the three runs must
+   publish the same messages in the same order, and the first frame of
+   each family the message of a ``device="cpu"`` service (pixel equal,
+   floats within 1e-6). The launch counts are set to 0 before and read
+   after, and must be non-zero for every kernel on the service's path.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -33,6 +47,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -45,8 +60,18 @@ CX, CY, F = np.float32(707.87), np.float32(494.07), np.float32(1750.68)
 # (name, num_leaves, seed, margin): the bench families (bench.py:37-41)
 FAMILIES = [("sparse", 6, 8, 120), ("crowded", 12, 3, 60),
             ("large_leaf", 3, 5, 260)]
-MODES = ("reference_self", "union")
-FRAMES_PER_CELL = 3
+MODES = ("reference_self", "union", "union_half")
+FRAMES_PER_CELL = 2
+SERVICE_MODE = "union_half"
+SERVICE_FRAMES_PER_FAMILY = 2
+# kernels the service's path runs; the histogram is taken on request only
+SERVICE_KERNELS = ("minplus_pass2", "fused_score_maps",
+                   "fused_attention_gate", "squared_edt_rowband")
+SERVICE_FLOAT_TOL = 1e-6
+KERNEL_FUNCTIONS = ("minplus_pass2_kernel", "fused_score_maps_kernel",
+                    "fused_attention_gate_kernel", "rowband_kernel",
+                    "rowband_pool_kernel", "rowband_radius_kernel",
+                    "segment_histogram_kernel")
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -87,7 +112,7 @@ def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.key.startswith(kernel))
+                if ev.key.split("(")[0].endswith(kernel))
     if total <= 0:
         raise RuntimeError(f"the profiler saw no {kernel}")
     return total / 1e3 / iters
@@ -282,6 +307,167 @@ def check_attention(torch, dev):
     return rec
 
 
+def rowband_pairs(nb, h: int, w: int) -> int:
+    """(output, candidate row) pairs inside the tiles' row bands."""
+    from leafgrasp_tpu_torch.kernels.rowband import TILE_COLS, TILE_ROWS
+    nb = nb.cpu().numpy().astype(np.int64)
+    rt = np.arange(nb.shape[1])
+    row0 = rt * TILE_ROWS
+    rows = np.minimum(TILE_ROWS, h - row0)[None, :, None]
+    cols = np.minimum(TILE_COLS, w - np.arange(nb.shape[2])
+                      * TILE_COLS)[None, None, :]
+    lo = np.maximum(row0[None, :, None] - nb, 0)
+    hi = np.minimum(row0[None, :, None] + TILE_ROWS - 1 + nb, h - 1)
+    return int((rows * cols * (hi - lo + 1)).sum())
+
+
+def check_rowband(torch, dev, leaf, other):
+    """The row-banded EDT at the path's shape (the pooled, dilated
+    interference at half resolution) and on three full frames,
+    bit-exact against the full sweep, radii included."""
+    from leafgrasp_tpu_torch.kernels.rowband import (
+        rowband_radii_plain, squared_edt_rowband, squared_edt_rowband_plain)
+    from leafgrasp_tpu_torch.ops.edt import nearest_seed_dist_1d
+    from leafgrasp_tpu_torch.ops.morphology import dilate, elliptical_kernel
+
+    inter = dilate(other, elliptical_kernel(40))
+    pooled = inter.reshape(H // 2, 2, W // 2, 2).any(dim=3).any(dim=1)
+    forms = {"half": pooled[None],
+             "full3": torch.stack([~leaf, leaf, other])}
+    out = {}
+    for name, seeds in forms.items():
+        g = nearest_seed_dist_1d(seeds, axis=2).to(torch.float32)
+        g2r = (g * g).contiguous()
+        c, h, w = g2r.shape
+        got, nb = squared_edt_rowband(g2r, return_radii=True)
+        want = squared_edt_rowband_plain(g2r)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"rowband {name}: kernel != plain, max abs "
+                               f"diff {err}")
+        if not torch.equal(nb, rowband_radii_plain(g2r)):
+            raise RuntimeError(f"rowband {name}: radii != plain radii")
+        pairs = rowband_pairs(nb, h, w)
+        b_ms, b_by = bound(8.0 * c * h * w, 2.0 * pairs)
+        full_ms, _ = bound(8.0 * c * h * w, 2.0 * c * h * h * w)
+
+        def run():
+            return squared_edt_rowband(g2r)
+
+        out[name] = {
+            "shape": [c, h, w], "max_abs_err": err,
+            "pairs_in_band": pairs, "pairs_full_sweep": c * h * h * w,
+            "ms": kernel_ms(run, "rowband_kernel")
+            + kernel_ms(run, "rowband_pool_kernel")
+            + kernel_ms(run, "rowband_radius_kernel"),
+            "sweep_ms": kernel_ms(run, "rowband_kernel"),
+            # the sweep by the number of thread slices per tile (the
+            # default is kernels/rowband.py DEFAULT_SPLIT)
+            "sweep_ms_by_split": {
+                str(k): kernel_ms(
+                    lambda k=k: squared_edt_rowband(g2r, split=k),
+                    "rowband_kernel") for k in (1, 2, 4, 8)},
+            "wrapper_ms": cuda_ms(run),
+            "plain_ms": cuda_ms(lambda: squared_edt_rowband_plain(g2r),
+                                iters=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "full_sweep_bound_ms": full_ms}
+        log(f"rowband {name} {json.dumps(out[name])}")
+    half = out["half"]
+    return {"name": "squared_edt_rowband", "route": "cuda",
+            "source": "leafgrasp_tpu_torch/kernels/csrc/rowband.cu",
+            "replaces": "leafgrasp_tpu/ops/pallas_edt.py:215",
+            "tolerance": 0.0, "max_abs_err": max(
+                f["max_abs_err"] for f in out.values()),
+            "ms": half["ms"], "wrapper_ms": half["wrapper_ms"],
+            "plain_ms": half["plain_ms"], "bound_ms": half["bound_ms"],
+            "bound_by": half["bound_by"], "library_ms": None, "forms": out}
+
+
+def check_histogram(torch, dev, mask, depth):
+    """The segment histogram at 1080 x 1440 with 18 segments, at the
+    first level and at a refined level, counts equal; then the median
+    built on it against the sorted median."""
+    from leafgrasp_tpu_torch.kernels.histogram import (
+        NBINS, segment_histogram, segment_histogram_plain)
+    from leafgrasp_tpu_torch.ops.median import _refine, masked_median_hist
+
+    num = 18
+    ids = torch.clamp(mask, 0, num - 1).to(torch.int32)
+    counts = torch.bincount(ids.reshape(-1).to(torch.int64), minlength=num)
+    dmin, dmax = depth.min(), depth.max()
+    span = torch.clamp(dmax - dmin, min=1e-12)
+    lo1, w1 = dmin.expand(num).contiguous(), span.expand(num).contiguous()
+    hist1 = segment_histogram(depth, ids, lo1, NBINS / w1, num)
+    lo2, w2 = _refine(hist1, (counts // 2).to(torch.float32), lo1, w1)
+    levels = {"level1": (lo1, NBINS / w1), "level2": (lo2, NBINS / w2)}
+    out = {}
+    for name, (lo, inv_w) in levels.items():
+        got = segment_histogram(depth, ids, lo, inv_w, num)
+        want = segment_histogram_plain(depth, ids, lo, inv_w, num)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want) or float(got.sum()) != H * W:
+            raise RuntimeError(f"segment_histogram {name}: counts differ, "
+                               f"max abs diff {err}")
+        idl = ids.reshape(-1).to(torch.int64)
+        key = idl * NBINS + torch.clamp(
+            (depth.reshape(-1) - lo[idl]) * inv_w[idl], 0.0,
+            float(NBINS - 1)).to(torch.int64)
+        if not torch.equal(torch.bincount(key, minlength=num * NBINS)
+                           .reshape(num, NBINS).to(torch.float32), got):
+            raise RuntimeError(f"segment_histogram {name}: bincount differs")
+        b_ms, b_by = bound(8.0 * H * W + 8.0 * num + 4.0 * num * NBINS,
+                           4.0 * H * W)
+        out[name] = {
+            "max_abs_err": err,
+            "ms": kernel_ms(
+                lambda: segment_histogram(depth, ids, lo, inv_w, num),
+                "segment_histogram_kernel"),
+            "wrapper_ms": cuda_ms(
+                lambda: segment_histogram(depth, ids, lo, inv_w, num)),
+            "plain_ms": cuda_ms(
+                lambda: segment_histogram_plain(depth, ids, lo, inv_w, num)),
+            # one library call on the precomputed keys
+            "library_ms": cuda_ms(
+                lambda: torch.bincount(key, minlength=num * NBINS)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        log(f"segment_histogram {name} {json.dumps(out[name])}")
+
+    med = masked_median_hist(depth, ids, counts, num)
+    med_err = 0.0
+    tol = float(span) / NBINS ** 2
+    for n in range(num):
+        if int(counts[n]) == 0:
+            continue
+        want = torch.sort(depth[ids == n]).values
+        k = int(counts[n])
+        ref = 0.5 * (float(want[(k - 1) // 2]) + float(want[k // 2]))
+        med_err = max(med_err, abs(float(med[n]) - ref))
+    if med_err > tol:
+        raise RuntimeError(f"masked_median_hist: off by {med_err} > {tol}")
+    from leafgrasp_tpu_torch.ops.components import masked_median
+    med_ms = {
+        "hist_ms": cuda_ms(
+            lambda: masked_median_hist(depth, ids, counts, num)),
+        "bisection_ms": cuda_ms(
+            lambda: masked_median(depth, ids, counts, num)),
+        "max_abs_err_vs_sorted": med_err, "tolerance": tol}
+    log(f"masked_median {json.dumps(med_ms)}")
+    first = out["level1"]
+    return {"name": "segment_histogram", "route": "cuda",
+            "source": "leafgrasp_tpu_torch/kernels/csrc/histogram.cu",
+            "replaces": "leafgrasp_tpu/ops/pallas_median.py:76",
+            "tolerance": 0.0, "max_abs_err": max(
+                f["max_abs_err"] for f in out.values()),
+            "ms": first["ms"], "wrapper_ms": first["wrapper_ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "levels": out,
+            "median": med_ms}
+
+
 def check_kernels(torch, dev, mask_np, depth_np):
     """Phase 2: each kernel against its plain version."""
     mask = torch.as_tensor(mask_np.astype(np.int32), device=dev)
@@ -290,7 +476,28 @@ def check_kernels(torch, dev, mask_np, depth_np):
     other = (mask > 0) & ~leaf
     return [check_minplus(torch, dev, leaf, other),
             check_scoring(torch, dev, leaf, other, depth),
-            check_attention(torch, dev)]
+            check_attention(torch, dev),
+            check_rowband(torch, dev, leaf, other),
+            check_histogram(torch, dev, mask, depth)]
+
+
+def hist_median_leaf_choice(torch, dev, scenes):
+    """``select_optimal_leaf`` with the histogram median picks the leaf
+    the bisection median picks, on each family."""
+    from leafgrasp_tpu_torch.geometry.leaf_scorer import select_optimal_leaf
+    cx, cy, f = (torch.tensor(v, device=dev) for v in (CX, CY, F))
+    for name, (mask, depth) in scenes.items():
+        m = torch.as_tensor(mask.astype(np.int32), device=dev)
+        d = torch.as_tensor(depth, device=dev)
+        with torch.no_grad():
+            a = select_optimal_leaf(m, d, cx, cy, f)
+            b = select_optimal_leaf(m, d, cx, cy, f, hist_median=True)
+        got = (int(b.best_leaf_id), b.is_tall.tolist())
+        want = (int(a.best_leaf_id), a.is_tall.tolist())
+        log(f"leaf choice {name}: hist_median leaf {got[0]}, default "
+            f"{want[0]}")
+        if got != want or not bool(a.found):
+            raise RuntimeError(f"{name}: hist_median {got} != default {want}")
 
 
 def run_frames(torch, dev, fns, model, scenes):
@@ -318,8 +525,9 @@ def run_frames(torch, dev, fns, model, scenes):
                     results[(mode, name)] = res
             frame_ms[f"{mode}/{name}"] = {
                 "median_ms": statistics.median(times), "ms": times}
-    counts = launch_counts()
     reads = host_reads()
+    hist_median_leaf_choice(torch, dev, scenes)
+    counts = launch_counts()
     return results, counts, reads, frame_ms
 
 
@@ -363,10 +571,9 @@ def profile_frames(torch, fns, model, scenes):
                                 ev.key))
         kernels.sort(reverse=True)
         busy = sum(k[0] for k in kernels)
-        ours = {name: {"ms": ms, "count": n} for ms, n, name in kernels
-                if name.split("(")[0].endswith(("minplus_pass2_kernel",
-                                                 "fused_score_maps_kernel",
-                                                 "fused_attention_gate_kernel"))}
+        ours = {name.split("(")[0]: {"ms": ms, "count": n}
+                for ms, n, name in kernels
+                if name.split("(")[0].endswith(KERNEL_FUNCTIONS)}
         out[mode] = {
             "wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms if busy else None,
@@ -376,6 +583,132 @@ def profile_frames(torch, fns, model, scenes):
                     for ms, n, name in kernels[:10]]}
         log(f"profile {mode}/sparse {json.dumps(out[mode])}")
     return out
+
+
+def _same_message(a: str, b: str, tol: float) -> bool:
+    """Pixel fields equal, float fields within ``tol``."""
+    pa, pb = a.split(","), b.split(",")
+    return len(pa) == len(pb) and pa[:2] == pb[:2] and all(
+        abs(float(x) - float(y)) <= tol for x, y in zip(pa[2:], pb[2:]))
+
+
+def run_service(torch, dev, cfg, model, model_cpu, scenes):
+    """Phase 5: the grasp service on the card."""
+    from leafgrasp_tpu_torch.io.framelog import FrameLogReader
+    from leafgrasp_tpu_torch.io.scenes import default_projection
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.pipeline.ingest import GraspService
+    from leafgrasp_tpu_torch.pipeline.visualizer import LeafVisualizer
+    from leafgrasp_tpu_torch.utils.device import (host_reads,
+                                                  reset_host_reads)
+
+    frames = []
+    for name, *_ in FAMILIES:
+        mask, depth = scenes[name]
+        for i in range(SERVICE_FRAMES_PER_FAMILY):
+            frames.append((name, i, np.roll(mask, 3 * i, axis=1),
+                           np.roll(depth, 3 * i, axis=1)))
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    log_path = os.path.join(out_dir, "service.lflg")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+
+    def make(msgs, device=None, cnn=model, **kw):
+        svc = GraspService(cfg, cnn=cnn, publish=msgs.append,
+                           min_interval_s=0.0, device=device, **kw)
+        svc.set_camera_params(default_projection())
+        return svc
+
+    def push(svc, stream):
+        outs = []
+        for stamp, (mask, depth) in enumerate(stream):
+            svc.on_mask(mask, stamp_us=stamp)
+            svc.on_depth(depth, stamp_us=stamp)
+            outs.append(svc.process_pending(force=True))
+        return outs
+
+    stream = [(m, d) for _, _, m, d in frames]
+    make([]).process_frame(*stream[0])            # warm-up, uncounted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_host_reads()
+
+    sync_msgs, piped_msgs, replay_msgs = [], [], []
+    svc = make(sync_msgs, record_path=log_path)
+    t0 = time.perf_counter()
+    sync_outs = push(svc, stream)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    svc.stop()
+    reads = host_reads()
+    if any(o is None or not o["found"] for o in sync_outs):
+        raise RuntimeError("service: a frame was dropped or found no grasp")
+    log(f"service frame bus: {'native' if svc.bus.is_native else 'python'}")
+    log(f"service pipeline_depth=0: {len(stream)} frames in {sync_s:.3f} s, "
+        f"{len(stream) / sync_s} frames/s, host reads per frame "
+        f"{reads / len(stream)}")
+    log(f"service stages {json.dumps(svc.stats()['stages'])}")
+    log(svc.timer.report())
+
+    piped = make(piped_msgs, pipeline_depth=2)
+    t0 = time.perf_counter()
+    outs = push(piped, stream)
+    late = piped.flush()
+    torch.cuda.synchronize()
+    piped_s = time.perf_counter() - t0
+    order = [o["frame_index"] for o in outs if o is not None] \
+        + [o["frame_index"] for o in late]
+    if outs[0] is not None or outs[1] is not None \
+            or order != list(range(len(stream))):
+        raise RuntimeError(f"service pipeline_depth=2: order {order}")
+    log(f"service pipeline_depth=2: {len(stream)} frames in {piped_s:.3f} "
+        f"s, {len(stream) / piped_s} frames/s")
+
+    replay = make(replay_msgs)
+    with FrameLogReader(log_path) as rd:
+        if len(rd) != len(stream):
+            raise RuntimeError(f"service log holds {len(rd)} frames, not "
+                               f"{len(stream)}")
+        for mask, depth, stamp in rd:
+            replay.process_frame(np.array(mask), np.array(depth),
+                                 mask_stamp=stamp)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not (sync_msgs == piped_msgs == replay_msgs) \
+            or len(sync_msgs) != len(stream):
+        raise RuntimeError(f"service runs disagree: {sync_msgs} / "
+                           f"{piped_msgs} / {replay_msgs}")
+    missing = [k for k in SERVICE_KERNELS if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"the service launched no {missing}")
+    log(f"phase 5: three service runs of {len(stream)} frames published "
+        f"the same messages; launches {json.dumps(counts)}")
+
+    cpu_msgs = []
+    cpu = make(cpu_msgs, device="cpu", cnn=model_cpu)
+    for k, (name, i, mask, depth) in enumerate(frames):
+        if i != 0:
+            continue
+        cpu.process_frame(mask, depth)
+        same = sync_msgs[k] == cpu_msgs[-1]
+        log(f"service {name}: card {sync_msgs[k]} cpu {cpu_msgs[-1]} "
+            f"identical {same}")
+        if not _same_message(sync_msgs[k], cpu_msgs[-1], SERVICE_FLOAT_TOL):
+            raise RuntimeError(f"service {name}: card message "
+                               f"{sync_msgs[k]} != cpu {cpu_msgs[-1]}")
+
+    res = sync_outs[0]["result"]
+    tall = [i + 1 for i, t in enumerate(res.leaf_selection.is_tall) if t]
+    image = LeafVisualizer().render(stream[0][0], int(res.leaf_id),
+                                    res.grasp_uv, res.grasp_xyz,
+                                    res.pre_grasp_xyz, tall_leaves=tall)
+    if image.shape != (H, W, 3) or not image.any():
+        raise RuntimeError(f"visualizer rendered {image.shape}")
+    log("phase 5: card messages match the CPU service; visualizer rendered")
+    return counts
 
 
 def main() -> int:
@@ -441,8 +774,13 @@ def main() -> int:
     profile_frames(torch, fns, model, scenes)
     log("phase 4: profiled")
 
+    service_counts = run_service(torch, dev, cfgs[SERVICE_MODE], model,
+                                 model_cpu, scenes)
+
     for rec in records:
-        rec["launches"] = counts[rec["name"]]
+        rec["launches_frames"] = counts[rec["name"]]
+        rec["launches_service"] = service_counts[rec["name"]]
+        rec["launches"] = counts[rec["name"]] + service_counts[rec["name"]]
     log(card_line())
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

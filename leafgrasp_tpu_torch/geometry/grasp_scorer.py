@@ -10,8 +10,9 @@ window that fits (else the banded sweep). The score maps come from the
 fused scoring kernel (kernels/scoring.py), whose plain version is the
 JAX package's unfused composition.
 
-Isolation modes: ``union`` (default), ``reference_self``, and the
-CV-only skip. ``union_half`` is not ported yet.
+Isolation modes: ``union`` (default), ``union_half`` (the interference
+fields at half resolution through ``edt_batch``, i.e. the row-banded
+kernel), ``reference_self``, and the CV-only skip.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from leafgrasp_tpu_torch.config import GraspScoringConfig
 from leafgrasp_tpu_torch.kernels.scoring import fused_score_maps
 from leafgrasp_tpu_torch.ops.conv import gradient_magnitude
-from leafgrasp_tpu_torch.ops.edt import (directional_seed_dist_1d,
+from leafgrasp_tpu_torch.ops.edt import (directional_seed_dist_1d, edt_batch,
                                         edt_max_argmax,
                                         edt_max_argmax_batch, exact_sqrt,
                                         nearest_seed_dist_1d, squared_edt,
@@ -100,6 +101,21 @@ def _leaf_fields(g2s: torch.Tensor, m: torch.Tensor, bbox,
                         for i in range(g2s.shape[0])])
 
 
+def _half_edt(inter: torch.Tensor) -> torch.Tensor:
+    """EDT of an interference mask at half resolution: 2x2 any-pool,
+    ``edt_batch``, pixel scale x2, nearest upsample, edge pad for odd
+    sizes."""
+    h, w = inter.shape
+    hh, wh = h // 2, w // 2
+    pooled = inter[:hh * 2, :wh * 2].reshape(hh, 2, wh, 2).any(dim=3) \
+        .any(dim=1)
+    d = edt_batch(pooled[None])[0] * 2.0
+    up = d.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    return torch.nn.functional.pad(up[None, None],
+                                   (0, w - wh * 2, 0, h - hh * 2),
+                                   mode="replicate")[0, 0]
+
+
 def compute_grasp_scores(leaf_mask: torch.Tensor, all_mask: torch.Tensor,
                          depth: torch.Tensor, camera_cx, camera_cy, f_norm,
                          cfg: GraspScoringConfig = GraspScoringConfig(),
@@ -116,9 +132,8 @@ def compute_grasp_scores(leaf_mask: torch.Tensor, all_mask: torch.Tensor,
     depth = depth.to(torch.float32)
     dev = m.device
     iso_mode = "skip" if skip_isolation else cfg.isolation_context
-    if iso_mode not in ("union", "reference_self", "skip"):
-        raise NotImplementedError(
-            f"isolation_context {iso_mode!r} is not ported yet")
+    if iso_mode not in ("union", "union_half", "reference_self", "skip"):
+        raise ValueError(f"unknown isolation_context {iso_mode!r}")
     env_kw = {}
     if cfg.envelope_stride:
         env_kw["stride"] = cfg.envelope_stride
@@ -169,6 +184,15 @@ def compute_grasp_scores(leaf_mask: torch.Tensor, all_mask: torch.Tensor,
         g2 = g * g
         din = _leaf_fields(g2[:1], m, bbox, cfg, field_bound=din_bound)[0]
         max_dout, _ = edt_max_argmax(m, g2=g2[1], **env_kw)
+    if iso_mode == "union_half":
+        other = all_mask.to(torch.bool) & ~m
+        dclose = _half_edt(dilate(other, elliptical_kernel(
+            cfg.isolation_close_kernel)))
+        dwide = _half_edt(dilate(other, elliptical_kernel(
+            cfg.isolation_wide_kernel)))
+        close_max = dclose.max()
+        wide_max = dwide.max()
+    elif iso_mode != "union":
         # reference_self: empty interference -> cv2 FLT_MAX field ->
         # normalized score 1 everywhere; skip: zero field -> score 0
         fill = 0.0 if skip_isolation else 1.0

@@ -33,11 +33,14 @@ class LeafSelection(NamedTuple):
 def select_optimal_leaf(mask_ids: torch.Tensor, depth: torch.Tensor,
                         camera_cx, camera_cy, f_norm,
                         cfg: LeafSelectionConfig = LeafSelectionConfig(),
-                        frame: FrameConfig = FrameConfig()) -> LeafSelection:
-    """Select the optimal leaf id from an instance map + depth frame."""
+                        frame: FrameConfig = FrameConfig(),
+                        hist_median: bool = False) -> LeafSelection:
+    """Select the optimal leaf id from an instance map + depth frame.
+    ``hist_median`` is handed to ``leaf_stats`` (medians from the
+    histogram kernel instead of the bisection)."""
     h, w = mask_ids.shape
     stats = leaf_stats(mask_ids, depth, frame.max_leaves, camera_cx,
-                       camera_cy, f_norm)
+                       camera_cy, f_norm, hist_median=hist_median)
     # global SDF extrema (leaf_scorer.py:66-71): argmin is the first
     # foreground pixel, argmax the background pixel farthest from any leaf
     fg = mask_ids > 0

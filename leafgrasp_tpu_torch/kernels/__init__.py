@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the port and their launch counts.
 
 Each wrapper (``minplus.minplus_pass2``, ``scoring.fused_score_maps``,
-``attention.fused_attention_gate``) takes the plain PyTorch version for
-a CPU tensor and launches its kernel for a CUDA tensor; it adds one to
-its count where it launches, and nowhere else.
+``attention.fused_attention_gate``, ``rowband.squared_edt_rowband``,
+``histogram.segment_histogram``) takes the plain PyTorch version for a
+CPU tensor and launches its kernel for a CUDA tensor; it adds one to its
+count where it launches, and nowhere else.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 __all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]
 
 LAUNCHES = {"minplus_pass2": 0, "fused_score_maps": 0,
-            "fused_attention_gate": 0}
+            "fused_attention_gate": 0, "squared_edt_rowband": 0,
+            "segment_histogram": 0}
 
 
 def launch_counts() -> dict:

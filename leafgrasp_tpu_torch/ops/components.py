@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from leafgrasp_tpu_torch.ops.median import masked_median_hist
+
 __all__ = ["LeafStats", "leaf_stats", "masked_median"]
 
 
@@ -34,7 +36,7 @@ class LeafStats(NamedTuple):
     centroid_x: torch.Tensor     # float32
     centroid_y: torch.Tensor     # float32
     mean_depth: torch.Tensor     # float32
-    median_depth: torch.Tensor   # float32 (18-round bisection)
+    median_depth: torch.Tensor   # float32 (bisection, or the histogram)
     mean_ray_norm: torch.Tensor  # float32
     border_contact: torch.Tensor  # bool
     present: torch.Tensor        # bool
@@ -76,10 +78,17 @@ def masked_median(depth: torch.Tensor, ids: torch.Tensor,
 
 
 def leaf_stats(mask_ids: torch.Tensor, depth: torch.Tensor,
-               max_leaves: int, camera_cx, camera_cy, f_norm) -> LeafStats:
+               max_leaves: int, camera_cx, camera_cy, f_norm,
+               hist_median: bool = False) -> LeafStats:
     """All per-leaf statistics of an (H, W) instance map (0 = background,
     ids above ``max_leaves`` go to an overflow bucket) and f32 depth.
-    ``camera_cx/cy``/``f_norm`` are f32 0-dim tensors or numbers."""
+    ``camera_cx/cy``/``f_norm`` are f32 0-dim tensors or numbers.
+
+    ``hist_median`` takes the medians from the two-level histogram
+    (ops/median.py, three launches of the segment histogram kernel)
+    instead of the 18-round bisection; the two agree within
+    range / 256^2, not bit for bit, so the bisection is the default (the
+    counterpart of the JAX package's ``use_pallas`` argument here)."""
     h, w = mask_ids.shape
     dev = mask_ids.device
     num_seg = max_leaves + 2  # 0 = background, 1..L = leaves, L+1 overflow
@@ -110,7 +119,10 @@ def leaf_stats(mask_ids: torch.Tensor, depth: torch.Tensor,
     border_counts = seg_sum(border)
     area_f = area_all.to(torch.float32)
     safe_area = torch.clamp(area_f, min=1.0)
-    median_all = masked_median(depth, ids, area_all, num_seg)
+    if hist_median:
+        median_all = masked_median_hist(depth, ids, area_all, num_seg)
+    else:
+        median_all = masked_median(depth, ids, area_all, num_seg)
 
     sl = slice(1, max_leaves + 1)
     area = area_all[sl].to(torch.int32)

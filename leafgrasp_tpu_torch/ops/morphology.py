@@ -19,7 +19,7 @@ import torch
 
 from leafgrasp_tpu_torch.ops.edt import directional_seed_dist_1d, shift_cols
 
-__all__ = ["elliptical_kernel", "dilate", "erode",
+__all__ = ["elliptical_kernel", "dilate", "erode", "morphological_boundary",
            "dilated_vertical_dist_multi"]
 
 
@@ -89,6 +89,16 @@ def dilate(mask: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
 def erode(mask: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     """Binary erosion with OpenCV border semantics (OOB = foreground)."""
     return ~dilate(~mask.to(torch.bool), kernel)
+
+
+def morphological_boundary(mask: torch.Tensor,
+                           kernel: np.ndarray | None = None) -> torch.Tensor:
+    """mask minus its erosion: the reference's tip/contour band
+    (grasp_point_selector.py:705-708)."""
+    if kernel is None:
+        kernel = elliptical_kernel(3, 3)
+    m = mask.to(torch.bool)
+    return m & ~erode(m, kernel)
 
 
 def _col_runs(kernel: np.ndarray):

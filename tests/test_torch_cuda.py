@@ -6,9 +6,10 @@ machine run it alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Without a CUDA device every test here skips. Tolerances: min-plus
-bit-exact (integer-valued f32 below 2^24); fused scoring 1e-5 absolute,
-valid mask equal; attention gate 1e-5 absolute.
+Without a CUDA device every test here skips. Tolerances: min-plus and
+row-banded EDT bit-exact (integer-valued f32 below 2^24); fused scoring
+1e-5 absolute, valid mask equal; attention gate 1e-5 absolute; segment
+histogram counts equal.
 """
 
 import numpy as np
@@ -22,8 +23,13 @@ from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
 from leafgrasp_tpu_torch.kernels.attention import (MODES,
                                                    attention_gate_plain,
                                                    fused_attention_gate)
+from leafgrasp_tpu_torch.kernels.histogram import (NBINS, segment_histogram,
+                                                   segment_histogram_plain)
 from leafgrasp_tpu_torch.kernels.minplus import (BAND_ROWS, minplus_pass2,
                                                  minplus_pass2_plain)
+from leafgrasp_tpu_torch.kernels.rowband import (rowband_radii_plain,
+                                                 squared_edt_rowband,
+                                                 squared_edt_rowband_plain)
 from leafgrasp_tpu_torch.kernels.scoring import (fused_score_maps,
                                                  fused_score_maps_plain)
 from leafgrasp_tpu_torch.ops.edt import edt, nearest_seed_dist_1d
@@ -103,3 +109,52 @@ def test_attention_kernel_matches_plain_on_card(cuda):
         got = fused_attention_gate(x, *params, mode)
         want = attention_gate_plain(x, *params, mode)
         assert float((got - want).abs().max()) <= 1e-5, mode
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (75, 130), (540, 720)])
+def test_rowband_kernel_matches_plain_on_card(cuda, shape):
+    """Dense, single-leaf, sparse and seedless channels; odd sizes leave
+    ragged row and column tiles. Bit-exact, radii included."""
+    h, w = shape
+    mask, _ = make_leaf_scene(height=h, width=w, num_leaves=3, seed=4,
+                              margin=min(h, w) // 5)
+    rng = np.random.default_rng(9)
+    seeds = torch.as_tensor(np.stack([
+        mask > 0, mask == 2, rng.random((h, w)) < 0.002,
+        np.zeros((h, w), bool)]), device=cuda)
+    g = nearest_seed_dist_1d(seeds, axis=2).to(torch.float32)
+    g2r = (g * g).contiguous()
+    kernels.reset_launch_counts()
+    got, nb = squared_edt_rowband(g2r, return_radii=True)
+    torch.cuda.synchronize()
+    want = squared_edt_rowband_plain(g2r)
+    assert torch.equal(got, want)
+    assert torch.equal(nb, rowband_radii_plain(g2r))
+    assert kernels.launch_counts()["squared_edt_rowband"] == 1
+    for split in (1, 3, 8):
+        assert torch.equal(squared_edt_rowband(g2r, split=split), want), split
+    # a seedless channel keeps the sentinel (H + W)^2 everywhere
+    assert torch.all(got[3] == float((h + w) ** 2))
+
+
+@pytest.mark.parametrize("shape,num", [((40, 70), 5), ((1080, 1440), 18),
+                                       ((33, 1001), 60)])
+def test_histogram_kernel_matches_plain_on_card(cuda, shape, num):
+    """Counts equal; ids outside [0, num) count nowhere; 60 segments
+    need more than 48 KB of shared memory."""
+    rng = np.random.default_rng(11)
+    depth = torch.as_tensor((rng.random(shape) * 0.5 + 0.3)
+                            .astype(np.float32), device=cuda)
+    ids = torch.as_tensor(rng.integers(-1, num + 2, shape).astype(np.int32),
+                          device=cuda)
+    lo = torch.as_tensor((0.3 + rng.random(num) * 0.2).astype(np.float32),
+                         device=cuda)
+    inv_w = NBINS / torch.as_tensor(
+        (0.05 + rng.random(num) * 0.4).astype(np.float32), device=cuda)
+    kernels.reset_launch_counts()
+    got = segment_histogram(depth, ids, lo, inv_w, num)
+    torch.cuda.synchronize()
+    want = segment_histogram_plain(depth, ids, lo, inv_w, num)
+    assert torch.equal(got, want)
+    assert float(got.sum()) == float(((ids >= 0) & (ids < num)).sum())
+    assert kernels.launch_counts()["segment_histogram"] == 1

@@ -1,4 +1,6 @@
-"""The port's three kernel modules: plain versions against the JAX
+"""The port's first three kernel modules (min-plus, fused scoring,
+attention gate; the row-banded EDT and the segment histogram are in
+tests/test_torch_edt_median.py): plain versions against the JAX
 package's Pallas kernels (interpret mode) and oracles, the wrappers'
 CPU dispatch and argument checks, and the build's flags. The kernels
 themselves are held against their plain versions on the card by
@@ -246,7 +248,8 @@ def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     names = sorted(p.name for p in build._sources())
-    assert names == ["attention.cu", "minplus.cu", "scoring.cu"]
+    assert names == ["attention.cu", "histogram.cu", "minplus.cu",
+                     "rowband.cu", "scoring.cu"]
     for p in build._sources():
         text = p.read_text()
         assert "extern \"C\" int " in text and "Replaces" in text

@@ -459,10 +459,15 @@ def test_grasp_scores_leaf_window_src_pad(scene):
 def test_grasp_scores_reject_unported_mode(scene):
     from leafgrasp_tpu_torch.geometry.grasp_scorer import compute_grasp_scores
     mask, depth = scene
-    with pytest.raises(NotImplementedError):
+    args = (_t(mask == 1), _t(mask > 0), _t(depth), _t(CX), _t(CY), _t(F))
+    # every mode of the JAX package is ported: ``union_half`` runs, and
+    # only a name that is no mode at all is rejected
+    out = compute_grasp_scores(
+        *args, cfg=tcfg.GraspScoringConfig(isolation_context="union_half"))
+    assert out.valid_region.dtype == torch.bool
+    with pytest.raises(ValueError, match="isolation_context"):
         compute_grasp_scores(
-            _t(mask == 1), _t(mask > 0), _t(depth), _t(CX), _t(CY), _t(F),
-            cfg=tcfg.GraspScoringConfig(isolation_context="union_half"))
+            *args, cfg=tcfg.GraspScoringConfig(isolation_context="halves"))
 
 
 @pytest.mark.parametrize("norm", ["reference_minmax", "train_stats"])
