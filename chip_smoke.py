@@ -18,12 +18,14 @@ Phases, each a hard failure (non-zero exit):
    histogram median within range / 256^2 of the sorted median);
 3. drive ``make_frame_fn(with_cnn=True)`` at 1080 x 1440 with the
    standard CNN (seeded weights) on the three ``bench.py`` scene families
-   in the ``reference_self``, ``union`` and ``union_half`` modes, and
-   ``select_optimal_leaf(hist_median=True)`` on each family (same leaf
-   as the default), with every launch count and the host-read count set
-   to 0 just before and read just after; then hold the first frame of
-   each family and mode against the port's own CPU path (same leaf id
-   and grasp pixel);
+   in the ``reference_self``, ``union`` and ``union_half`` modes, and in
+   ``union_half`` once more with ``hist_median=True`` (the medians of
+   leaf selection through the histogram kernel), with every launch
+   count and the host-read count set to 0 just before and read just
+   after; then hold the first frame of each family and variant against
+   the port's own CPU path built the same way (same leaf id and grasp
+   pixel), and the ``hist_median`` frames against the default's (same
+   leaf, same tall leaves, same pixel);
 4. profile one frame per mode (``torch.profiler``): device busy time and
    the kernels that take it;
 5. drive a ``GraspService`` (``union_half``, standard CNN) on the card
@@ -32,8 +34,10 @@ Phases, each a hard failure (non-zero exit):
    ``flush()``, once replaying the recorded log; the three runs must
    publish the same messages in the same order, and the first frame of
    each family the message of a ``device="cpu"`` service (pixel equal,
-   floats within 1e-6). The launch counts are set to 0 before and read
-   after, and must be non-zero for every kernel on the service's path.
+   floats within 1e-6). A fourth service built with ``hist_median=True``
+   takes the first frames of each family and must publish the default's
+   messages (pixel equal, floats within 1e-6). The launch counts are set
+   to 0 before and read after, and must be non-zero for every kernel.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -61,12 +65,14 @@ CX, CY, F = np.float32(707.87), np.float32(494.07), np.float32(1750.68)
 FAMILIES = [("sparse", 6, 8, 120), ("crowded", 12, 3, 60),
             ("large_leaf", 3, 5, 260)]
 MODES = ("reference_self", "union", "union_half")
+# frame-function variants: name -> (isolation mode, hist_median)
+HIST_VARIANT = "union_half+hist_median"
+VARIANTS = {**{mode: (mode, False) for mode in MODES},
+            HIST_VARIANT: ("union_half", True)}
 FRAMES_PER_CELL = 2
 SERVICE_MODE = "union_half"
-SERVICE_FRAMES_PER_FAMILY = 2
-# kernels the service's path runs; the histogram is taken on request only
-SERVICE_KERNELS = ("minplus_pass2", "fused_score_maps",
-                   "fused_attention_gate", "squared_edt_rowband")
+SERVICE_FRAMES_PER_FAMILY = 8
+SERVICE_HIST_FRAMES_PER_FAMILY = 2
 SERVICE_FLOAT_TOL = 1e-6
 KERNEL_FUNCTIONS = ("minplus_pass2_kernel", "fused_score_maps_kernel",
                     "fused_attention_gate_kernel", "rowband_kernel",
@@ -362,12 +368,6 @@ def check_rowband(torch, dev, leaf, other):
             + kernel_ms(run, "rowband_pool_kernel")
             + kernel_ms(run, "rowband_radius_kernel"),
             "sweep_ms": kernel_ms(run, "rowband_kernel"),
-            # the sweep by the number of thread slices per tile (the
-            # default is kernels/rowband.py DEFAULT_SPLIT)
-            "sweep_ms_by_split": {
-                str(k): kernel_ms(
-                    lambda k=k: squared_edt_rowband(g2r, split=k),
-                    "rowband_kernel") for k in (1, 2, 4, 8)},
             "wrapper_ms": cuda_ms(run),
             "plain_ms": cuda_ms(lambda: squared_edt_rowband_plain(g2r),
                                 iters=3, warmup=1),
@@ -429,7 +429,10 @@ def check_histogram(torch, dev, mask, depth):
                 lambda: segment_histogram(depth, ids, lo, inv_w, num)),
             "plain_ms": cuda_ms(
                 lambda: segment_histogram_plain(depth, ids, lo, inv_w, num)),
-            # one library call on the precomputed keys
+            # one library call on PRECOMPUTED keys: it leaves out the
+            # gather, subtract, multiply, clamp and cast that the kernel
+            # does, so it is a lower limit for the library route;
+            # plain_ms is the like-for-like figure
             "library_ms": cuda_ms(
                 lambda: torch.bincount(key, minlength=num * NBINS)),
             "bound_ms": b_ms, "bound_by": b_by}
@@ -481,25 +484,6 @@ def check_kernels(torch, dev, mask_np, depth_np):
             check_histogram(torch, dev, mask, depth)]
 
 
-def hist_median_leaf_choice(torch, dev, scenes):
-    """``select_optimal_leaf`` with the histogram median picks the leaf
-    the bisection median picks, on each family."""
-    from leafgrasp_tpu_torch.geometry.leaf_scorer import select_optimal_leaf
-    cx, cy, f = (torch.tensor(v, device=dev) for v in (CX, CY, F))
-    for name, (mask, depth) in scenes.items():
-        m = torch.as_tensor(mask.astype(np.int32), device=dev)
-        d = torch.as_tensor(depth, device=dev)
-        with torch.no_grad():
-            a = select_optimal_leaf(m, d, cx, cy, f)
-            b = select_optimal_leaf(m, d, cx, cy, f, hist_median=True)
-        got = (int(b.best_leaf_id), b.is_tall.tolist())
-        want = (int(a.best_leaf_id), a.is_tall.tolist())
-        log(f"leaf choice {name}: hist_median leaf {got[0]}, default "
-            f"{want[0]}")
-        if got != want or not bool(a.found):
-            raise RuntimeError(f"{name}: hist_median {got} != default {want}")
-
-
 def run_frames(torch, dev, fns, model, scenes):
     """Phase 3a: the main path on the card, counted and timed."""
     from leafgrasp_tpu_torch.kernels import (launch_counts,
@@ -510,7 +494,7 @@ def run_frames(torch, dev, fns, model, scenes):
     torch.cuda.synchronize()
     reset_launch_counts()
     reset_host_reads()
-    for mode in MODES:
+    for mode in VARIANTS:
         for name, *_ in FAMILIES:
             mask, depth = scenes[name]
             times = []
@@ -526,13 +510,13 @@ def run_frames(torch, dev, fns, model, scenes):
             frame_ms[f"{mode}/{name}"] = {
                 "median_ms": statistics.median(times), "ms": times}
     reads = host_reads()
-    hist_median_leaf_choice(torch, dev, scenes)
     counts = launch_counts()
     return results, counts, reads, frame_ms
 
 
 def cross_check(results, cfgs, model_cpu, scenes):
-    """Phase 3b: the first frame of each cell against the CPU path."""
+    """Phase 3b: the first frame of each cell against the CPU path built
+    the same way, and the ``hist_median`` cells against the default's."""
     from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
     for (mode, name), res in results.items():
         uv = res.grasp_uv.cpu().numpy()
@@ -540,7 +524,9 @@ def cross_check(results, cfgs, model_cpu, scenes):
         if uv.shape != (2,) or not np.isfinite(xyz).all() \
                 or not bool(res.found):
             raise RuntimeError(f"{mode}/{name}: bad frame result {uv} {xyz}")
-        ref = make_frame_fn(cfgs[mode], with_cnn=True, device="cpu")(
+        iso, hist = VARIANTS[mode]
+        ref = make_frame_fn(cfgs[iso], with_cnn=True, device="cpu",
+                            hist_median=hist)(
             *scenes[name], CX, CY, F, model_cpu)
         got = (int(res.leaf_id), uv.tolist(), bool(res.degenerate))
         want = (int(ref.leaf_id), ref.grasp_uv.numpy().tolist(),
@@ -549,6 +535,17 @@ def cross_check(results, cfgs, model_cpu, scenes):
             f"cpu {want}")
         if got != want:
             raise RuntimeError(f"{mode}/{name}: card {got} != cpu {want}")
+    for name, *_ in FAMILIES:
+        a = results[(VARIANTS[HIST_VARIANT][0], name)]
+        b = results[(HIST_VARIANT, name)]
+        got = (int(b.leaf_id), b.leaf_selection.is_tall.tolist(),
+               b.grasp_uv.tolist())
+        want = (int(a.leaf_id), a.leaf_selection.is_tall.tolist(),
+                a.grasp_uv.tolist())
+        log(f"leaf choice {name}: hist_median leaf {got[0]}, default "
+            f"{want[0]}")
+        if got != want:
+            raise RuntimeError(f"{name}: hist_median {got} != default {want}")
 
 
 def profile_frames(torch, fns, model, scenes):
@@ -556,7 +553,7 @@ def profile_frames(torch, fns, model, scenes):
     from torch.profiler import ProfilerActivity, profile
     mask, depth = scenes["sparse"]
     out = {}
-    for mode in MODES:
+    for mode in VARIANTS:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -632,6 +629,7 @@ def run_service(torch, dev, cfg, model, model_cpu, scenes):
 
     stream = [(m, d) for _, _, m, d in frames]
     make([]).process_frame(*stream[0])            # warm-up, uncounted
+    make([], hist_median=True).process_frame(*stream[0])
     torch.cuda.synchronize()
     reset_launch_counts()
     reset_host_reads()
@@ -675,17 +673,32 @@ def run_service(torch, dev, cfg, model, model_cpu, scenes):
         for mask, depth, stamp in rd:
             replay.process_frame(np.array(mask), np.array(depth),
                                  mask_stamp=stamp)
-    torch.cuda.synchronize()
-    counts = launch_counts()
+    os.remove(log_path)
     if not (sync_msgs == piped_msgs == replay_msgs) \
             or len(sync_msgs) != len(stream):
         raise RuntimeError(f"service runs disagree: {sync_msgs} / "
                            f"{piped_msgs} / {replay_msgs}")
-    missing = [k for k in SERVICE_KERNELS if counts[k] == 0]
+    log(f"phase 5: three service runs of {len(stream)} frames published "
+        f"the same messages")
+
+    hist_msgs = []
+    hist_svc = make(hist_msgs, hist_median=True)
+    hist_at = [k for k, (_, i, _, _) in enumerate(frames)
+               if i < SERVICE_HIST_FRAMES_PER_FAMILY]
+    push(hist_svc, [stream[k] for k in hist_at])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for msg, k in zip(hist_msgs, hist_at):
+        if not _same_message(msg, sync_msgs[k], SERVICE_FLOAT_TOL):
+            raise RuntimeError(f"service hist_median frame {k}: {msg} != "
+                               f"default {sync_msgs[k]}")
+    if len(hist_msgs) != len(hist_at):
+        raise RuntimeError("service hist_median: a frame published nothing")
+    missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise RuntimeError(f"the service launched no {missing}")
-    log(f"phase 5: three service runs of {len(stream)} frames published "
-        f"the same messages; launches {json.dumps(counts)}")
+    log(f"phase 5: the hist_median service published the default's "
+        f"messages on {len(hist_at)} frames; launches {json.dumps(counts)}")
 
     cpu_msgs = []
     cpu = make(cpu_msgs, device="cpu", cnn=model_cpu)
@@ -755,12 +768,13 @@ def main() -> int:
     model = copy.deepcopy(model_cpu).to(dev).eval()
     cfgs = {mode: DEFAULT_CONFIG.replace(
         grasp=GraspScoringConfig(isolation_context=mode)) for mode in MODES}
-    fns = {mode: make_frame_fn(cfgs[mode], with_cnn=True) for mode in MODES}
-    for mode in MODES:       # warm-up (allocator, cuDNN plans), uncounted
+    fns = {name: make_frame_fn(cfgs[iso], with_cnn=True, hist_median=hist)
+           for name, (iso, hist) in VARIANTS.items()}
+    for mode in VARIANTS:    # warm-up (allocator, cuDNN plans), uncounted
         fns[mode](*scenes["sparse"], CX, CY, F, model)
     results, counts, reads, frame_ms = run_frames(torch, dev, fns, model,
                                                   scenes)
-    n_frames = len(MODES) * len(FAMILIES) * FRAMES_PER_CELL
+    n_frames = len(VARIANTS) * len(FAMILIES) * FRAMES_PER_CELL
     log(f"phase 3: {n_frames} frames; launches {json.dumps(counts)}; host "
         f"reads {reads} ({reads / n_frames:.1f} per frame)")
     for key, val in frame_ms.items():

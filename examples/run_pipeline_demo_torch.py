@@ -39,6 +39,9 @@ def main():
                     help="torch device; default CUDA (no CPU fallback)")
     ap.add_argument("--cv-only", action="store_true",
                     help="run without the CNN")
+    ap.add_argument("--hist-median", action="store_true",
+                    help="per-leaf median depths from the histogram "
+                         "kernel instead of the bisection")
     ap.add_argument("--out", default="~/leafgrasp_out/vis_torch",
                     help="directory for the visualization PNG")
     args = ap.parse_args()
@@ -53,6 +56,7 @@ def main():
         cnn = init_random_(GraspPointCNN(cfg.model), seed=0).to(dev).eval()
 
     svc = GraspService(cfg, cnn=cnn, device=dev,
+                       hist_median=args.hist_median,
                        publish=lambda m: print("publish:", m))
     print("frame bus:", "native" if svc.bus.is_native else "python")
     svc.set_camera_params(default_projection())

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "fused_score_maps": [_VP] * 9 + [_I, _I] + [_VP] * 9 + [_VP],
     # x, ws, bs, w1, b1, w2, b2, N, HW, C, R, spatial, channel, out, stream
     "fused_attention_gate": [_VP] * 7 + [_I] * 6 + [_VP, _VP],
-    # g2r, C, H, W, g2c scratch, nb, out, split, stream
-    "squared_edt_rowband": [_VP, _I, _I, _I, _VP, _VP, _VP, _I, _VP],
+    # g2r, C, H, W, g2c scratch, nb, out, stream
+    "squared_edt_rowband": [_VP, _I, _I, _I, _VP, _VP, _VP, _VP],
     # depth, ids, lo, inv_w, n, num, blocks, out, stream
     "segment_histogram": [_VP] * 4 + [_I] * 3 + [_VP, _VP],
 }

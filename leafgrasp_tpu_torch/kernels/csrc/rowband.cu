@@ -16,10 +16,11 @@
 // candidates is one coalesced load shared by the tile's RB_ROWS output
 // rows, with no staging in shared memory. At half resolution a frame has
 // only some 400 tiles, and the tiles far from any seed walk every row,
-// so a block has blockDim.y slices of threads: slice s takes the
-// candidate rows lo + s, lo + s + split, ..., and the slices' partial
+// so a block has RB_SLICES slices of threads: slice s takes the
+// candidate rows lo + s, lo + s + RB_SLICES, ..., and the slices' partial
 // minima meet in shared memory. That multiplies the warps in flight and
-// divides the longest walk by the split.
+// divides the longest walk by RB_SLICES (8 was the fastest of 1, 2, 4
+// and 8 measured on an H100; PERF.md has the sweep).
 //
 // The radii come from two small prologue kernels: a min-pool over each
 // tile's rows, then a min-plus at 1/RB_ROWS row resolution with the
@@ -81,18 +82,16 @@ rowband_radius_kernel(const float* __restrict__ g2c, int H, int W, int RT,
   }
 }
 
-#define RB_MAX_SPLIT 8
+#define RB_SLICES 8   // thread slices that share a tile's candidate rows
 
-// blockDim = (RB_COLS, split); dynamic shared memory holds
-// (split, RB_ROWS, RB_COLS) floats when split > 1.
-__global__ void __launch_bounds__(RB_COLS * RB_MAX_SPLIT)
+// blockDim = (RB_COLS, RB_SLICES)
+__global__ void __launch_bounds__(RB_COLS * RB_SLICES)
 rowband_kernel(const float* __restrict__ g2r, int H, int W, int RT, int CT,
                const int* __restrict__ nb, float* __restrict__ out) {
-  extern __shared__ float part[];
+  __shared__ float part[RB_SLICES * RB_ROWS * RB_COLS];
   const int ct = blockIdx.x;
   const int I = blockIdx.y;
   const int c = blockIdx.z;
-  const int split = blockDim.y;
   const int ty = threadIdx.y;
   const int j = ct * RB_COLS + threadIdx.x;
   const bool j_ok = j < W;
@@ -108,7 +107,7 @@ rowband_kernel(const float* __restrict__ g2r, int H, int W, int RT, int CT,
   if (j_ok) {
     const float* col = g2r + (size_t)c * H * W + j;
 #pragma unroll 4
-    for (int i = lo + ty; i <= hi; i += split) {
+    for (int i = lo + ty; i <= hi; i += RB_SLICES) {
       const float v = col[(size_t)i * W];
       const float d = (float)(row0 - i);
 #pragma unroll
@@ -121,38 +120,26 @@ rowband_kernel(const float* __restrict__ g2r, int H, int W, int RT, int CT,
     }
   }
 
-  if (split > 1) {
 #pragma unroll
-    for (int k = 0; k < RB_ROWS; ++k)
-      part[(ty * RB_ROWS + k) * RB_COLS + threadIdx.x] = acc[k];
-    __syncthreads();
-    // slice ty finishes the output rows ty, ty + split, ...
-    if (!j_ok) return;
-    for (int k = ty; k < RB_ROWS; k += split) {
-      if (row0 + k >= H) break;
-      float m = part[k * RB_COLS + threadIdx.x];
-      for (int s = 1; s < split; ++s)
-        m = fminf(m, part[(s * RB_ROWS + k) * RB_COLS + threadIdx.x]);
-      out[((size_t)c * H + row0 + k) * W + j] = m;
-    }
-    return;
-  }
-
+  for (int k = 0; k < RB_ROWS; ++k)
+    part[(ty * RB_ROWS + k) * RB_COLS + threadIdx.x] = acc[k];
+  __syncthreads();
+  // slice ty finishes the output rows ty, ty + RB_SLICES, ...
   if (!j_ok) return;
-  float* dst = out + ((size_t)c * H + row0) * W + j;
-#pragma unroll
-  for (int k = 0; k < RB_ROWS; ++k) {
-    if (row0 + k < H) dst[(size_t)k * W] = acc[k];
+  for (int k = ty; k < RB_ROWS; k += RB_SLICES) {
+    if (row0 + k >= H) break;
+    float m = part[k * RB_COLS + threadIdx.x];
+    for (int s = 1; s < RB_SLICES; ++s)
+      m = fminf(m, part[(s * RB_ROWS + k) * RB_COLS + threadIdx.x]);
+    out[((size_t)c * H + row0 + k) * W + j] = m;
   }
 }
 
-// g2c: (C, RT, W) f32 scratch; nb: (C, RT, CT) int32, written here;
-// split: slices of candidate rows per tile, 1..RB_MAX_SPLIT.
+// g2c: (C, RT, W) f32 scratch; nb: (C, RT, CT) int32, written here.
 extern "C" int squared_edt_rowband(const float* g2r, int C, int H, int W,
                                    float* g2c, int* nb, float* out,
-                                   int split, cudaStream_t stream) {
+                                   cudaStream_t stream) {
   if (C <= 0 || H <= 0 || W <= 0) return 0;
-  if (split < 1 || split > RB_MAX_SPLIT) return (int)cudaErrorInvalidValue;
   const int RT = (H + RB_ROWS - 1) / RB_ROWS;
   const int CT = (W + RB_COLS - 1) / RB_COLS;
   dim3 grid(CT, RT, C);
@@ -162,9 +149,7 @@ extern "C" int squared_edt_rowband(const float* g2r, int C, int H, int W,
   rowband_radius_kernel<<<grid, RB_COLS, 0, stream>>>(g2c, H, W, RT, CT, nb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem =
-      split > 1 ? (size_t)split * RB_ROWS * RB_COLS * sizeof(float) : 0;
-  rowband_kernel<<<grid, dim3(RB_COLS, split), smem, stream>>>(
+  rowband_kernel<<<grid, dim3(RB_COLS, RB_SLICES), 0, stream>>>(
       g2r, H, W, RT, CT, nb, out);
   return (int)cudaGetLastError();
 }

@@ -25,9 +25,6 @@ __all__ = ["squared_edt_rowband", "squared_edt_rowband_plain",
 
 TILE_ROWS = 8      # output rows of a tile (RB_ROWS in the kernel)
 TILE_COLS = 128    # output columns of a tile (RB_COLS in the kernel)
-MAX_SPLIT = 8      # RB_MAX_SPLIT in the kernel
-# slices of threads that share a tile's candidate rows
-DEFAULT_SPLIT = 8
 
 # elements of the (rows, H, W) candidate block the plain version builds
 _PLAIN_BLOCK = 1 << 25
@@ -86,15 +83,10 @@ def rowband_radii_plain(g2r: torch.Tensor) -> torch.Tensor:
     return torch.clamp(nb, max=h)
 
 
-def squared_edt_rowband(g2r: torch.Tensor, return_radii: bool = False,
-                        split: int = DEFAULT_SPLIT):
+def squared_edt_rowband(g2r: torch.Tensor, return_radii: bool = False):
     """The min-plus above: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. With ``return_radii`` also the int32
-    (C, ceil(H/8), ceil(W/128)) row radii the tiles were given.
-    ``split`` (1..8) is the number of thread slices that share a tile's
-    candidate rows on the card; it changes the speed, never the result."""
-    if not 1 <= split <= MAX_SPLIT:
-        raise ValueError(f"split must be in 1..{MAX_SPLIT}, got {split}")
+    (C, ceil(H/8), ceil(W/128)) row radii the tiles were given."""
     if g2r.device.type == "cpu":
         out = squared_edt_rowband_plain(g2r)
         return (out, rowband_radii_plain(g2r)) if return_radii else out
@@ -111,8 +103,7 @@ def squared_edt_rowband(g2r: torch.Tensor, return_radii: bool = False,
     lib = load_library()
     err = lib.squared_edt_rowband(
         g2r.data_ptr(), c, h, w, g2c.data_ptr(), nb.data_ptr(),
-        out.data_ptr(), int(split),
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "squared_edt_rowband")
     LAUNCHES["squared_edt_rowband"] += 1
     return (out, nb) if return_radii else out

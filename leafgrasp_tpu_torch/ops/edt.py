@@ -29,7 +29,7 @@ __all__ = ["nearest_seed_dist_1d", "directional_seed_dist_1d",
            "squared_edt", "squared_edt_full", "squared_edt_window",
            "squared_edt_window_src", "edt", "edt_max_argmax",
            "edt_max_argmax_batch", "shift_cols", "exact_sqrt", "edt_batch",
-           "edt_batch_rowband", "edt_batch_fullsweep", "signed_edt"]
+           "edt_batch_rowband", "signed_edt"]
 
 
 def exact_sqrt(d2: torch.Tensor) -> torch.Tensor:
@@ -144,12 +144,16 @@ def edt(seeds: torch.Tensor) -> torch.Tensor:
     return exact_sqrt(squared_edt(seeds))
 
 
-def edt_batch_rowband(seeds: torch.Tensor) -> torch.Tensor:
-    """Exact L2 EDT of (C, H, W) or (H, W) seed masks through the
-    row-banded kernel (kernels/rowband.py), the counterpart of the JAX
-    package's ``ops.pallas_edt.edt_batch_rowband``: pass 1 scans
-    HORIZONTALLY (per-row distances), pass 2 is the min-plus along rows
-    with a per-tile row band."""
+def edt_batch(seeds: torch.Tensor) -> torch.Tensor:
+    """Exact L2 EDT of (C, H, W) or (H, W) seed masks, the counterpart of
+    the JAX package's ``ops.edt.edt_batch`` and of its Pallas drop-in
+    ``ops.pallas_edt.edt_batch_rowband``: pass 1 scans HORIZONTALLY
+    (per-row distances), pass 2 is the min-plus along rows through the
+    row-banded kernel (kernels/rowband.py). The result is exact (integer
+    squared distances, one correctly rounded root), so it does not depend
+    on which sweep computes it; every channel goes through the kernel in
+    one launch, whose per-tile band adapts to each channel on the device
+    with no host read."""
     seeds = seeds.to(torch.bool)
     squeeze = seeds.dim() == 2
     if squeeze:
@@ -159,31 +163,7 @@ def edt_batch_rowband(seeds: torch.Tensor) -> torch.Tensor:
     return d[0] if squeeze else d
 
 
-def edt_batch_fullsweep(seeds: torch.Tensor) -> torch.Tensor:
-    """Exact L2 EDT of (C, H, W) or (H, W) seed masks through the
-    full-sweep min-plus kernel (kernels/minplus.py), the counterpart of
-    the JAX package's ``ops.pallas_edt.edt_pallas`` /
-    ``edt_batch_pallas``: pass 1 scans vertically, pass 2 sweeps every
-    column."""
-    seeds = seeds.to(torch.bool)
-    squeeze = seeds.dim() == 2
-    if squeeze:
-        seeds = seeds[None]
-    c, h, w = seeds.shape
-    g = nearest_seed_dist_1d(seeds, axis=1).to(torch.float32)
-    d2 = minplus_pass2((g * g).reshape(c * h, w).contiguous())
-    d = exact_sqrt(d2).reshape(c, h, w)
-    return d[0] if squeeze else d
-
-
-def edt_batch(seeds: torch.Tensor) -> torch.Tensor:
-    """Exact L2 EDT over a (C, H, W) batch of seed masks, the
-    counterpart of the JAX package's ``ops.edt.edt_batch``. The result is
-    exact (integer squared distances, one correctly rounded root), so it
-    does not depend on which sweep computes it: here every channel goes
-    through the row-banded kernel in one launch, whose per-tile band
-    adapts to each channel on the device with no host read."""
-    return edt_batch_rowband(seeds)
+edt_batch_rowband = edt_batch    # the JAX package's name for this route
 
 
 def signed_edt(mask: torch.Tensor) -> torch.Tensor:

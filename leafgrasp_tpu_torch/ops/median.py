@@ -35,8 +35,7 @@ def _refine(hist: torch.Tensor, k: torch.Tensor, lo: torch.Tensor,
 
 
 def masked_median_hist(depth: torch.Tensor, ids: torch.Tensor,
-                       counts: torch.Tensor, num: int,
-                       levels: int = 2) -> torch.Tensor:
+                       counts: torch.Tensor, num: int) -> torch.Tensor:
     """Drop-in for ``components.masked_median`` through the histogram
     kernel (numpy semantics: the average of the two middle order
     statistics for even counts)."""
@@ -57,8 +56,7 @@ def masked_median_hist(depth: torch.Tensor, ids: torch.Tensor,
     for k in ks:
         kf = k.to(torch.float32)
         lo_k, w_k = _refine(hist1, kf, lo, width)
-        for _ in range(levels - 1):
-            hist = segment_histogram(depth, ids, lo_k, NBINS / w_k, num)
-            lo_k, w_k = _refine(hist, kf, lo_k, w_k)
+        hist2 = segment_histogram(depth, ids, lo_k, NBINS / w_k, num)
+        lo_k, w_k = _refine(hist2, kf, lo_k, w_k)
         states.append(lo_k + 0.5 * w_k)                    # bin midpoint
     return 0.5 * (states[0] + states[1])

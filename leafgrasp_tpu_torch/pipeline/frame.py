@@ -57,7 +57,7 @@ def _scalar(v, device) -> torch.Tensor:
 def select_grasp(mask_ids, depth, camera_cx, camera_cy, f_norm,
                  cnn=None, cfg: PipelineConfig = DEFAULT_CONFIG,
                  points=None, cnn_norm_stats=None,
-                 device=None) -> FrameResult:
+                 device=None, hist_median: bool = False) -> FrameResult:
     """Full grasp selection for one frame.
 
     mask_ids : (H, W) integer instance map (numpy or tensor)
@@ -68,6 +68,9 @@ def select_grasp(mask_ids, depth, camera_cx, camera_cy, f_norm,
     cnn_norm_stats : optional stats dict -> train-consistent patch
         normalization; None -> the reference per-patch min-max
     device   : None means CUDA (raises if absent)
+    hist_median : take the per-leaf median depths from the two-level
+        histogram (ops/median.py) instead of the bisection; they agree
+        within its 1e-5 m envelope, not bit for bit
     """
     dev = resolve_device(device)
     mask_ids = torch.as_tensor(mask_ids).to(device=dev, dtype=torch.int32)
@@ -75,7 +78,7 @@ def select_grasp(mask_ids, depth, camera_cx, camera_cy, f_norm,
     cx, cy, f = (_scalar(v, dev) for v in (camera_cx, camera_cy, f_norm))
 
     sel = select_optimal_leaf(mask_ids, depth, cx, cy, f, cfg=cfg.leaf,
-                              frame=cfg.frame)
+                              frame=cfg.frame, hist_median=hist_median)
     leaf = mask_ids == sel.best_leaf_id
     all_mask = mask_ids > 0
     # isolation feeds only the CNN patch channels: CV-only skips its fields
@@ -125,7 +128,8 @@ def select_grasp(mask_ids, depth, camera_cx, camera_cy, f_norm,
 
 
 def make_frame_fn(cfg: PipelineConfig = DEFAULT_CONFIG,
-                  with_cnn: bool = False, device=None, norm_stats=None):
+                  with_cnn: bool = False, device=None, norm_stats=None,
+                  hist_median: bool = False):
     """Build the frame function for ``device`` (None means CUDA; raises
     if CUDA is absent, there is no fallback to the CPU).
 
@@ -133,6 +137,7 @@ def make_frame_fn(cfg: PipelineConfig = DEFAULT_CONFIG,
     ``fn(mask, depth, cx, cy, f, cnn)`` where ``cnn`` is a
     GraspPointCNN in eval mode on the same device. ``norm_stats`` is
     required iff ``cfg.fusion.patch_normalization == "train_stats"``.
+    ``hist_median`` is handed to ``select_grasp``.
     """
     dev = resolve_device(device)
     if cfg.fusion.patch_normalization not in ("reference_minmax",
@@ -155,10 +160,11 @@ def make_frame_fn(cfg: PipelineConfig = DEFAULT_CONFIG,
     if not with_cnn:
         def fn(mask_ids, depth, cx, cy, f):
             return select_grasp(mask_ids, depth, cx, cy, f, cfg=cfg,
-                                device=dev)
+                                device=dev, hist_median=hist_median)
         return fn
 
     def fn_cnn(mask_ids, depth, cx, cy, f, cnn):
         return select_grasp(mask_ids, depth, cx, cy, f, cnn=cnn, cfg=cfg,
-                            cnn_norm_stats=stats, device=dev)
+                            cnn_norm_stats=stats, device=dev,
+                            hist_median=hist_median)
     return fn_cnn

@@ -131,8 +131,6 @@ def test_rowband_kernel_matches_plain_on_card(cuda, shape):
     assert torch.equal(got, want)
     assert torch.equal(nb, rowband_radii_plain(g2r))
     assert kernels.launch_counts()["squared_edt_rowband"] == 1
-    for split in (1, 3, 8):
-        assert torch.equal(squared_edt_rowband(g2r, split=split), want), split
     # a seedless channel keeps the sentinel (H + W)^2 everywhere
     assert torch.all(got[3] == float((h + w) ** 2))
 
@@ -158,3 +156,34 @@ def test_histogram_kernel_matches_plain_on_card(cuda, shape, num):
     assert torch.equal(got, want)
     assert float(got.sum()) == float(((ids >= 0) & (ids < num)).sum())
     assert kernels.launch_counts()["segment_histogram"] == 1
+
+
+def test_frame_launch_counts_on_card(cuda):
+    """A ``union_half`` frame on the card launches the row-banded EDT at
+    least twice; with ``hist_median=True`` it also launches the segment
+    histogram three times, and picks the default's leaf and pixel."""
+    from leafgrasp_tpu_torch.config import (DEFAULT_CONFIG, FrameConfig,
+                                            LeafSelectionConfig, ModelConfig)
+    from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                      init_random_)
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    h, w = 270, 360
+    cfg = DEFAULT_CONFIG.replace(
+        frame=FrameConfig(height=h, width=w, max_leaves=8),
+        leaf=LeafSelectionConfig(min_leaf_area=1500),
+        grasp=GraspScoringConfig(isolation_context="union_half"))
+    mask, depth = make_leaf_scene(height=h, width=w, num_leaves=4, seed=3,
+                                  margin=40)
+    cnn = init_random_(GraspPointCNN(ModelConfig()), seed=0).to(cuda).eval()
+    args = (mask, depth, np.float32(w / 2), np.float32(h / 2),
+            np.float32(400.0), cnn)
+    kernels.reset_launch_counts()
+    base = make_frame_fn(cfg, with_cnn=True)(*args)
+    counts = kernels.launch_counts()
+    assert counts["squared_edt_rowband"] >= 2
+    assert counts["segment_histogram"] == 0
+    kernels.reset_launch_counts()
+    hist = make_frame_fn(cfg, with_cnn=True, hist_median=True)(*args)
+    assert kernels.launch_counts()["segment_histogram"] == 3
+    assert int(hist.leaf_id) == int(base.leaf_id) > 0
+    assert torch.equal(hist.grasp_uv, base.grasp_uv)

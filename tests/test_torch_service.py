@@ -134,6 +134,39 @@ def test_service_with_cnn_matches_jax():
     assert isinstance(res.fusion.combined, np.ndarray)
 
 
+def test_service_hist_median_publishes_the_default_messages():
+    """``hist_median=True`` reaches leaf selection through the service and
+    the frame function, and the histogram medians (within 1e-5 m of the
+    bisection's) pick the same leaves, so the messages are the same."""
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    base, hist = [], []
+    a, b = _service(publish=base.append), \
+        _service(publish=hist.append, hist_median=True)
+    span_tol = 1.0 / 256 ** 2
+    for mask, depth in _stream():
+        ra = a.process_frame(mask, depth)["result"]
+        rb = b.process_frame(mask, depth)["result"]
+        ma = ra.leaf_selection.stats.median_depth
+        mb = rb.leaf_selection.stats.median_depth
+        present = ra.leaf_selection.stats.present
+        assert present.any() and not np.array_equal(ma, mb)
+        np.testing.assert_allclose(
+            mb[present], ma[present], rtol=0,
+            atol=float(depth.max() - depth.min()) * span_tol + 1e-5)
+        np.testing.assert_array_equal(ra.leaf_selection.is_tall,
+                                      rb.leaf_selection.is_tall)
+    assert hist == base and len(base) == 4
+    mask, depth = _stream(1)[0]
+    args = (mask, depth, np.float32(W / 2), np.float32(H / 2),
+            np.float32(400.0))
+    fa = make_frame_fn(TCFG, device="cpu")(*args)
+    fb = make_frame_fn(TCFG, device="cpu", hist_median=True)(*args)
+    assert int(fa.leaf_id) == int(fb.leaf_id) > 0
+    assert torch.equal(fa.grasp_uv, fb.grasp_uv)
+    assert not torch.equal(fa.leaf_selection.stats.median_depth,
+                           fb.leaf_selection.stats.median_depth)
+
+
 def test_service_cnn_and_device_checks(monkeypatch):
     from leafgrasp_tpu_torch.models.grasp_cnn import GraspPointCNN
     model = GraspPointCNN(tcfg.ModelConfig(encoder_filters=(8, 16)))
