@@ -5,7 +5,7 @@
 
 Phases, each a hard failure (non-zero exit):
 
-1. build the five CUDA kernels from ``leafgrasp_tpu_torch/kernels/csrc``
+1. build the six CUDA sources (seven kernels) from ``leafgrasp_tpu_torch/kernels/csrc``
    into ``build/kernels/`` (one ``nvcc`` per source, all started
    together);
 2. hold each kernel against its plain PyTorch version on the card at the
@@ -15,7 +15,11 @@ Phases, each a hard failure (non-zero exit):
    refinement and banded forms (bit-exact), the row-banded EDT at
    (1, 540, 720) and (3, 1080, 1440) (bit-exact, radii included), and the
    segment histogram at 1080 x 1440 with 18 segments (counts equal; the
-   histogram median within range / 256^2 of the sorted median);
+   histogram median within range / 256^2 of the sorted median), and the
+   flash-attention prefill in f32 (<= 2e-5 on real rows) and bf16
+   (<= 2e-2 + 2^-6 of the value) with unequal left pads at (2, 200, 4 heads over 2, 64),
+   (5, 640, 32 over 8, 128) and the serving shape (5, 2400, 32 over 8,
+   128), pad rows exactly zero;
 3. drive ``make_frame_fn(with_cnn=True)`` at 1080 x 1440 with the
    standard CNN (seeded weights) on the three ``bench.py`` scene families
    in the ``reference_self``, ``union`` and ``union_half`` modes, and in
@@ -37,7 +41,18 @@ Phases, each a hard failure (non-zero exit):
    floats within 1e-6). A fourth service built with ``hist_median=True``
    takes the first frames of each family and must publish the default's
    messages (pixel equal, floats within 1e-6). The launch counts are set
-   to 0 before and read after, and must be non-zero for every kernel.
+   to 0 before and read after, and must be non-zero for every kernel
+   of the frame path;
+6. build ``LlavaTorch`` at the LLaVA-1.6-Mistral-7B widths (32 layers,
+   bf16, random weights from seed 0, the five anyres pinpoints, flash
+   prefill) and score five candidates on a 1080 x 1440 frame directly
+   (t = 2400 tokens, 32 flash launches), again through the chunked
+   route and one by one (tokens compared), then serve frames through
+   ``GraspService(hybrid_selector=HybridGraspSelector(VLAProcessor(
+   scorer)))``: every measured frame must carry a VLA choice, publish a
+   message and launch the flash kernel 32 times; then the two
+   degradations on purpose (a backend that raises, a selector that
+   raises), and ``TinyVLAScorer`` on the card once.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -74,6 +89,18 @@ SERVICE_MODE = "union_half"
 SERVICE_FRAMES_PER_FAMILY = 8
 SERVICE_HIST_FRAMES_PER_FAMILY = 2
 SERVICE_FLOAT_TOL = 1e-6
+VLA_WARM_FRAMES = 1
+VLA_FRAMES = 6
+VLA_MAX_TOKEN_DIFF = 20      # of 50 greedy tokens, flash against chunked
+N_TEXT = 60
+VLA_PINPOINTS = ((336, 672), (672, 336), (672, 672), (1008, 336),
+                 (336, 1008))
+# |kernel - plain| <= absolute + relative * |plain|. bf16: both round
+# the output (one ulp is 2^-8 of the value) and round the probabilities
+# at different places, so two ulps of the value on top of 2e-2
+FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2.0 ** -6)}
+PEAK_BF16_OPS_PER_S = 989e12
+VLA_ONLY_KERNELS = ("flash_prefill",)    # not on the frame path
 KERNEL_FUNCTIONS = ("minplus_pass2_kernel", "fused_score_maps_kernel",
                     "fused_attention_gate_kernel", "rowband_kernel",
                     "rowband_pool_kernel", "rowband_radius_kernel",
@@ -118,16 +145,17 @@ def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.key.split("(")[0].endswith(kernel))
+                if ev.key.split("(")[0].endswith(kernel)
+                or f"::{kernel}<" in ev.key)
     if total <= 0:
         raise RuntimeError(f"the profiler saw no {kernel}")
     return total / 1e3 / iters
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, peak_ops=PEAK_F32_OPS_PER_S):
     """(least ms, what bounds it) on the published H100 peaks."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -471,6 +499,93 @@ def check_histogram(torch, dev, mask, depth):
             "median": med_ms}
 
 
+def check_flash(torch, dev):
+    """The flash-attention prefill against its plain version: f32 and
+    bf16, unequal left pads including 0, K/V read through the strides of
+    a longer cache; then its time at the serving shape with the serving
+    path's pads (all 0: the prompts have one length)."""
+    import torch.nn.functional as F
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        flash_prefill, flash_prefill_plain)
+    shapes = {"small": ((2, 200, 4, 2, 64), (0, 37)),
+              "mid": ((5, 640, 32, 8, 128), (0, 3, 64, 130, 639)),
+              "path": ((5, 2400, 32, 8, 128), (0, 1, 64, 700, 2399))}
+    rng = np.random.default_rng(21)
+    errs = {}
+    for name, ((b, t, heads, kvh, hd), pads) in shapes.items():
+        q32 = torch.as_tensor(rng.standard_normal(
+            (b, t, heads, hd)).astype(np.float32), device=dev)
+        k32, v32 = (torch.as_tensor(rng.standard_normal(
+            (b, t + 10, kvh, hd)).astype(np.float32), device=dev)
+            for _ in range(2))
+        pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            got = flash_prefill(q, k, v, pad)
+            torch.cuda.synchronize()
+            want = flash_prefill_plain(q, k, v, pad, chunk=256)
+            atol, rtol = FLASH_TOL[str(dtype).split(".")[1]]
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            excess = (diff - rtol * want.float().abs()).max().item()
+            pad_zero = all(not got[i, :p].any() for i, p in enumerate(pads))
+            finite = bool(torch.isfinite(got.float()).all())
+            errs[f"{name}/{str(dtype).split('.')[1]}"] = err
+            log(f"flash_prefill {name} {(b, t, heads, kvh, hd)} pads {pads} "
+                f"{dtype}: max abs err on real rows {err} (tolerance {atol} "
+                f"+ {rtol} * |plain|), pad rows zero {pad_zero}, finite "
+                f"{finite}")
+            if not (excess <= atol and pad_zero and finite):
+                raise RuntimeError(f"flash_prefill {name} {dtype}: err {err}"
+                                   f", pad rows zero {pad_zero}")
+            del got, want, diff
+    (b, t, heads, kvh, hd), _ = shapes["path"]
+    rep = heads // kvh
+    pad0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+    q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+    real = [t - int(p) for p in pad0.tolist()]
+    ops = sum(4.0 * heads * hd * n * (n + 1) / 2 for n in real)
+    moved = 2.0 * (2 * b * t * heads * hd + 2 * b * t * kvh * hd) + 4.0 * b
+    b_ms, b_by = bound(moved, ops, PEAK_BF16_OPS_PER_S)
+    # the library yardstick: one call on the same causal problem, with
+    # K/V repeated to the query heads BEFORE the timed call (the kernel
+    # reads them grouped, in place)
+    ql = q.transpose(1, 2)
+    kl = k[:, :t].repeat_interleave(rep, dim=2).transpose(1, 2)
+    vl = v[:, :t].repeat_interleave(rep, dim=2).transpose(1, 2)
+    lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    got = flash_prefill(q, k, v, pad0)
+    lib_err = (got.float() - lib.transpose(1, 2).float()).abs().max().item()
+    rec = {"name": "flash_prefill", "route": "cuda",
+           "source": "leafgrasp_tpu_torch/kernels/csrc/flash_prefill.cu",
+           "replaces": "leafgrasp_tpu/vla/llava_jax.py:284",
+           "tolerance": FLASH_TOL["bfloat16"][0],
+           "tolerance_rel": FLASH_TOL["bfloat16"][1],
+           "max_abs_err": max(v_ for k_, v_ in errs.items()
+                              if k_.endswith("bfloat16")),
+           "max_abs_err_f32": max(v_ for k_, v_ in errs.items()
+                                  if k_.endswith("float32")),
+           "tolerance_f32": FLASH_TOL["float32"][0],
+           "shape": [b, t, heads, kvh, hd],
+           "ms": kernel_ms(lambda: flash_prefill(q, k, v, pad0),
+                           "flash_prefill_kernel", iters=10),
+           "wrapper_ms": cuda_ms(lambda: flash_prefill(q, k, v, pad0),
+                                 iters=10),
+           "f32_ms": cuda_ms(lambda: flash_prefill(q32, k32, v32, pad0),
+                             iters=2, warmup=1),
+           "plain_ms": cuda_ms(
+               lambda: flash_prefill_plain(q, k, v, pad0, chunk=480),
+               iters=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               ql, kl, vl, is_causal=True), iters=10),
+           "max_abs_diff_vs_library": lib_err, "operations": ops,
+           "bytes": moved}
+    rec["tflops"] = ops / rec["ms"] / 1e9
+    log(f"flash_prefill {json.dumps(rec)}")
+    return rec
+
+
 def check_kernels(torch, dev, mask_np, depth_np):
     """Phase 2: each kernel against its plain version."""
     mask = torch.as_tensor(mask_np.astype(np.int32), device=dev)
@@ -481,7 +596,8 @@ def check_kernels(torch, dev, mask_np, depth_np):
             check_scoring(torch, dev, leaf, other, depth),
             check_attention(torch, dev),
             check_rowband(torch, dev, leaf, other),
-            check_histogram(torch, dev, mask, depth)]
+            check_histogram(torch, dev, mask, depth),
+            check_flash(torch, dev)]
 
 
 def run_frames(torch, dev, fns, model, scenes):
@@ -694,7 +810,8 @@ def run_service(torch, dev, cfg, model, model_cpu, scenes):
                                f"default {sync_msgs[k]}")
     if len(hist_msgs) != len(hist_at):
         raise RuntimeError("service hist_median: a frame published nothing")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k, v in counts.items()
+               if v == 0 and k not in VLA_ONLY_KERNELS]
     if missing:
         raise RuntimeError(f"the service launched no {missing}")
     log(f"phase 5: the hist_median service published the default's "
@@ -721,6 +838,259 @@ def run_service(torch, dev, cfg, model, model_cpu, scenes):
     if image.shape != (H, W, 3) or not image.any():
         raise RuntimeError(f"visualizer rendered {image.shape}")
     log("phase 5: card messages match the CPU service; visualizer rendered")
+    return counts
+
+
+class FixedLenTok:
+    """Fixed encode length (BOS plus N_TEXT - 1 ids) and an injective
+    decode -> decimal, so that random weights give varied parsed scores.
+    After the stub tokenizer of the JAX package's VLA service bench,
+    which keeps the prompt's first bytes; those are the same for every
+    candidate, so this one folds the whole prompt into its ids and ends
+    with a hash of it: rows differ where the candidates do, and in
+    their last token."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def encode(self, text):
+        data = np.frombuffer(text.encode("utf-8"), np.uint8).astype(np.int64)
+        n = N_TEXT - 2
+        fold = np.zeros(-(-len(data) // n) * n, np.int64)
+        fold[:len(data)] = data
+        ids = fold.reshape(-1, n).sum(axis=0) % (self.vocab - 8) + 3
+        mix = int((data * (1 + np.arange(len(data)))).sum())
+        return [1] + ids.tolist() + [mix % (self.vocab - 8) + 3]
+
+    def decode(self, ids):
+        key = 0
+        for i in ids:
+            key = (key * 1000003 + int(i) + 1) % (10 ** 9)
+        return f"0.{key:09d}"
+
+
+def build_llava(torch, dev):
+    """LlavaTorch at the LLaVA-1.6-Mistral-7B widths, every parameter
+    drawn on the card in bf16 from seed 0 (no f32 copy anywhere):
+    0.02 * randn, the norm gains 1 + 0.02 * randn so that the decoded
+    tokens depend on the candidate's text (see ``init_random_``)."""
+    from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                     LlavaTorchConfig,
+                                                     init_random_)
+    cfg = LlavaTorchConfig(dtype="bfloat16", prefill_attn_impl="flash",
+                           image_grid_pinpoints=VLA_PINPOINTS)
+    t0 = time.perf_counter()
+    model = LlavaTorch(cfg, device=dev, param_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    init_random_(model, gen, std=0.02, unit_norms=True)
+    with torch.no_grad():
+        model.image_newline.copy_(torch.as_tensor(
+            0.02 * np.random.default_rng(7).standard_normal(cfg.hidden),
+            dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 6: LlavaTorch {n_params / 1e9:.3f} G parameters in bf16 "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated) "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def run_vla(torch, dev, cnn, scenes):
+    """Phase 6: the VLA rerank serve path at full width."""
+    from leafgrasp_tpu_torch.config import DEFAULT_CONFIG
+    from leafgrasp_tpu_torch.io.scenes import default_projection
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.pipeline.ingest import GraspService
+    from leafgrasp_tpu_torch.utils.device import (host_reads,
+                                                  reset_host_reads)
+    from leafgrasp_tpu_torch.utils.profiler import StageTimer
+    from leafgrasp_tpu_torch.vla.hybrid import HybridGraspSelector
+    from leafgrasp_tpu_torch.vla.llava_next import (_pack_plan,
+                                                    select_best_resolution)
+    from leafgrasp_tpu_torch.vla.llava_runtime import LlavaTorchScorer
+    from leafgrasp_tpu_torch.vla.processor import (TinyVLAScorer,
+                                                   VLAProcessor)
+
+    model = build_llava(torch, dev)
+    layers = model.cfg.layers
+    scorer = LlavaTorchScorer(model, FixedLenTok(model.cfg.vocab_size),
+                              max_new_tokens=10, decode_mode="steps",
+                              anyres=True)
+    rgb = (np.random.default_rng(0).uniform(0, 255, (H, W, 3))
+           .astype(np.uint8))
+    best = select_best_resolution((H, W), VLA_PINPOINTS)
+    pp, gw, gh, crop = _pack_plan((H, W), VLA_PINPOINTS, model.cfg)
+    n_img_want = pp * pp + (crop[1] - crop[0]) * (crop[3] - crop[2] + 1)
+    log(f"phase 6 geometry: frame {(H, W)} picks {best}, {1 + gw * gh} "
+        f"tiles, grid {gh * pp}x{gw * pp} cropped to rows {crop[:2]} cols "
+        f"{crop[2:]}, {n_img_want} image tokens + {N_TEXT} text tokens")
+    rng = np.random.default_rng(3)
+    cands = [dict(leaf_id=i + 1, x=float(rng.uniform(100, W - 100)),
+                  y=float(rng.uniform(100, H - 100)),
+                  clutter_score=float(rng.uniform(0.2, 1.0)),
+                  distance_score=float(rng.uniform(0.2, 1.0)),
+                  visibility_score=float(rng.uniform(0.2, 1.0)),
+                  geometric_score=float(rng.uniform(0.2, 1.0)))
+             for i in range(5)]
+    instruction = "Select the best leaf for grasping"
+
+    # 6.1 the scorer called directly: an exception propagates
+    scorer.score(rgb, cands, instruction)              # warm-up, uncounted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_host_reads()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = scorer.score(rgb, cands, instruction)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    flash_n = launch_counts()["flash_prefill"]
+    last = dict(scorer.last)
+    flash_tokens = last.pop("tokens")
+    log(f"phase 6.1 rerank: scores {scores}; t {last['prompt_len']}, image "
+        f"tokens {last['n_image_tokens']}, flash launches {flash_n}, host "
+        f"reads {host_reads()}, wall {wall_ms} ms, encode "
+        f"{last.get('encode_ms')} ms, prefill {last['prefill_ms']} ms, "
+        f"decode {last['decode_ms']} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if not (len(scores) == 5 and np.isfinite(scores).all()
+            and len(set(scores)) > 1):
+        raise RuntimeError(f"phase 6.1: bad scores {scores}")
+    if flash_n != layers or last["n_image_tokens"] != n_img_want \
+            or last["prompt_len"] != n_img_want + N_TEXT:
+        raise RuntimeError(f"phase 6.1: {flash_n} flash launches, "
+                           f"{last['n_image_tokens']} image tokens, t "
+                           f"{last['prompt_len']}")
+
+    # 6.2 the same candidates through the chunked route, and one by one
+    def differing(a, b):
+        return int((np.asarray(a) != np.asarray(b)).sum())
+
+    model.set_prefill_attn("chunked")
+    reset_launch_counts()
+    chunked_scores = scorer.score(rgb, cands, instruction)
+    chunked = dict(scorer.last)
+    if launch_counts()["flash_prefill"] != 0:
+        raise RuntimeError("phase 6.2: the chunked route launched flash")
+    model.set_prefill_attn("flash")
+    n_diff = differing(flash_tokens, chunked["tokens"])
+    log(f"phase 6.2 flash against chunked: {n_diff} of "
+        f"{np.asarray(flash_tokens).size} greedy tokens differ (limit "
+        f"{VLA_MAX_TOKEN_DIFF}); parsed scores differ: "
+        f"{scores != chunked_scores}; chunked prefill "
+        f"{chunked['prefill_ms']} ms, decode {chunked['decode_ms']} ms")
+    if n_diff > VLA_MAX_TOKEN_DIFF:
+        raise RuntimeError(f"phase 6.2: {n_diff} tokens differ")
+    scorer.max_batch = 1
+    reset_launch_counts()
+    single_scores = scorer.score(rgb, cands, instruction)
+    single = dict(scorer.last)
+    scorer.max_batch = None
+    log(f"phase 6.2 batched against one by one: "
+        f"{differing(flash_tokens, single['tokens'])} of 50 tokens differ; "
+        f"parsed scores differ: {scores != single_scores}; flash launches "
+        f"{launch_counts()['flash_prefill']}; prefill {single['prefill_ms']}"
+        f" ms, decode {single['decode_ms']} ms for the five")
+    if launch_counts()["flash_prefill"] != 5 * layers:
+        raise RuntimeError("phase 6.2: one-by-one scoring did not launch "
+                           "flash once per layer and candidate")
+
+    # 6.3 the service with the rerank
+    msgs = []
+    svc = GraspService(DEFAULT_CONFIG, cnn=cnn,
+                       hybrid_selector=HybridGraspSelector(
+                           VLAProcessor(scorer)),
+                       publish=msgs.append, min_interval_s=0.0,
+                       pipeline_depth=0)
+    svc.set_camera_params(default_projection())
+    svc.on_rgb(rgb)
+    fams = [scenes[name] for name, *_ in FAMILIES]
+
+    def feed(i):
+        mask, depth = fams[i % len(fams)]
+        svc.on_mask(np.roll(mask, 3 * i, axis=1), stamp_us=i)
+        svc.on_depth(np.roll(depth, 3 * i, axis=1), stamp_us=i)
+        return svc.process_pending(force=True)
+
+    for i in range(VLA_WARM_FRAMES):
+        out = feed(i)
+        if out is None or not out["found"] or out["vla"] is None:
+            raise RuntimeError("phase 6.3: the warm-up frame has no VLA "
+                               "choice")
+    svc.timer = StageTimer()
+    msgs.clear()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_host_reads()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(VLA_WARM_FRAMES, VLA_WARM_FRAMES + VLA_FRAMES):
+        before = launch_counts()["flash_prefill"]
+        out = feed(i)
+        rose = launch_counts()["flash_prefill"] - before
+        if out is None or not out["found"] or out["vla"] is None \
+                or not out["message"] or rose != layers:
+            raise RuntimeError(
+                f"phase 6.3 frame {i}: found "
+                f"{out and out['found']}, vla {out and out['vla']}, flash "
+                f"launches {rose}: a failure was swallowed")
+        log(f"phase 6.3 frame {i}: leaf {out['vla']['leaf_id']} strategy "
+            f"{out['vla']['strategy']} confidence "
+            f"{out['vla']['vla_confidence']:.3f} message {out['message']}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stages = svc.stats()["stages"]
+    if len(msgs) != VLA_FRAMES:
+        raise RuntimeError(f"phase 6.3: {len(msgs)} messages for "
+                           f"{VLA_FRAMES} frames")
+    log(f"phase 6.3 VLA service: {VLA_FRAMES} frames in {wall:.3f} s, "
+        f"{VLA_FRAMES / wall} frames/s; host reads per frame "
+        f"{host_reads() / VLA_FRAMES}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{json.dumps(counts)}")
+    log(f"phase 6.3 stages {json.dumps(stages)}")
+
+    # 6.4 the two degradations, on purpose
+    class Boom:
+        def score(self, *a, **k):
+            raise RuntimeError("backend failure injection")
+
+    svc.hybrid_selector.processor.backend = Boom()
+    out1 = feed(100)
+    if not (out1 and out1["found"] and out1["vla"] is not None
+            and out1["message"]):
+        raise RuntimeError("phase 6.4: a failing backend must still give a "
+                           "choice")
+    log(f"phase 6.4 backend raises: strategy {out1['vla']['strategy']}, "
+        f"confidence {out1['vla']['vla_confidence']:.3f}, message "
+        f"published")
+
+    class Raiser:
+        def select_grasp_point(self, *a, **k):
+            raise RuntimeError("selector failure injection")
+
+    svc.hybrid_selector = Raiser()
+    out2 = feed(101)
+    if not (out2 and out2["found"] and out2["message"]
+            and out2["vla"] is None):
+        raise RuntimeError("phase 6.4: a failing selector must give the "
+                           "geometric message with vla None")
+    log("phase 6.4 selector raises: geometric message published, vla None")
+    svc.stop()
+
+    # 6.5 the small model through the same selector
+    tiny = HybridGraspSelector(VLAProcessor(TinyVLAScorer(seed=0)))
+    tiny_scores = tiny.processor.backend.score(rgb, cands, instruction)
+    choice = tiny.select_grasp_point(rgb, cands)
+    if choice is None or len(tiny_scores) != 5 \
+            or not np.isfinite(tiny_scores).all():
+        raise RuntimeError(f"phase 6.5: TinyVLAScorer gave {tiny_scores}")
+    log(f"phase 6.5 TinyVLAScorer on the card: scores {tiny_scores}, "
+        f"strategy {choice['strategy']}")
+    del model, scorer, svc
     return counts
 
 
@@ -752,7 +1122,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; TF32 off")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     load_library(verbose=True)
     log(f"phase 1: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -779,7 +1149,8 @@ def main() -> int:
         f"reads {reads} ({reads / n_frames:.1f} per frame)")
     for key, val in frame_ms.items():
         log(f"frame_ms {key} {json.dumps(val)}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k, v in counts.items()
+               if v == 0 and k not in VLA_ONLY_KERNELS]
     if missing:
         raise RuntimeError(f"the main path launched no {missing}")
     cross_check(results, cfgs, model_cpu, scenes)
@@ -791,10 +1162,19 @@ def main() -> int:
     service_counts = run_service(torch, dev, cfgs[SERVICE_MODE], model,
                                  model_cpu, scenes)
 
+    with torch.no_grad():
+        vla_counts = run_vla(torch, dev, model, scenes)
+    log("phase 6: the VLA serve path ran at full width")
+
     for rec in records:
         rec["launches_frames"] = counts[rec["name"]]
         rec["launches_service"] = service_counts[rec["name"]]
-        rec["launches"] = counts[rec["name"]] + service_counts[rec["name"]]
+        rec["launches_vla_service"] = vla_counts[rec["name"]]
+        rec["launches"] = (counts[rec["name"]] + service_counts[rec["name"]]
+                           + vla_counts[rec["name"]])
+        if rec["launches"] == 0:
+            raise RuntimeError(f"no path launched {rec['name']}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

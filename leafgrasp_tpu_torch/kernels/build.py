@@ -8,9 +8,13 @@ root, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.
 
 Nothing here runs at import time: the first kernel launch builds.
-``-fmad=false`` keeps ``a*b + c`` as two rounded operations, as the
-plain PyTorch versions compute them; there is no ``--use_fast_math``,
-so ``expf``/``sqrtf`` keep their accurate forms.
+There is no ``--use_fast_math``, so ``expf``/``sqrtf`` keep their
+accurate forms. Flags differ by file: ``attention.cu``, ``histogram.cu``,
+``minplus.cu``, ``rowband.cu`` and ``scoring.cu`` get ``-fmad=false``,
+which keeps ``a*b + c`` as two rounded operations, as their plain
+PyTorch versions compute them (the EDT kernels are bit-exact);
+``flash_prefill.cu`` is built without it, so its f32 accumulation may
+fuse multiply-adds as a matrix product on the card does.
 """
 
 from __future__ import annotations
@@ -30,10 +34,14 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
+# flags of one source, by file name; every other file gets the default
+DEFAULT_FILE_FLAGS = ["-fmad=false"]
+FILE_FLAGS = {"flash_prefill.cu": []}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # C signatures of the exported launchers (each returns a cudaError_t).
 _SIGNATURES = {
@@ -49,6 +57,9 @@ _SIGNATURES = {
     "squared_edt_rowband": [_VP, _I, _I, _I, _VP, _VP, _VP, _VP],
     # depth, ids, lo, inv_w, n, num, blocks, out, stream
     "segment_histogram": [_VP] * 4 + [_I] * 3 + [_VP, _VP],
+    # q, k, v, pad, out, b, t, heads, kv_heads, hd, is_bf16,
+    # strides (12 int64), scale, stream
+    "flash_prefill": [_VP] * 5 + [_I] * 6 + [_VP, _F, _VP],
 }
 
 _LOCK = threading.Lock()
@@ -67,10 +78,15 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _file_flags(src: Path) -> list:
+    return FILE_FLAGS.get(src.name, DEFAULT_FILE_FLAGS)
+
+
 def _digest(sources) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
+        h.update(" ".join(_file_flags(src)).encode())
         h.update(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -93,7 +109,8 @@ def build_library(verbose: bool = False) -> Path:
         obj = BUILD_DIR / f"{src.stem}_{tag}.o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, *_file_flags(src), *extra, "-c", str(src),
+             "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for src, proc in procs:

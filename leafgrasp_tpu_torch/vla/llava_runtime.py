@@ -1,0 +1,183 @@
+"""Serving glue for the LLaVA stack: the candidate scorer. Port of
+leafgrasp_tpu/vla/llava_runtime.py.
+
+``LlavaTorchScorer`` is the VLAProcessor backend that evaluates grasp
+candidates with a ``LlavaTorch`` model: the same prompt template and the
+same parse contract as the JAX scorer, every candidate of a frame in one
+left-padded batch. Loading a HuggingFace checkpoint directory
+(``load_llava_from_hf``) comes with the checkpoint reader's port.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from leafgrasp_tpu_torch.utils.device import host_read
+from leafgrasp_tpu_torch.vla.llava_next import (CLIP_IMAGE_MEAN,
+                                                CLIP_IMAGE_STD,
+                                                pack_anyres_features_torch,
+                                                preprocess_anyres)
+from leafgrasp_tpu_torch.vla.llava_torch import greedy_generate_llava
+from leafgrasp_tpu_torch.vla.processor import build_prompt, parse_score
+
+__all__ = ["LlavaTorchScorer", "CLIP_IMAGE_MEAN", "CLIP_IMAGE_STD",
+           "preprocess_image", "load_llava_from_hf"]
+
+
+def preprocess_image(image: np.ndarray, size: int) -> np.ndarray:
+    """RGB image -> (1, size, size, 3) CLIP-normalized float32 (the
+    single-tile path: nearest-neighbour resize)."""
+    img = np.asarray(image, np.float32)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, -1)
+    if img.max() > 1.5:
+        img = img / 255.0
+    h, w = img.shape[:2]
+    ys = (np.arange(size) * h // size).clip(0, h - 1)
+    xs = (np.arange(size) * w // size).clip(0, w - 1)
+    img = img[ys][:, xs]
+    img = (img - CLIP_IMAGE_MEAN) / CLIP_IMAGE_STD
+    return img[None]
+
+
+def load_llava_from_hf(model_path: str, lora_rank: int = 0,
+                       dtype: str = "float32"):
+    raise NotImplementedError(
+        "loading a HuggingFace LLaVA checkpoint directory comes with the "
+        "port of vla/checkpoint_io.py (the next VLA slice); until then "
+        "build LlavaTorch from a state_dict with "
+        "convert_hf_llava_state_dict, or from JAX variables with "
+        "vla.convert.flax_to_torch_llava")
+
+
+class LlavaTorchScorer:
+    """VLAProcessor backend running the LlavaTorch stack on the model's
+    device.
+
+    tokenizer: any object with encode(text) -> ids and decode(ids) ->
+    str. Image tokens are inserted as N copies of image_token_index
+    before the prompt, the HF-processor convention.
+
+    max_batch: cap on candidates per generate call (None = all at once).
+    decode_mode: "scan" or "steps"; both run the same eager loop here.
+    decode_weight_layout: "default" only. The JAX package's "auto"
+    relays the weights out for a compiled decode program; eager CUDA
+    has nothing of the kind, so it raises ``ValueError``.
+    anyres: the LLaVA-NeXT tiling path: tiles are encoded once per frame
+    and shared by the candidates, packed on the device with unpadding
+    and the newline row; needs ``cfg.image_grid_pinpoints``.
+
+    ``last`` holds what the newest ``score`` call measured: token
+    counts, the generated tokens and, on a CUDA device, the split into
+    encode / prefill / decode milliseconds.
+    """
+
+    def __init__(self, model, tokenizer, max_new_tokens: int = 10,
+                 max_batch: int | None = None, decode_mode: str = "scan",
+                 decode_weight_layout: str = "default",
+                 anyres: bool = False):
+        if decode_mode not in ("scan", "steps"):
+            raise ValueError(f"decode_mode {decode_mode!r}")
+        if decode_weight_layout != "default":
+            raise ValueError(
+                f"decode_weight_layout={decode_weight_layout!r}: only "
+                f"'default' exists here; 'auto' relays weights out for a "
+                f"compiled XLA decode program and has no CUDA counterpart")
+        if anyres and not model.cfg.image_grid_pinpoints:
+            raise ValueError("anyres=True needs cfg.image_grid_pinpoints "
+                             "(a LLaVA-NeXT / v1.6 config)")
+        self.model = model
+        self.tokenizer = tokenizer
+        self.max_new_tokens = max_new_tokens
+        self.max_batch = max_batch
+        self.decode_mode = decode_mode
+        self.decode_weight_layout = decode_weight_layout
+        self.anyres = anyres
+        self.last: dict = {}
+
+    def _encode(self, prompt: str, n_image_tokens: int) -> list:
+        ids = list(self.tokenizer.encode(prompt))
+        if n_image_tokens:
+            ids = [self.model.cfg.image_token_index] * n_image_tokens + ids
+        return ids
+
+    def _encode_image(self, image):
+        """Shared per-frame image encode: (1, N, hidden) features + N.
+
+        Single-tile path: one tower pass, N = num_patches. anyres: the
+        frame goes to the device as bytes, is resized and tiled there,
+        all tiles pass the tower as one batch and are packed with unpad
+        and newline on the device."""
+        model = self.model
+        c = model.cfg
+        if not self.anyres:
+            px = torch.as_tensor(preprocess_image(image, c.image_size)) \
+                .to(model.device)
+            return model.vision_project(px), c.num_patches
+        tiles, hw = preprocess_anyres(image, c.image_grid_pinpoints, c,
+                                      normalize=True, device=model.device)
+        packed = pack_anyres_features_torch(
+            model.vision_project(tiles), hw, c.image_grid_pinpoints, c,
+            model.image_newline)
+        return packed[None], packed.shape[0]
+
+    @torch.no_grad()
+    def score(self, image, candidates: List[dict],
+              instruction: str) -> List[float]:
+        """Score every candidate in ONE batched generate (or in batches
+        of ``max_batch``). The shared image is encoded once and its
+        features are broadcast across the rows. Masking keeps rows from
+        attending across the batch or into pad slots, so batched scoring
+        equals one-by-one scoring up to the order of floating-point
+        sums."""
+        dev = self.model.device
+        timed = dev.type == "cuda"
+        self.last = {"n_image_tokens": 0, "prompt_len": 0, "tokens": [],
+                     "prefill_ms": 0.0, "decode_ms": 0.0}
+        feats, n_img = None, 0
+        if image is not None:
+            if timed:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+            feats, n_img = self._encode_image(image)  # (1, N, hidden)
+            if timed:
+                e1.record()
+        rows = [self._encode(build_prompt(c, instruction), n_img)
+                for c in candidates]
+        step = self.max_batch or len(rows)
+        out: List[float] = []
+        for lo in range(0, len(rows), step):
+            out.extend(self._score_batch(rows[lo:lo + step], feats))
+        self.last["n_image_tokens"] = n_img
+        if timed and image is not None:
+            e1.synchronize()
+            self.last["encode_ms"] = e0.elapsed_time(e1)
+        return out
+
+    def _score_batch(self, rows, feats) -> List[float]:
+        dev = self.model.device
+        b = len(rows)
+        t = max(len(r) for r in rows)
+        ids = np.zeros((b, t), np.int64)
+        pad = np.zeros((b,), np.int32)
+        for i, r in enumerate(rows):
+            pad[i] = t - len(r)
+            ids[i, pad[i]:] = r
+        if feats is not None:
+            feats = feats.expand(b, *feats.shape[1:])
+        timings: dict = {}
+        gen = greedy_generate_llava(
+            self.model, torch.as_tensor(ids).to(dev), image_features=feats,
+            max_new_tokens=self.max_new_tokens,
+            pad_lens=torch.as_tensor(pad).to(dev),
+            decode_mode=self.decode_mode, timings=timings)
+        gen = host_read(gen)           # the one transfer of the batch
+        self.last["prompt_len"] = t
+        self.last["tokens"].extend(gen)
+        for key, val in timings.items():
+            self.last[key] += val
+        return [parse_score(self.tokenizer.decode(row)) for row in gen]

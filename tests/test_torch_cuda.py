@@ -9,7 +9,11 @@ machine run it alone:
 Without a CUDA device every test here skips. Tolerances: min-plus and
 row-banded EDT bit-exact (integer-valued f32 below 2^24); fused scoring
 1e-5 absolute, valid mask equal; attention gate 1e-5 absolute; segment
-histogram counts equal.
+histogram counts equal; flash prefill 2e-5 absolute in f32, and in bf16
+2e-2 plus 2^-6 of the value (another order of the f32 sums; in bf16 the
+output is rounded, one ulp being 2^-8 of the value, and the
+probabilities are rounded before, not after, the division by the row
+sum), pad rows exactly zero.
 """
 
 import numpy as np
@@ -23,6 +27,8 @@ from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
 from leafgrasp_tpu_torch.kernels.attention import (MODES,
                                                    attention_gate_plain,
                                                    fused_attention_gate)
+from leafgrasp_tpu_torch.kernels.flash_prefill import (flash_prefill,
+                                                       flash_prefill_plain)
 from leafgrasp_tpu_torch.kernels.histogram import (NBINS, segment_histogram,
                                                    segment_histogram_plain)
 from leafgrasp_tpu_torch.kernels.minplus import (BAND_ROWS, minplus_pass2,
@@ -187,3 +193,51 @@ def test_frame_launch_counts_on_card(cuda):
     assert kernels.launch_counts()["segment_histogram"] == 3
     assert int(hist.leaf_id) == int(base.leaf_id) > 0
     assert torch.equal(hist.grasp_uv, base.grasp_uv)
+
+
+FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 2.0 ** -6)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pads", [
+    ((2, 200, 4, 2, 64), (0, 37)),
+    ((3, 129, 4, 4, 16), (128, 0, 64)),
+    ((2, 333, 6, 2, 32), (70, 5)),
+    ((5, 640, 32, 8, 128), (0, 3, 64, 130, 639)),
+])
+def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, shape, pads):
+    """Unequal left pads including 0, ragged last tiles, K/V read through
+    the strides of a longer cache: real rows within tolerance, pad rows
+    exactly zero."""
+    b, t, heads, kvh, hd = shape
+    rng = np.random.default_rng(21)
+
+    def t_(*s):
+        return torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                               device=cuda).to(dtype)
+
+    q = t_(b, t, heads, hd)
+    cache_k, cache_v = t_(b, t + 10, kvh, hd), t_(b, t + 10, kvh, hd)
+    pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    got = flash_prefill(q, cache_k, cache_v, pad)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_prefill"] == 1
+    want = flash_prefill_plain(q, cache_k, cache_v, pad, chunk=256)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    for i, p in enumerate(pads):
+        assert not got[i, :p].any()
+    atol, rtol = FLASH_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    assert float((diff - rtol * want.float().abs()).max()) <= atol, \
+        float(diff.max())
+
+
+def test_flash_prefill_raises_on_card_for_what_the_kernel_lacks(cuda):
+    q = torch.zeros((1, 130, 2, 24), device=cuda)
+    pad = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        flash_prefill(q, q, q, pad)
+    with pytest.raises(ValueError):
+        flash_prefill(q.half(), q.half(), q.half(), pad)

@@ -248,8 +248,13 @@ def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     names = sorted(p.name for p in build._sources())
-    assert names == ["attention.cu", "histogram.cu", "minplus.cu",
-                     "rowband.cu", "scoring.cu"]
+    assert names == ["attention.cu", "flash_prefill.cu", "histogram.cu",
+                     "minplus.cu", "rowband.cu", "scoring.cu"]
+    # the bit-exact kernels keep separate multiply and add; the flash
+    # prefill alone may fuse them
+    for p in build._sources():
+        assert ("-fmad=false" in build._file_flags(p)) == \
+            (p.name != "flash_prefill.cu")
     for p in build._sources():
         text = p.read_text()
         assert "extern \"C\" int " in text and "Replaces" in text
@@ -263,3 +268,109 @@ def test_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         build._nvcc()
 
+
+
+# ---- flash prefill ------------------------------------------------------------
+
+def _flash_case(seed, b, t, heads, kvh, hd, pads, extra=6):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, t, heads, hd)).astype(np.float32)
+    k = rng.standard_normal((b, t + extra, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((b, t + extra, kvh, hd)).astype(np.float32)
+    return q, k, v, np.asarray(pads, np.int32)
+
+
+@pytest.mark.parametrize("shape,pads", [
+    ((2, 130, 4, 2, 16), (0, 37)),
+    ((3, 160, 4, 4, 8), (128, 1, 159)),
+    ((1, 128, 6, 2, 16), (5,)),
+])
+def test_flash_prefill_plain_matches_jax_dense_route(shape, pads):
+    """The kernel's plain version against the JAX package's dense route:
+    ``_MistralAttention``'s ``attend`` under the mask that
+    ``_generate_prefill`` builds (causal AND key >= left pad), t >= 128,
+    unequal pads, f32, real rows to 1e-5. The JAX package's own flash
+    route is a Pallas TPU kernel that needs the TPU backend and is never
+    run on the CPU by its tests; the dense route is what it states that
+    kernel to equal on real rows, so it is the reference here. The JAX
+    module is applied with identity q and o projections and positions 0
+    (no rotation), so its output is ``attend`` itself."""
+    from leafgrasp_tpu.vla import llava_jax as jl
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        flash_prefill, flash_prefill_plain)
+    b, t, heads, kvh, hd = shape
+    hidden = heads * hd
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((b, t, hidden)).astype(np.float32)
+    wk = (rng.standard_normal((hidden, kvh * hd)) / np.sqrt(hidden)) \
+        .astype(np.float32)
+    wv = (rng.standard_normal((hidden, kvh * hd)) / np.sqrt(hidden)) \
+        .astype(np.float32)
+    pad = np.asarray(pads, np.int32)
+    cfg = jl.LlavaJaxConfig(hidden=hidden, heads=heads, kv_heads=kvh,
+                            prefill_attn_chunk=None)
+    eye = np.eye(hidden, dtype=np.float32)
+    params = {"q_proj": {"kernel": eye}, "o_proj": {"kernel": eye},
+              "k_proj": {"kernel": wk}, "v_proj": {"kernel": wv}}
+    mask = np.tril(np.ones((t, t), bool))[None, None] \
+        & (np.arange(t)[None, None, None, :] >= pad[:, None, None, None])
+    want, _ = jl._MistralAttention(cfg).apply(
+        {"params": params}, jnp.asarray(x),
+        jnp.zeros((b, t), jnp.int32), jnp.asarray(mask))
+    want = np.asarray(want).reshape(b, t, heads, hd)
+    q = _t(x.reshape(b, t, heads, hd))
+    k = _t((x @ wk).reshape(b, t, kvh, hd))
+    v = _t((x @ wv).reshape(b, t, kvh, hd))
+    got = flash_prefill_plain(q, k, v, _t(pad))
+    for i, p in enumerate(pads):
+        np.testing.assert_allclose(got[i, p:].numpy(), want[i, p:], rtol=0,
+                                   atol=1e-5)
+        assert not got[i, :p].any()               # pad rows are zeros
+    kernels.reset_launch_counts()
+    assert torch.equal(flash_prefill(q, k, v, _t(pad)), got)
+    assert kernels.launch_counts()["flash_prefill"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_plain_chunks_strides_and_pad_rows(dtype):
+    """Query chunks give the same rows; K/V are read through the strides
+    of a longer cache and only its first t rows; pad rows are exactly
+    zero and everything is finite, whatever the cache holds there."""
+    from leafgrasp_tpu_torch.kernels.flash_prefill import flash_prefill_plain
+    q, k, v, pad = _flash_case(32, 2, 50, 4, 2, 8, (0, 20))
+    k[:, 50:] = np.nan                            # beyond t: never read
+    q, k, v = (_t(a).to(dtype) for a in (q, k, v))
+    whole = flash_prefill_plain(q, k, v, _t(pad))
+    assert whole.dtype == dtype and torch.isfinite(whole.float()).all()
+    assert not whole[1, :20].any()
+    for chunk in (1, 7, 50, 64):
+        torch.testing.assert_close(
+            flash_prefill_plain(q, k, v, _t(pad), chunk=chunk), whole,
+            rtol=0, atol=1e-6 if dtype == torch.float32 else 2e-2)
+    cache_k = torch.zeros((2, 60, 3, 8), dtype=dtype)
+    cache_v = torch.zeros((2, 60, 3, 8), dtype=dtype)
+    cache_k[:, :56, 1:], cache_v[:, :56, 1:] = k, v
+    torch.testing.assert_close(
+        flash_prefill_plain(q, cache_k[:, :, 1:], cache_v[:, :, 1:],
+                            _t(pad)), whole, rtol=0, atol=0)
+    # the first real row attends itself alone: its output is its v row
+    torch.testing.assert_close(whole[1, 20, :2].float(),
+                               v[1, 20, 0].float().expand(2, 8),
+                               rtol=0, atol=1e-6)
+
+
+def test_flash_prefill_checks_its_arguments():
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        HEAD_DIMS, flash_prefill, supports)
+    q, k, v, pad = (_t(a) for a in _flash_case(33, 2, 10, 4, 2, 8, (0, 1)))
+    with pytest.raises(ValueError, match="int32"):
+        flash_prefill(q, k, v, pad.long())
+    with pytest.raises(ValueError, match="heads"):
+        flash_prefill(q[:, :, :3], k, v, pad)
+    with pytest.raises(ValueError, match="fit"):
+        flash_prefill(q, k[:, :5], v[:, :5], pad)
+    with pytest.raises(ValueError, match="type"):
+        flash_prefill(q, k.bfloat16(), v, pad)
+    assert supports(128, torch.bfloat16) and supports(64, torch.float32)
+    assert not supports(128, torch.float16) and not supports(24, torch.float32)
+    assert 128 in HEAD_DIMS
