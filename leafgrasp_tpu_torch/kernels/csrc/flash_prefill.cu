@@ -30,9 +30,14 @@
 // score fragment of a warp is already laid out as the A operand of the
 // second product, so probabilities never leave registers. Row maxima and
 // sums are kept per thread quad (the four lanes that share a row of the
-// fragment). Blocks are issued heaviest first (last query tile first).
-// wgmma, TMA and a K/V tile shared by the rep heads of a group are left
-// for later.
+// fragment). K/V tiles arrive through cp.async into two shared-memory
+// stages, so the next tile loads while this one is multiplied; K and V
+// fragments come out of shared memory with ldmatrix (four 8x8 blocks an
+// instruction); tiles that lie wholly inside the causal triangle and
+// behind the pad skip the mask; the exponentials are exp2f with log2(e)
+// folded into the score scale. Blocks are issued heaviest first (last
+// query tile first). wgmma, TMA and a K/V tile shared by the rep heads
+// of a group are left for later.
 //
 // The f32 instantiation runs the same tile walk, masking, running
 // softmax and epilogue with the two products as scalar loops over shared
@@ -40,7 +45,7 @@
 // masking and the softmax against the plain version to about 1e-5.
 //
 // This file is built with fused multiply-adds allowed (the other kernels
-// are not); expf is the accurate form, there is no --use_fast_math.
+// are not); exp2f is the accurate form, there is no --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,6 +95,50 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* ptr) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(ptr);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 16 bytes global -> shared without passing registers; src_bytes 0 writes
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the same tile through cp.async: returns at once, the copy lands later
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
+                                                long long row_stride,
+                                                int row0, int nrows,
+                                                int limit) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CH = HD / VEC;
+  constexpr int LD = HD + RowPad<T>::v;
+  for (int idx = threadIdx.x; idx < nrows * CH; idx += NTHREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const int row = row0 + r;
+    const bool ok = row >= 0 && row < limit;
+    cp_async_16(dst + r * LD + c * VEC,
+                src + (long long)(ok ? row : 0) * row_stride + c * VEC,
+                ok ? 16 : 0);
+  }
+}
+
 // rows [row0, row0 + nrows) of a (rows, HD) global tile into shared
 // memory, 16 bytes a thread; rows outside [0, limit) become zeros
 template <typename T, int HD>
@@ -131,9 +180,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = HD + RowPad<T>::v;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + BM * LD;
-  T* Vs = Ks + BN * LD;
-  float* Ps = reinterpret_cast<float*>(Vs + BN * LD);   // f32 only
+  T* Kst = Qs + BM * LD;                      // two stages of BN rows
+  T* Vst = Kst + 2 * BN * LD;
+  float* Ps = reinterpret_cast<float*>(Vst + 2 * BN * LD);   // f32 only
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * BM;
@@ -156,12 +205,19 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
 
+  const int kt_first = p / BN;
+  const int kt_last = (row_hi - 1) / BN;
+  load_tile_async<T, HD>(Kst, kb, ks.t, kt_first * BN, BN, t);
+  load_tile_async<T, HD>(Vst, vb, vs.t, kt_first * BN, BN, t);
+  cp_async_commit();
   load_tile<T, HD>(Qs, qb, qs.t, q0, BM, t);
   __syncthreads();
 
   const int lr = warp * 16 + g;               // this thread's rows: lr, lr+8
   const int row_a = q0 + lr, row_b = row_a + 8;
-  const int warp_last = q0 + warp * 16 + 15;  // last query row of the warp
+  const int warp_first = q0 + warp * 16;      // query rows of the warp
+  const int warp_last = warp_first + 15;
+  const float scale2 = scale * 1.4426950408889634f;   // to log2 units
 
   uint32_t qf[kScalar ? 1 : HD / 16][4];
   if constexpr (!kScalar) {
@@ -182,15 +238,23 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m_a = -INFINITY, m_b = -INFINITY;     // running row maxima
   float l_a = 0.0f, l_b = 0.0f;               // this thread's share of sums
 
-  const int kt_first = p / BN;
-  const int kt_last = (row_hi - 1) / BN;
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * BN;
-    __syncthreads();                          // the last tile is consumed
-    load_tile<T, HD>(Ks, kb, ks.t, k0, BN, t);
-    load_tile<T, HD>(Vs, vb, vs.t, k0, BN, t);
+    const int stage = (kt - kt_first) & 1;
+    const T* Ks = Kst + stage * BN * LD;
+    const T* Vs = Vst + stage * BN * LD;
+    if (kt < kt_last) {                       // prefetch the next tile
+      load_tile_async<T, HD>(Kst + (stage ^ 1) * BN * LD, kb, ks.t, k0 + BN,
+                             BN, t);
+      load_tile_async<T, HD>(Vst + (stage ^ 1) * BN * LD, vb, vs.t, k0 + BN,
+                             BN, t);
+      cp_async_commit();
+      cp_async_wait<1>();                     // this tile has landed
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    if (k0 > warp_last) continue;             // above this warp's diagonal
+    if (k0 <= warp_last) {                    // else above the warp's diagonal
 
     // ---- S = Q K^T for 16 rows x BN keys
     float s[BN / 8][4];
@@ -216,24 +280,35 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
 #pragma unroll
-        for (int n = 0; n < BN / 8; ++n) {
-          const T* kp = Ks + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-          mma_bf16(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-                   *reinterpret_cast<const uint32_t*>(kp + 8));
+        for (int n = 0; n < BN / 8; n += 2) {
+          // matrices 0, 1: keys n*8 + 0..7 at columns kk*16 + 0..7 and
+          // 8..15; matrices 2, 3: the same columns of keys (n + 1)*8 + ..
+          uint32_t kf[4];
+          ldmatrix_x4(kf, Ks + ((n + (lane >> 4)) * 8 + (lane & 7)) * LD
+                              + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[n], qf[kk], kf[0], kf[1]);
+          mma_bf16(s[n + 1], qf[kk], kf[2], kf[3]);
         }
       }
     }
 
-    // ---- mask, scale, running softmax
+    // ---- mask, scale (to log2 units), running softmax. A tile behind
+    // the pad, under the warp's first row and inside the sequence has no
+    // masked key.
+    const bool masked = (k0 < p) || (k0 + BN - 1 > warp_first)
+                        || (k0 + BN > t);
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int n = 0; n < BN / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int j = k0 + n * 8 + 2 * tq + (e & 1);
-        const int i = (e < 2) ? row_a : row_b;
-        const bool ok = (j >= p) && (j <= i) && (j < t);
-        s[n][e] = ok ? s[n][e] * scale : -INFINITY;
+        bool ok = true;
+        if (masked) {
+          const int j = k0 + n * 8 + 2 * tq + (e & 1);
+          const int i = (e < 2) ? row_a : row_b;
+          ok = (j >= p) && (j <= i) && (j < t);
+        }
+        s[n][e] = ok ? s[n][e] * scale2 : -INFINITY;
       }
       mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
       mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
@@ -244,19 +319,19 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
     // a row with no key yet keeps -inf; subtract 0 then, so that every
-    // exponent is exp(-inf) = 0 and never inf - inf
+    // exponent is exp2(-inf) = 0 and never inf - inf
     const float mu_a = (mn_a == -INFINITY) ? 0.0f : mn_a;
     const float mu_b = (mn_b == -INFINITY) ? 0.0f : mn_b;
-    const float al_a = expf(m_a - mu_a), al_b = expf(m_b - mu_b);
+    const float al_a = exp2f(m_a - mu_a), al_b = exp2f(m_b - mu_b);
     m_a = mn_a;
     m_b = mn_b;
     float sum_a = 0.0f, sum_b = 0.0f;
 #pragma unroll
     for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = expf(s[n][0] - mu_a);         // a masked key gives exactly 0
-      s[n][1] = expf(s[n][1] - mu_a);
-      s[n][2] = expf(s[n][2] - mu_b);
-      s[n][3] = expf(s[n][3] - mu_b);
+      s[n][0] = exp2f(s[n][0] - mu_a);        // a masked key gives exactly 0
+      s[n][1] = exp2f(s[n][1] - mu_a);
+      s[n][2] = exp2f(s[n][2] - mu_b);
+      s[n][3] = exp2f(s[n][3] - mu_b);
       sum_a += s[n][0] + s[n][1];
       sum_b += s[n][2] + s[n][3];
     }
@@ -317,6 +392,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
+    }                                         // k0 <= warp_last
+    __syncthreads();                          // the stage may be overwritten
   }
 
   // ---- epilogue: finish the row sums over the quad, normalise, store
@@ -344,7 +421,7 @@ int launch(const void* q, const void* k, const void* v, const int* pad,
            Strides ks, Strides vs, Strides os, float scale,
            cudaStream_t stream) {
   constexpr int LD = HD + RowPad<T>::v;
-  size_t smem = (size_t)(BM + 2 * BN) * LD * sizeof(T);
+  size_t smem = (size_t)(BM + 4 * BN) * LD * sizeof(T);   // Q, 2 x (K, V)
   if (std::is_same<T, float>::value)
     smem += (size_t)NWARPS * 16 * PS_LD * sizeof(float);
   auto kernel = flash_prefill_kernel<T, HD>;

@@ -22,9 +22,6 @@ __all__ = ["unflatten_tree", "flax_to_torch_tiny_vla",
 
 
 def _t(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.kind == "V" or str(a.dtype) == "bfloat16":
-        a = a.astype(np.float32)
     return torch.as_tensor(np.array(a))
 
 

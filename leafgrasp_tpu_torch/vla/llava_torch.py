@@ -532,23 +532,23 @@ class LlavaTorch(nn.Module):
 # ------------------------------------------------------------ weights ----
 
 def init_random_(model: LlavaTorch, generator: torch.Generator,
-                 std: float = 0.02, unit_norms: bool = False) -> LlavaTorch:
-    """Fill every parameter in place with ``std * randn`` drawn from
-    ``generator`` (on the model's device), in the parameter's own type:
-    a bf16 model never has an f32 copy. For serving measurements, where
+                 std: float = 0.02) -> LlavaTorch:
+    """Fill every parameter in place from ``generator`` (on the model's
+    device), in the parameter's own type, so a bf16 model never has an
+    f32 copy: ``std * randn``, and ``1 + std * randn`` for the gains of
+    the RMSNorm and LayerNorm layers. For serving measurements, where
     throughput does not depend on the values.
 
-    unit_norms: draw the gains of the RMSNorm and LayerNorm layers as
-    ``1 + std * randn`` instead. With gains of ``std`` the branches see
-    inputs of that scale, the residual stream is swamped by the average
-    over the image tokens, and every candidate decodes the same tokens
-    whatever its text; at unit gain activations have the scale of a
-    trained model's and the text decides."""
+    The gains are drawn around one because with gains of ``std`` the
+    branches see inputs of that scale, the residual stream is swamped by
+    the average over the image tokens, and every candidate decodes the
+    same tokens whatever its text; at unit gain activations have the
+    scale of a trained model's and the text decides."""
     with torch.no_grad():
         for module in model.modules():
             for name, p in module.named_parameters(recurse=False):
                 p.normal_(0.0, std, generator=generator)
-                if unit_norms and name == "weight" and isinstance(
+                if name == "weight" and isinstance(
                         module, (_RMSNorm, nn.LayerNorm)):
                     p.add_(1.0)
     return model
