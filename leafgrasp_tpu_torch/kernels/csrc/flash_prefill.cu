@@ -35,7 +35,7 @@
 // fragments come out of shared memory with ldmatrix (four 8x8 blocks an
 // instruction); tiles that lie wholly inside the causal triangle and
 // behind the pad skip the mask; the exponentials are exp2f with log2(e)
-// folded into the score scale. Blocks are issued heaviest first (last
+// folded into the score scale. Blocks start heaviest first (last
 // query tile first). wgmma, TMA and a K/V tile shared by the rep heads
 // of a group are left for later.
 //
