@@ -30,8 +30,8 @@
 // score fragment of a warp is already laid out as the A operand of the
 // second product, so probabilities never leave registers. Row maxima and
 // sums are kept per thread quad (the four lanes that share a row of the
-// fragment). K/V tiles arrive through cp.async into two shared-memory
-// stages, so the next tile loads while this one is multiplied; K and V
+// fragment). Q and the K/V tiles arrive through cp.async, K/V into two
+// shared-memory stages, so the next tile loads while this one is multiplied; K and V
 // fragments come out of shared memory with ldmatrix (four 8x8 blocks an
 // instruction); tiles that lie wholly inside the causal triangle and
 // behind the pad skip the mask; the exponentials are exp2f with log2(e)
@@ -120,7 +120,9 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// the same tile through cp.async: returns at once, the copy lands later
+// rows [row0, row0 + nrows) of a (rows, HD) global tile into shared
+// memory through cp.async, 16 bytes a thread: returns at once, the copy
+// lands later; rows outside [0, limit) become zeros
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
                                                 long long row_stride,
@@ -136,26 +138,6 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
     cp_async_16(dst + r * LD + c * VEC,
                 src + (long long)(ok ? row : 0) * row_stride + c * VEC,
                 ok ? 16 : 0);
-  }
-}
-
-// rows [row0, row0 + nrows) of a (rows, HD) global tile into shared
-// memory, 16 bytes a thread; rows outside [0, limit) become zeros
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int row0,
-                                          int nrows, int limit) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CH = HD / VEC;
-  constexpr int LD = HD + RowPad<T>::v;
-  for (int idx = threadIdx.x; idx < nrows * CH; idx += NTHREADS) {
-    const int r = idx / CH, c = idx % CH;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row >= 0 && row < limit)
-      val = *reinterpret_cast<const uint4*>(src + (long long)row * row_stride
-                                            + c * VEC);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * VEC) = val;
   }
 }
 
@@ -207,10 +189,12 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int kt_first = p / BN;
   const int kt_last = (row_hi - 1) / BN;
+  load_tile_async<T, HD>(Qs, qb, qs.t, q0, BM, t);
+  cp_async_commit();
   load_tile_async<T, HD>(Kst, kb, ks.t, kt_first * BN, BN, t);
   load_tile_async<T, HD>(Vst, vb, vs.t, kt_first * BN, BN, t);
   cp_async_commit();
-  load_tile<T, HD>(Qs, qb, qs.t, q0, BM, t);
+  cp_async_wait<1>();                         // Q has landed
   __syncthreads();
 
   const int lr = warp * 16 + g;               // this thread's rows: lr, lr+8
@@ -444,12 +428,6 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
              Strides qs, Strides ks, Strides vs, Strides os, float scale,
              cudaStream_t stream) {
   switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, pad, out, b, t, heads, rep, qs, ks, vs,
-                           os, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, pad, out, b, t, heads, rep, qs, ks, vs,
-                           os, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, pad, out, b, t, heads, rep, qs, ks, vs,
                            os, scale, stream);
@@ -466,7 +444,8 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
 // q, out: (b, t, heads, hd); k, v: (b, >= t, kv_heads, hd), only the first
 // t rows are read. strides: twelve element strides, (batch, token, head)
 // of q, k, v, out; the last dimension is contiguous and every row starts
-// on a 16-byte boundary. is_bf16: 1 for bf16 in and out, 0 for f32.
+// on a 16-byte boundary. is_bf16: 1 for bf16 in and out, 0 for f32. hd is
+// 64 or 128 (the sizes instantiated).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const int* pad, void* out, int b, int t,
                              int heads, int kv_heads, int hd, int is_bf16,

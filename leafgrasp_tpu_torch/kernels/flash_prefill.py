@@ -30,15 +30,10 @@ import torch
 from leafgrasp_tpu_torch.kernels import LAUNCHES
 from leafgrasp_tpu_torch.kernels.build import check, load_library
 
-__all__ = ["flash_prefill", "flash_prefill_plain", "HEAD_DIMS", "supports"]
+__all__ = ["flash_prefill", "flash_prefill_plain"]
 
-HEAD_DIMS = (16, 32, 64, 128)      # instantiated in the kernel
+_HEAD_DIMS = (64, 128)             # instantiated in the kernel
 _DTYPES = (torch.float32, torch.bfloat16)
-
-
-def supports(hd: int, dtype: torch.dtype) -> bool:
-    """Whether the kernel is instantiated for this head size and type."""
-    return hd in HEAD_DIMS and dtype in _DTYPES
 
 
 def _check_args(q, k, v, pad):
@@ -121,9 +116,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k, v, pad)
     b, t, heads, hd = q.shape
-    if not supports(hd, q.dtype):
+    if hd not in _HEAD_DIMS or q.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes f32 or bf16 with a head size in "
-                         f"{HEAD_DIMS}, got {q.dtype} with {hd}")
+                         f"{_HEAD_DIMS}, got {q.dtype} with {hd}")
     out = torch.empty((b, t, heads, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

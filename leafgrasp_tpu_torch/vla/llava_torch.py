@@ -84,9 +84,10 @@ class LlavaTorchConfig:
     # not (b, heads, t, t). None disables chunking.
     prefill_attn_chunk: Optional[int] = 512
     # "chunked" (above) or "flash": prompts of at least 128 tokens with
-    # the causal-plus-left-pad mask of the generate functions, an inactive
-    # sliding window and a head size the kernel has go through
-    # kernels/flash_prefill; everything else takes "chunked"
+    # the causal-plus-left-pad mask of the generate functions and an
+    # inactive sliding window go through kernels/flash_prefill (on the
+    # card it raises for a head size or type its kernel lacks);
+    # everything else takes "chunked"
     prefill_attn_impl: str = "chunked"
 
     @property
@@ -369,10 +370,11 @@ class _MistralAttention(nn.Module):
         if (c.prefill_attn_impl == "flash" and head1_prefill_mask
                 and pad is not None and cur == 0
                 and t >= FLASH_MIN_TOKENS
-                and (c.sliding_window is None or t <= c.sliding_window)
-                and _fp.supports(hd, kernel_dt)):
+                and (c.sliding_window is None or t <= c.sliding_window)):
             # K/V go in as the cache holds them: kv_heads heads, the row
-            # stride of the whole cache, the first t rows read
+            # stride of the whole cache, the first t rows read. On the
+            # card the wrapper raises for a head size or type its kernel
+            # lacks; nothing here gives way to another route for it
             out = _fp.flash_prefill(q.to(kernel_dt), k.to(kernel_dt),
                                     v.to(kernel_dt), pad)
         elif tc is None or t <= tc or not head1_prefill_mask:

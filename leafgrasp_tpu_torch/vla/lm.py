@@ -197,8 +197,13 @@ class VisionEncoder(nn.Module):
 
 
 class TinyVLA(nn.Module):
-    def __init__(self, cfg: VLAModelConfig, device="cpu"):
+    """``device=None`` means CUDA and raises without it; the parameters
+    are PyTorch's default draws (load a ``state_dict`` or use
+    ``init_vla``)."""
+
+    def __init__(self, cfg: VLAModelConfig, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.dim, device=device)
         self.vision = VisionEncoder(cfg, device=device)

@@ -10,10 +10,13 @@ Without a CUDA device every test here skips. Tolerances: min-plus and
 row-banded EDT bit-exact (integer-valued f32 below 2^24); fused scoring
 1e-5 absolute, valid mask equal; attention gate 1e-5 absolute; segment
 histogram counts equal; flash prefill 2e-5 absolute in f32, and in bf16
-2e-2 plus 2^-6 of the value (another order of the f32 sums; in bf16 the
-output is rounded, one ulp being 2^-8 of the value, and the
-probabilities are rounded before, not after, the division by the row
-sum), pad rows exactly zero.
+2^-6 of the value plus 2^-6 of the largest value of the same output row
+(another order of the f32 sums; in bf16 the output is rounded, one ulp
+being up to 2^-7 of the value, and the probabilities are rounded
+before, not after, the division by the row sum; an output that cancels
+to near zero carries an ulp of the values it was summed from, which the
+row's largest stands for: ``chip_smoke.py`` reads at most 0.0051 of it
+over the relative part), pad rows exactly zero.
 """
 
 import numpy as np
@@ -195,14 +198,16 @@ def test_frame_launch_counts_on_card(cuda):
     assert torch.equal(hist.grasp_uv, base.grasp_uv)
 
 
-FLASH_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 2.0 ** -6)}
+# dtype -> (absolute, share of |plain|, share of the row's largest |plain|)
+FLASH_TOL = {torch.float32: (2e-5, 0.0, 0.0),
+             torch.bfloat16: (0.0, 2.0 ** -6, 2.0 ** -6)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,pads", [
     ((2, 200, 4, 2, 64), (0, 37)),
-    ((3, 129, 4, 4, 16), (128, 0, 64)),
-    ((2, 333, 6, 2, 32), (70, 5)),
+    ((3, 129, 4, 4, 64), (128, 0, 64)),
+    ((2, 333, 6, 2, 128), (70, 5)),
     ((5, 640, 32, 8, 128), (0, 3, 64, 130, 639)),
 ])
 def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, shape, pads):
@@ -228,10 +233,11 @@ def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, shape, pads):
     assert torch.isfinite(got.float()).all()
     for i, p in enumerate(pads):
         assert not got[i, :p].any()
-    atol, rtol = FLASH_TOL[dtype]
-    diff = (got.float() - want.float()).abs()
-    assert float((diff - rtol * want.float().abs()).max()) <= atol, \
-        float(diff.max())
+    atol, rtol, rowtol = FLASH_TOL[dtype]
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    allowed = rtol * want.abs() + rowtol * want.abs().amax(-1, keepdim=True)
+    assert float((diff - allowed).max()) <= atol, float(diff.max())
 
 
 def test_flash_prefill_raises_on_card_for_what_the_kernel_lacks(cuda):
@@ -241,3 +247,25 @@ def test_flash_prefill_raises_on_card_for_what_the_kernel_lacks(cuda):
         flash_prefill(q, q, q, pad)
     with pytest.raises(ValueError):
         flash_prefill(q.half(), q.half(), q.half(), pad)
+
+
+def test_flash_route_raises_on_card_rather_than_take_another_route(cuda):
+    """A model whose head size the kernel lacks, asked for the flash
+    route on the card, raises; the chunked route serves it."""
+    from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                     LlavaTorchConfig,
+                                                     init_random_)
+    cfg = LlavaTorchConfig(
+        vis_hidden=32, vis_intermediate=64, vis_layers=2, vis_heads=2,
+        image_size=28, patch_size=14, vocab_size=128, hidden=64,
+        intermediate=96, layers=2, heads=4, kv_heads=2,
+        image_token_index=100, prefill_attn_impl="flash")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = init_random_(LlavaTorch(cfg, device=cuda), gen).eval()
+    ids = torch.ones((1, 150), dtype=torch.int64, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="head size"):
+            model(ids)
+        model.set_prefill_attn("chunked")
+        assert torch.isfinite(model(ids)[0]).all()

@@ -354,6 +354,25 @@ def test_flash_route_needs_the_callers_word_on_the_mask(monkeypatch):
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL, atol=ATOL)
 
 
+def test_flash_route_does_not_ask_what_the_kernel_is_built_for(monkeypatch):
+    """The route engages on the configuration and the mask alone: a head
+    size the kernel is not instantiated for still reaches the wrapper
+    (which serves CPU tensors by the plain version and raises on the
+    card), never another route."""
+    from leafgrasp_tpu_torch.kernels import flash_prefill as fp
+    _, _, tmodel = _pair(prefill_attn_impl="flash")
+    cfg = tmodel.cfg
+    assert cfg.hidden // cfg.heads not in fp._HEAD_DIMS
+    ids, _ = _long_prompt(14, b=1, pads=(0,))
+    seen = []
+    real = tl._fp.flash_prefill
+    monkeypatch.setattr(tl._fp, "flash_prefill",
+                        lambda q, *a: seen.append(q.shape[-1]) or real(q, *a))
+    with torch.no_grad():
+        tmodel(torch.from_numpy(ids))
+    assert seen == [cfg.hidden // cfg.heads] * cfg.layers
+
+
 def test_unported_options_raise_and_name_the_later_slice():
     _, tcfg = _configs(quantized=True)
     with pytest.raises(NotImplementedError, match="quant"):

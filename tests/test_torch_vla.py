@@ -346,6 +346,8 @@ def test_init_vla_is_seeded_and_needs_a_device():
             tlm.init_vla(0, cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             tproc.TinyVLAScorer()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tlm.TinyVLA(cfg)                      # the class itself too
 
 
 def test_lora_dense_forward_and_merge_match_jax():
