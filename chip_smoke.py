@@ -12,14 +12,18 @@ Phases, each a hard failure (non-zero exit):
    main path's shapes: fused scoring at 1080 x 1440 (max abs diff
    <= 1e-5, valid mask equal), the attention gate at (20, 16, 256) in all
    four modes (<= 1e-5), the min-plus in its full, window, sampled,
-   refinement and banded forms (bit-exact), the row-banded EDT at
+   refinement and banded forms, with a source sub-range, and at the edge
+   of its exact range (sentinel and largest admitted rows, sources at
+   both ends of the row), all bit-exact, the row-banded EDT at
    (1, 540, 720) and (3, 1080, 1440) (bit-exact, radii included), and the
    segment histogram at 1080 x 1440 with 18 segments (counts equal; the
    histogram median within range / 256^2 of the sorted median), and the
    flash-attention prefill in f32 (<= 2e-5 on real rows) and bf16
    (<= 2^-6 of the value plus 2^-6 of the largest value of its output row) with unequal left pads at (2, 200, 4 heads over 2, 64),
-   (5, 640, 32 over 8, 128) and the serving shape (5, 2400, 32 over 8,
-   128), pad rows exactly zero;
+   (5, 640, 32 over 8, 128), the serving shape (5, 2400, 32 over 8,
+   128), a prompt shorter than one tile with one query head a K/V head,
+   a pad that ends inside a 64-row group, and t = 2437 (no multiple of a
+   tile), every cache holding NaN beyond t; pad rows exactly zero;
 3. drive ``make_frame_fn(with_cnn=True)`` at 1080 x 1440 with the
    standard CNN (seeded weights) on the three ``bench.py`` scene families
    in the ``reference_self``, ``union`` and ``union_half`` modes, and in
@@ -68,6 +72,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -99,15 +104,15 @@ VLA_FRAMES = 6
 # of the deviation at an element four deviations out; read: 0.023). The
 # 32 random layers at unit gain then carry that rounding on and add their
 # own: the run prints the share after layers 1, 2, 4, ... (read: 0.023,
-# 0.040, 0.046, 0.065, 0.084, 0.110, 0.125 after 32) and the first step's
-# logits may differ by LOGIT (read: 0.147 in every run, the card's
-# arithmetic being the same from run to run; the limit leaves 1.7 times
-# that). Random weights leave near ties, and a row that parts once stays
-# parted: of the 50 greedy tokens at most TOKEN may differ (read: 20, two
-# rows of ten). A wrong route gives unrelated logits (a share of 4 and
-# more) and parts all 50. The run also prints the same share for chunked
-# at another chunk size and for the rows scored one by one on the flash
-# route (read: 0.0 both, the same operations on other shapes).
+# 0.040, 0.046, 0.081, 0.106, 0.125, 0.133 after 32) and the first step's
+# logits may differ by LOGIT (read: 0.149, and 0.147 with the kernel
+# before its wgmma redesign; the limit leaves 1.7 times that). Random
+# weights leave near ties, and a row that parts once stays parted: of the
+# 50 greedy tokens at most TOKEN may differ (read: 17, and 20 before).
+# A wrong route gives unrelated logits (a share of 4 and more) and parts
+# all 50. The run also prints the same share for chunked at another
+# chunk size and for the rows scored one by one on the flash route
+# (read: 0.0 both, the same operations on other shapes).
 VLA_MAX_LAYER1_DELTA = 0.06
 VLA_MAX_LOGIT_DELTA = 0.25
 VLA_MAX_TOKEN_DIFF = 25
@@ -129,7 +134,13 @@ VLA_ONLY_KERNELS = ("flash_prefill",)    # not on the frame path
 KERNEL_FUNCTIONS = ("minplus_pass2_kernel", "fused_score_maps_kernel",
                     "fused_attention_gate_kernel", "rowband_kernel",
                     "rowband_pool_kernel", "rowband_radius_kernel",
-                    "segment_histogram_kernel")
+                    "segment_histogram_kernel", "flash_prefill_kernel",
+                    "flash_prefill_f32_kernel")
+# The bf16 flash prefill before its redesign (mma.sync m16n8k16, cp.async,
+# 64-row blocks), at the serving shape, in the same run on the same card
+# as the first wgmma version (0.479 ms) and the library call (0.435 ms):
+# NVIDIA H100 80GB HBM3, 700.00 W. That kernel is gone from the sources.
+FLASH_PREV_MS = 1.234
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -157,6 +168,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_function(key: str):
+    """The port's kernel function that a profiler row names, or None
+    (template instances and namespaces are part of the row's name)."""
+    for fn in KERNEL_FUNCTIONS:
+        if re.search(rf"\b{fn}\b", key):
+            return fn
+    return None
+
+
 def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device milliseconds of the CUDA kernel named ``kernel`` per
     call of ``fn`` (the kernel alone, without its wrapper's other ops),
@@ -170,8 +190,7 @@ def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.key.split("(")[0].endswith(kernel)
-                or f"::{kernel}<" in ev.key)
+                if kernel_function(ev.key) == kernel)
     if total <= 0:
         raise RuntimeError(f"the profiler saw no {kernel}")
     return total / 1e3 / iters
@@ -192,6 +211,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def issue_floor_ms(torch, triples: float, slots: float = 2.0) -> float:
+    """Least ms for ``triples`` inner steps of ``slots`` warp-instruction
+    issue slots each: an SM issues one warp instruction (32 lanes) a
+    cycle in each of its four partitions, at the card's highest SM clock
+    as ``nvidia-smi`` gives it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=30, check=True)
+    hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return slots * triples / (sms * 128 * hz) * 1e3
+
+
 def minplus_sources(r: int, w: int, nq: int, band=None) -> int:
     """(row, query, source) triples that a min-plus call must visit."""
     if band is None:
@@ -210,9 +243,11 @@ def minplus_sources(r: int, w: int, nq: int, band=None) -> int:
 
 
 def check_minplus(torch, dev, leaf, other):
-    """The min-plus in each form the main path calls, bit-exact."""
+    """The min-plus in each form the main path calls, with a source
+    sub-range as ``squared_edt_window_src`` calls it, and at the edge of
+    the range in which its sums are exact; all bit-exact."""
     from leafgrasp_tpu_torch.kernels.minplus import (
-        BAND_COLS, BAND_ROWS, minplus_pass2, minplus_pass2_plain)
+        BAND_COLS, BAND_ROWS, max_g2, minplus_pass2, minplus_pass2_plain)
     from leafgrasp_tpu_torch.ops.edt import (_tile_candidates, exact_sqrt,
                                             nearest_seed_dist_1d)
     from leafgrasp_tpu_torch.ops.morphology import dilate, elliptical_kernel
@@ -233,6 +268,15 @@ def check_minplus(torch, dev, leaf, other):
     win_g2 = g2[:, 200:200 + hq, :].reshape(c3 * hq, W).contiguous()
     band = torch.full((-(-H // BAND_ROWS), -(-W // BAND_COLS)), 2,
                       dtype=torch.int32, device=dev)
+    # the edge: rows of the sentinel (H + W)^2 alone, with a source at the
+    # first, the last or both columns, and rows of the largest value the
+    # contract admits; every column is a query
+    edge = torch.full((80, W), float((H + W) ** 2), device=dev)
+    edge[16:32, 0] = 0.0
+    edge[32:48, W - 1] = 0.0
+    edge[48:64] = float(max_g2(W))
+    edge[64:80, 0] = 0.0
+    edge[64:80, W - 1] = 1.0
     forms = {
         "full": (g2[1], {}),
         "window": (win_g2, {"qcol": torch.arange(
@@ -240,6 +284,10 @@ def check_minplus(torch, dev, leaf, other):
         "sampled": (g2.reshape(c3 * H, W), {"qcol": js}),
         "refine": (refine_g2, {"qcol": jwin.to(torch.int32).contiguous()}),
         "banded": (g2[0].contiguous(), {"band": band}),
+        "subrange": (win_g2, {"qcol": torch.arange(
+            401, 401 + wq, dtype=torch.int32, device=dev),
+            "s_lo": 273, "s_hi": 849}),
+        "edge": (edge, {}),
     }
     out = {}
     for name, (x, kw) in forms.items():
@@ -252,8 +300,9 @@ def check_minplus(torch, dev, leaf, other):
                                f"diff {err}")
         r, w = x.shape
         nq = w if "qcol" not in kw else kw["qcol"].shape[-1]
-        b_ms, b_by = bound(4.0 * (r * w + r * nq),
-                           2.0 * minplus_sources(r, w, nq, kw.get("band")))
+        n_src = kw.get("s_hi", w) - kw.get("s_lo", 0)
+        triples = minplus_sources(r, n_src, nq, kw.get("band"))
+        b_ms, b_by = bound(4.0 * (r * n_src + r * nq), 2.0 * triples)
         out[name] = {
             "shape": [r, w, nq], "max_abs_err": err,
             "ms": kernel_ms(lambda: minplus_pass2(x, **kw),
@@ -261,7 +310,9 @@ def check_minplus(torch, dev, leaf, other):
             "wrapper_ms": cuda_ms(lambda: minplus_pass2(x, **kw)),
             "plain_ms": cuda_ms(lambda: minplus_pass2_plain(x, **kw),
                                 iters=3, warmup=1),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            # a multiply-add and a min a triple, at the issue rate
+            "issue_floor_ms": issue_floor_ms(torch, triples)}
         log(f"minplus {name} {json.dumps(out[name])}")
     full = out["full"]
     return {"name": "minplus_pass2", "route": "cuda",
@@ -272,6 +323,7 @@ def check_minplus(torch, dev, leaf, other):
             "ms": full["ms"], "wrapper_ms": full["wrapper_ms"],
             "plain_ms": full["plain_ms"],
             "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+            "issue_floor_ms": full["issue_floor_ms"],
             "library_ms": None, "forms": out}
 
 
@@ -539,14 +591,21 @@ def flash_diff(got, want, tol):
 
 def check_flash(torch, dev):
     """The flash-attention prefill against its plain version: f32 and
-    bf16, unequal left pads including 0, K/V read through the strides of
-    a longer cache; then its time at the serving shape with the serving
-    path's pads (all 0: the prompts have one length)."""
+    bf16, unequal left pads including 0 and pads that end inside a 64-row
+    group, prompts shorter than a tile and no multiple of one, one and
+    four query heads a K/V head, K/V read through the strides of a
+    longer cache whose rows beyond t hold NaN (a row read from there
+    would show in the result); then its time at the serving shape with
+    the serving path's pads (all 0: the prompts have one length)."""
     import torch.nn.functional as F
     from leafgrasp_tpu_torch.kernels.flash_prefill import (
         flash_prefill, flash_prefill_plain)
     shapes = {"small": ((2, 200, 4, 2, 64), (0, 37)),
+              "tiny": ((2, 100, 4, 4, 128), (0, 99)),
+              "one": ((1, 1, 4, 1, 128), (0,)),
+              "group": ((2, 257, 8, 2, 128), (130, 70)),
               "mid": ((5, 640, 32, 8, 128), (0, 3, 64, 130, 639)),
+              "ragged": ((2, 2437, 8, 2, 128), (0, 1300)),
               "path": ((5, 2400, 32, 8, 128), (0, 1, 64, 700, 2399))}
     rng = np.random.default_rng(21)
     errs, shares = {}, {}
@@ -556,6 +615,8 @@ def check_flash(torch, dev):
         k32, v32 = (torch.as_tensor(rng.standard_normal(
             (b, t + 10, kvh, hd)).astype(np.float32), device=dev)
             for _ in range(2))
+        k32[:, t:] = float("nan")             # beyond t: never to be read
+        v32[:, t:] = float("nan")
         pad = torch.tensor(pads, dtype=torch.int32, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (x.to(dtype) for x in (q32, k32, v32))
@@ -576,7 +637,8 @@ def check_flash(torch, dev):
             if not (over <= 0.0 and pad_zero and finite):
                 raise RuntimeError(f"flash_prefill {name} {dtype}: err "
                                    f"{errs[key]}, over the tolerance by "
-                                   f"{over}, pad rows zero {pad_zero}")
+                                   f"{over}, pad rows zero {pad_zero}, "
+                                   f"finite {finite}")
             del got, want
     (b, t, heads, kvh, hd), _ = shapes["path"]
     rep = heads // kvh
@@ -615,6 +677,7 @@ def check_flash(torch, dev):
            "shape": [b, t, heads, kvh, hd],
            "ms": kernel_ms(lambda: flash_prefill(q, k, v, pad0),
                            "flash_prefill_kernel", iters=10),
+           "prev_ms": FLASH_PREV_MS,
            "wrapper_ms": cuda_ms(lambda: flash_prefill(q, k, v, pad0),
                                  iters=10),
            "f32_ms": cuda_ms(lambda: flash_prefill(q32, k32, v32, pad0),
@@ -731,9 +794,13 @@ def profile_frames(torch, fns, model, scenes):
                                 ev.key))
         kernels.sort(reverse=True)
         busy = sum(k[0] for k in kernels)
-        ours = {name.split("(")[0]: {"ms": ms, "count": n}
-                for ms, n, name in kernels
-                if name.split("(")[0].endswith(KERNEL_FUNCTIONS)}
+        ours = {}
+        for ms, n, name in kernels:
+            fn = kernel_function(name)
+            if fn is not None:                # template instances add up
+                rec = ours.setdefault(fn, {"ms": 0.0, "count": 0})
+                rec["ms"] += ms
+                rec["count"] += n
         out[mode] = {
             "wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms if busy else None,
@@ -1033,8 +1100,9 @@ def run_vla(torch, dev, cnn, scenes):
             "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall,
             "kernel_launches": sum(r[1] for r in rows),
-            "flash_prefill_ms": sum(r[0] for r in rows
-                                    if "flash_prefill_kernel" in r[2]),
+            "flash_prefill_ms": sum(
+                r[0] for r in rows
+                if kernel_function(r[2]) == "flash_prefill_kernel"),
             "top": [{"ms": ms, "count": n, "name": key[:60]}
                     for ms, n, key in rows[:6]]}
         log(f"phase 6.1 profile {name} {json.dumps(prof_out[name])}")

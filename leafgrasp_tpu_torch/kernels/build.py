@@ -14,7 +14,12 @@ accurate forms. Flags differ by file: ``attention.cu``, ``histogram.cu``,
 which keeps ``a*b + c`` as two rounded operations, as their plain
 PyTorch versions compute them (the EDT kernels are bit-exact);
 ``flash_prefill.cu`` is built without it, so its f32 accumulation may
-fuse multiply-adds as a matrix product on the card does.
+fuse multiply-adds as a matrix product on the card does. Headers
+(``csrc/*.cuh``: ``hopper.cuh`` holds the inline PTX for mbarriers, TMA
+and ``wgmma``) are part of the hash. The library links against the CUDA
+runtime and ``libdl`` only: the one ``libcuda`` function the kernels
+need (the tensor-map encoder of the TMA loads) is looked up at run time
+in the ``libcuda.so.1`` that PyTorch has loaded.
 """
 
 from __future__ import annotations
@@ -123,7 +128,7 @@ def build_library(verbose: bool = False) -> Path:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     res = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2],
-                          *map(str, objs), "-o", str(tmp)],
+                          *map(str, objs), "-ldl", "-o", str(tmp)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)

@@ -11,98 +11,94 @@
 // as the plain version rounds them.
 //
 // Replaces leafgrasp_tpu/vla/llava_jax.py _flash_prefill (:284), the
-// Pallas TPU flash attention with causal=True and segment ids.
+// Pallas TPU flash attention with causal=True and segment ids, which pads
+// the sequence to a block multiple, repeats K and V to the query head
+// count and hands (512, 512) tiles to a sequential grid.
 //
 // Bound: operations. A launch at the serving shape (5 rows of 2400
 // tokens, 32 heads of 128) does 4 * b * heads * hd * t(t+1)/2 = 2.4e11
 // operations on 0.2 GB of inputs and outputs: about 1200 operations a
 // byte, four times above the line where the tensor cores and not the
-// memory are the limit. Design: the TPU wrapper pads the sequence to a
-// block multiple, repeats K and V to the query head count and hands
-// (block_q, block_k) tiles of 512 to a sequential grid. Here one block of
-// four warps owns 64 query rows of one head (16 rows a warp) and walks
-// the key tiles of 64 from the pad's tile up to its diagonal, so the
-// masked half of the square and the pad prefix are never visited; the
-// ragged last tile is zero-filled on load and masked, nothing is padded
-// on the host; the K/V head is h / rep, read through the strides the
-// caller gives (the cache tensor as it is, no repeat and no copy). The
-// bf16 products are mma.sync m16n8k16 tiles with f32 accumulators; the
-// score fragment of a warp is already laid out as the A operand of the
-// second product, so probabilities never leave registers. Row maxima and
-// sums are kept per thread quad (the four lanes that share a row of the
-// fragment). Q and the K/V tiles arrive through cp.async, K/V into two
-// shared-memory stages, so the next tile loads while this one is multiplied; K and V
-// fragments come out of shared memory with ldmatrix (four 8x8 blocks an
-// instruction); tiles that lie wholly inside the causal triangle and
-// behind the pad skip the mask; the exponentials are exp2f with log2(e)
-// folded into the score scale. Blocks start heaviest first (last
-// query tile first). wgmma, TMA and a K/V tile shared by the rep heads
-// of a group are left for later.
+// memory are the limit. Only wgmma reaches the tensor cores' full rate,
+// and beside the two products every score costs an exponential on the
+// special-function unit (16 a cycle an SM: half the time the products
+// take at 128 x 128 tiles), so the exponentials have to run under the
+// products, not between them.
 //
-// The f32 instantiation runs the same tile walk, masking, running
-// softmax and epilogue with the two products as scalar loops over shared
-// memory (f32 has no exact tensor-core form); it exists to hold the
-// masking and the softmax against the plain version to about 1e-5.
+// bf16 design (flash_prefill_kernel). One persistent block an SM, three
+// warpgroups. Each of the two consumer warpgroups owns 64 query rows of a
+// 128-row tile of one head; the third warpgroup gives its registers away
+// (setmaxnreg) and one of its threads is the producer: it brings the Q
+// tile and the 128-key K and V tiles in by TMA (cp.async.bulk.tensor on
+// rank-4 tensor maps of q and of the K/V cache as it lies: the head is
+// h / rep, the strides are the caller's, nothing is repeated, copied or
+// padded on the host) into a ring of two K and two V stages, each with a
+// "full" and an "empty" mbarrier, so a K/V tile in shared memory serves
+// 128 query rows and no consumer thread spends an instruction on a load.
+// The token dimension of the maps is t, not the cache's length: TMA
+// zero-fills the ragged last tile and never reads a row beyond t. A tile
+// lies in shared memory as one or two 64-column halves of 128-byte rows
+// in the 128-byte swizzle that the wgmma descriptors name. S = Q K^T is
+// wgmma m64n128k16 with Q and K from shared memory, both as they lie
+// (K-major); O += P V takes P from registers (the S accumulator of a
+// warpgroup is laid out as the A operand) and V as it lies, which is
+// MN-major for this product: the transpose bit of the instruction is
+// set, V is not transposed in memory. A block walks work items (a query
+// tile of one head of one row), heaviest first, strided over the grid,
+// so the producer loads the next item's tiles while the consumers finish
+// this one. Within an item it walks the key tiles from the pad's tile up
+// to the diagonal, skewed by one tile: S(n) and O += P(n-1) V(n-1) are
+// issued together and the softmax of tile n starts as soon as S(n) has
+// landed, while the tensor cores still multiply (waiting for each
+// product before the softmax took a tenth longer at the serving shape).
+// The masked
+// half of the square and the pad prefix are never visited, interior
+// tiles skip the mask, the exponentials are
+// ex2.approx (exp2f without its denormal branch; bf16 has f32's
+// exponent range, a denormal probability is below every ulp) with
+// log2(e) folded into the score scale, row maxima and sums are kept per
+// thread quad, a row with no key yet keeps -inf and subtracts 0 so that
+// nothing forms inf - inf, and pad rows are written as exact zeros.
+// Resources (nvcc 12.8, -Xptxas -v): 168 registers at entry, 240 a
+// consumer thread and 24 a producer thread after setmaxnreg, no spills;
+// 161 KB of dynamic shared memory at head size 128 (81 KB at 64): one
+// block an SM. What is left on the table: both warpgroups start an item
+// together, so its first softmax and its last product find the tensor
+// cores idle, and the group that owns the upper 64 rows multiplies the
+// masked half of the diagonal tile.
+//
+// The f32 instantiation (flash_prefill_f32_kernel) runs the same tile
+// walk, masking, running softmax and epilogue on 64 x 64 tiles with the
+// two products as scalar loops over shared memory (f32 has no exact
+// tensor-core form); it exists to hold the masking and the softmax
+// against the plain version to about 1e-5.
 //
 // This file is built with fused multiply-adds allowed (the other kernels
-// are not); exp2f is the accurate form, there is no --use_fast_math.
+// are not); there is no --use_fast_math.
 
+#include <cuda.h>              // CUtensorMap and its enums: types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
-
-constexpr int BM = 64;          // query rows a block (16 a warp)
-constexpr int BN = 64;          // keys a tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PS_LD = BN + 4;   // f32 probability scratch row (f32 only)
-
-// shared-memory row padding: 16 bytes, so that the eight rows a fragment
-// load touches fall into different banks
-template <typename T> struct RowPad { static constexpr int v = 16 / sizeof(T); };
 
 struct Strides {                // in elements: batch, token, head
   long long b, t, h;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ============================ f32: scalar products ============================
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// four transposed 8x8 b16 matrices: lane l gives the address of row l % 8
-// of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* ptr) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(ptr);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* ptr) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(ptr);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+constexpr int BM = 64;          // query rows a block (16 a warp)
+constexpr int BN = 64;          // keys a tile
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int PS_LD = BN + 4;   // probability scratch row
+constexpr int ROW_PAD = 4;      // 16 bytes: rows fall into different banks
 
 // 16 bytes global -> shared without passing registers; src_bytes 0 writes
 // zeros and reads nothing
@@ -123,48 +119,37 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // rows [row0, row0 + nrows) of a (rows, HD) global tile into shared
 // memory through cp.async, 16 bytes a thread: returns at once, the copy
 // lands later; rows outside [0, limit) become zeros
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
+template <int HD>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* src,
                                                 long long row_stride,
                                                 int row0, int nrows,
                                                 int limit) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CH = HD / VEC;
-  constexpr int LD = HD + RowPad<T>::v;
+  constexpr int CH = HD / 4;
+  constexpr int LD = HD + ROW_PAD;
   for (int idx = threadIdx.x; idx < nrows * CH; idx += NTHREADS) {
     const int r = idx / CH, c = idx % CH;
     const int row = row0 + r;
     const bool ok = row >= 0 && row < limit;
-    cp_async_16(dst + r * LD + c * VEC,
-                src + (long long)(ok ? row : 0) * row_stride + c * VEC,
+    cp_async_16(dst + r * LD + c * 4,
+                src + (long long)(ok ? row : 0) * row_stride + c * 4,
                 ok ? 16 : 0);
   }
 }
 
-template <typename T> __device__ __forceinline__ void store_pair(T* p, float a,
-                                                                 float b);
-template <> __device__ __forceinline__ void store_pair<float>(float* p, float a,
-                                                              float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <> __device__ __forceinline__ void store_pair<__nv_bfloat16>(
-    __nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ pad,
-                     T* __restrict__ out, int t, int rep, Strides qs,
-                     Strides ks, Strides vs, Strides os, float scale) {
-  constexpr bool kScalar = std::is_same<T, float>::value;
-  constexpr int LD = HD + RowPad<T>::v;
+flash_prefill_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const int* __restrict__ pad, float* __restrict__ out,
+                         int t, int rep, Strides qs, Strides ks, Strides vs,
+                         Strides os, float scale) {
+  constexpr int LD = HD + ROW_PAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Kst = Qs + BM * LD;                      // two stages of BN rows
-  T* Vst = Kst + 2 * BN * LD;
-  float* Ps = reinterpret_cast<float*>(Vst + 2 * BN * LD);   // f32 only
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Kst = Qs + BM * LD;                  // two stages of BN rows
+  float* Vst = Kst + 2 * BN * LD;
+  float* Ps = Vst + 2 * BN * LD;
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * BM;
@@ -172,27 +157,28 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, tq = lane & 3;
   const int p = min(max(pad[b], 0), t);
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + (h / rep) * ks.h;
-  const T* vb = v + b * vs.b + (h / rep) * vs.h;
-  T* ob = out + b * os.b + h * os.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + (h / rep) * ks.h;
+  const float* vb = v + b * vs.b + (h / rep) * vs.h;
+  float* ob = out + b * os.b + h * os.h;
 
   const int row_hi = min(q0 + BM, t);         // rows of this block: < row_hi
   if (row_hi <= p) {                          // pad rows only: zeros
     for (int idx = threadIdx.x; idx < (row_hi - q0) * (HD / 2);
          idx += NTHREADS) {
       const int r = idx / (HD / 2), c = idx % (HD / 2);
-      store_pair<T>(ob + (long long)(q0 + r) * os.t + 2 * c, 0.0f, 0.0f);
+      *reinterpret_cast<float2*>(ob + (long long)(q0 + r) * os.t + 2 * c) =
+          make_float2(0.0f, 0.0f);
     }
     return;
   }
 
   const int kt_first = p / BN;
   const int kt_last = (row_hi - 1) / BN;
-  load_tile_async<T, HD>(Qs, qb, qs.t, q0, BM, t);
+  load_tile_async<HD>(Qs, qb, qs.t, q0, BM, t);
   cp_async_commit();
-  load_tile_async<T, HD>(Kst, kb, ks.t, kt_first * BN, BN, t);
-  load_tile_async<T, HD>(Vst, vb, vs.t, kt_first * BN, BN, t);
+  load_tile_async<HD>(Kst, kb, ks.t, kt_first * BN, BN, t);
+  load_tile_async<HD>(Vst, vb, vs.t, kt_first * BN, BN, t);
   cp_async_commit();
   cp_async_wait<1>();                         // Q has landed
   __syncthreads();
@@ -202,18 +188,6 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp_first = q0 + warp * 16;      // query rows of the warp
   const int warp_last = warp_first + 15;
   const float scale2 = scale * 1.4426950408889634f;   // to log2 units
-
-  uint32_t qf[kScalar ? 1 : HD / 16][4];
-  if constexpr (!kScalar) {
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const T* base = Qs + lr * LD + kk * 16 + 2 * tq;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
-    }
-  }
 
   float o[HD / 8][4];
 #pragma unroll
@@ -225,13 +199,13 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * BN;
     const int stage = (kt - kt_first) & 1;
-    const T* Ks = Kst + stage * BN * LD;
-    const T* Vs = Vst + stage * BN * LD;
+    const float* Ks = Kst + stage * BN * LD;
+    const float* Vs = Vst + stage * BN * LD;
     if (kt < kt_last) {                       // prefetch the next tile
-      load_tile_async<T, HD>(Kst + (stage ^ 1) * BN * LD, kb, ks.t, k0 + BN,
-                             BN, t);
-      load_tile_async<T, HD>(Vst + (stage ^ 1) * BN * LD, vb, vs.t, k0 + BN,
-                             BN, t);
+      load_tile_async<HD>(Kst + (stage ^ 1) * BN * LD, kb, ks.t, k0 + BN, BN,
+                          t);
+      load_tile_async<HD>(Vst + (stage ^ 1) * BN * LD, vb, vs.t, k0 + BN, BN,
+                          t);
       cp_async_commit();
       cp_async_wait<1>();                     // this tile has landed
     } else {
@@ -240,39 +214,21 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     if (k0 <= warp_last) {                    // else above the warp's diagonal
 
-    // ---- S = Q K^T for 16 rows x BN keys
+    // ---- S = Q K^T for 16 rows x BN keys, laid out as mma fragments
     float s[BN / 8][4];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
+    for (int n = 0; n < BN / 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-    if constexpr (kScalar) {
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        const float* qa = Qs + lr * LD;
-        const float* qb2 = qa + 8 * LD;
-        const float* ka = Ks + (n * 8 + 2 * tq) * LD;
-        const float* kb2 = ka + LD;
+      const float* qa = Qs + lr * LD;
+      const float* qb2 = qa + 8 * LD;
+      const float* ka = Ks + (n * 8 + 2 * tq) * LD;
+      const float* kb2 = ka + LD;
 #pragma unroll 8
-        for (int d = 0; d < HD; ++d) {
-          s[n][0] += qa[d] * ka[d];
-          s[n][1] += qa[d] * kb2[d];
-          s[n][2] += qb2[d] * ka[d];
-          s[n][3] += qb2[d] * kb2[d];
-        }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-        for (int n = 0; n < BN / 8; n += 2) {
-          // matrices 0, 1: keys n*8 + 0..7 at columns kk*16 + 0..7 and
-          // 8..15; matrices 2, 3: the same columns of keys (n + 1)*8 + ..
-          uint32_t kf[4];
-          ldmatrix_x4(kf, Ks + ((n + (lane >> 4)) * 8 + (lane & 7)) * LD
-                              + kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[n], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[n + 1], qf[kk], kf[2], kf[3]);
-        }
+      for (int d = 0; d < HD; ++d) {
+        s[n][0] += qa[d] * ka[d];
+        s[n][1] += qa[d] * kb2[d];
+        s[n][2] += qb2[d] * ka[d];
+        s[n][3] += qb2[d] * kb2[d];
       }
     }
 
@@ -329,53 +285,31 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o[d][3] *= al_b;
     }
 
-    // ---- O += P V
-    if constexpr (kScalar) {
-      float* pw = Ps + warp * 16 * PS_LD;
+    // ---- O += P V through the warp's probability scratch
+    float* pw = Ps + warp * 16 * PS_LD;
 #pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        pw[g * PS_LD + n * 8 + 2 * tq] = s[n][0];
-        pw[g * PS_LD + n * 8 + 2 * tq + 1] = s[n][1];
-        pw[(g + 8) * PS_LD + n * 8 + 2 * tq] = s[n][2];
-        pw[(g + 8) * PS_LD + n * 8 + 2 * tq + 1] = s[n][3];
-      }
-      __syncwarp();
-      const float* pa = pw + g * PS_LD;
-      const float* pb = pa + 8 * PS_LD;
+    for (int n = 0; n < BN / 8; ++n) {
+      pw[g * PS_LD + n * 8 + 2 * tq] = s[n][0];
+      pw[g * PS_LD + n * 8 + 2 * tq + 1] = s[n][1];
+      pw[(g + 8) * PS_LD + n * 8 + 2 * tq] = s[n][2];
+      pw[(g + 8) * PS_LD + n * 8 + 2 * tq + 1] = s[n][3];
+    }
+    __syncwarp();
+    const float* pa = pw + g * PS_LD;
+    const float* pb = pa + 8 * PS_LD;
 #pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        const float* vp = Vs + d * 8 + 2 * tq;
+    for (int d = 0; d < HD / 8; ++d) {
+      const float* vp = Vs + d * 8 + 2 * tq;
 #pragma unroll 8
-        for (int j = 0; j < BN; ++j) {
-          const float va = vp[j * LD], vb2 = vp[j * LD + 1];
-          o[d][0] += pa[j] * va;
-          o[d][1] += pa[j] * vb2;
-          o[d][2] += pb[j] * va;
-          o[d][3] += pb[j] * vb2;
-        }
-      }
-      __syncwarp();
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t pf[4];
-        pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int d = 0; d < HD / 8; d += 2) {
-          // matrices 0, 1: keys kk*16 + 0..7 and 8..15 at columns d*8;
-          // matrices 2, 3: the same keys at columns (d + 1)*8
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, Vs + (kk * 16 + (lane & 7)
-                                      + ((lane >> 3) & 1) * 8) * LD
-                                    + (d + (lane >> 4)) * 8);
-          mma_bf16(o[d], pf, vf[0], vf[1]);
-          mma_bf16(o[d + 1], pf, vf[2], vf[3]);
-        }
+      for (int j = 0; j < BN; ++j) {
+        const float va = vp[j * LD], vb2 = vp[j * LD + 1];
+        o[d][0] += pa[j] * va;
+        o[d][1] += pa[j] * vb2;
+        o[d][2] += pb[j] * va;
+        o[d][3] += pb[j] * vb2;
       }
     }
+    __syncwarp();
     }                                         // k0 <= warp_last
     __syncthreads();                          // the stage may be overwritten
   }
@@ -391,52 +325,482 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < HD / 8; ++d) {
     const int col = d * 8 + 2 * tq;
     if (row_a < t)
-      store_pair<T>(ob + (long long)row_a * os.t + col, o[d][0] * inv_a,
-                    o[d][1] * inv_a);
+      *reinterpret_cast<float2*>(ob + (long long)row_a * os.t + col) =
+          make_float2(o[d][0] * inv_a, o[d][1] * inv_a);
     if (row_b < t)
-      store_pair<T>(ob + (long long)row_b * os.t + col, o[d][2] * inv_b,
-                    o[d][3] * inv_b);
+      *reinterpret_cast<float2*>(ob + (long long)row_b * os.t + col) =
+          make_float2(o[d][2] * inv_b, o[d][3] * inv_b);
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const int* pad,
-           void* out, int b, int t, int heads, int rep, Strides qs,
-           Strides ks, Strides vs, Strides os, float scale,
-           cudaStream_t stream) {
-  constexpr int LD = HD + RowPad<T>::v;
-  size_t smem = (size_t)(BM + 4 * BN) * LD * sizeof(T);   // Q, 2 x (K, V)
-  if (std::is_same<T, float>::value)
-    smem += (size_t)NWARPS * 16 * PS_LD * sizeof(float);
-  auto kernel = flash_prefill_kernel<T, HD>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+template <int HD>
+int launch_f32(const float* q, const float* k, const float* v,
+               const int* pad, float* out, int b, int t, int heads, int rep,
+               Strides qs, Strides ks, Strides vs, Strides os, float scale,
+               cudaStream_t stream) {
+  constexpr int LD = HD + ROW_PAD;
+  const size_t smem = ((size_t)(BM + 4 * BN) * LD     // Q, 2 x (K, V)
+                       + (size_t)NWARPS * 16 * PS_LD) * sizeof(float);
+  auto kernel = flash_prefill_f32_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((t + BM - 1) / BM, heads, b);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pad, static_cast<T*>(out), t, rep, qs, ks, vs,
-      os, scale);
+  kernel<<<grid, NTHREADS, smem, stream>>>(q, k, v, pad, out, t, rep, qs, ks,
+                                           vs, os, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v,
-             const int* pad, void* out, int b, int t, int heads, int rep,
-             Strides qs, Strides ks, Strides vs, Strides os, float scale,
-             cudaStream_t stream) {
-  switch (hd) {
-    case 64:
-      return launch<T, 64>(q, k, v, pad, out, b, t, heads, rep, qs, ks, vs,
-                           os, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, pad, out, b, t, heads, rep, qs, ks, vs,
-                            os, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// ============================ bf16: wgmma and TMA =============================
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int WG_BM = 128;                    // query rows a work item
+constexpr int WG_BN = 128;                    // keys a tile
+constexpr int WG_ROWS = 64;                   // query rows a warpgroup
+constexpr int WG_STAGES = 2;
+constexpr int WG_CONSUMERS = 2;               // consumer warpgroups
+constexpr int WG_THREADS = (WG_CONSUMERS + 1) * 128;
+constexpr int HALF_BYTES = 128 * 128;         // 128 rows of 64 bf16
+constexpr int ATOM_BYTES = 8 * 128;           // eight rows: a swizzle atom
+constexpr uint32_t EMPTY_ARRIVALS = WG_CONSUMERS * 4;   // a lane of each warp
+
+template <int HD> struct WgLayout {
+  static constexpr int NH = HD / 64;                      // halves a tile
+  static constexpr int TILE = NH * HALF_BYTES;
+  static constexpr int Q = 0;
+  static constexpr int K = TILE;
+  static constexpr int V = TILE * (1 + WG_STAGES);
+  static constexpr int BARS = TILE * (1 + 2 * WG_STAGES);
+  // barriers: q_full, q_empty, then k_full, k_empty, v_full, v_empty a stage
+  static constexpr int NBARS = 2 + 4 * WG_STAGES;
+  static constexpr int BYTES = BARS + NBARS * 8 + 1024;   // + alignment
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// issues S = Q K^T of a warpgroup: 64 rows x 128 keys, both operands from
+// shared memory as they lie (K-major); a k-step is 32 bytes along a row
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t q_desc,
+                                         uint32_t k_addr) {
+  const uint64_t k_desc = smem_desc(k_addr, 16, ATOM_BYTES);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * HALF_BYTES + (kk % 4) * 32;
+    wgmma_ss_n128(sc, q_desc + (off >> 4), k_desc + (off >> 4), kk > 0);
   }
+}
+
+// issues O += P V: P from registers, V as it lies (MN-major: the column
+// halves are HALF_BYTES apart, a k-step is 16 rows of 128 bytes)
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pr)[32],
+                                         uint32_t v_addr) {
+  const uint64_t v_desc = smem_desc(v_addr, HALF_BYTES, ATOM_BYTES);
+#pragma unroll
+  for (int kk = 0; kk < WG_BN / 16; ++kk) {
+    const uint32_t a[4] = {pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2],
+                           pr[4 * kk + 3]};
+    const uint64_t desc = v_desc + ((kk * 16 * 128) >> 4);
+    if constexpr (HD == 128) wgmma_rs_n128(o, a, desc, 1);
+    else wgmma_rs_n64(o, a, desc, 1);
+  }
+}
+
+// running softmax of a thread's two rows (row_a = its quad's row, row_b
+// eight below); maxima in raw score units, sums this thread's share
+struct RowState {
+  float m_a, m_b, l_a, l_b;
+};
+
+// One key tile of the running softmax, in place: sc holds raw scores laid
+// out as the wgmma accumulator (sc[4n + e]: columns 8n + 2tq + (e & 1),
+// row_a for e < 2, row_b else) and leaves with the probabilities in f32.
+// al_a, al_b: the factors that bring the earlier sums and outputs to the
+// new maxima.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
+                                             float& al_a, float& al_b,
+                                             bool masked, int k0, int p,
+                                             int t, int row_a, int row_b,
+                                             int tq, float scale2) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int j = k0 + (i >> 2) * 8 + 2 * tq + (i & 1);
+      const int row = (i & 2) ? row_b : row_a;
+      if (!((j >= p) && (j <= row) && (j < t))) sc[i] = -INFINITY;
+    }
+  }
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    mx_a = fmaxf(mx_a, fmaxf(sc[4 * n], sc[4 * n + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  const float mn_a = fmaxf(st.m_a, mx_a), mn_b = fmaxf(st.m_b, mx_b);
+  // a row with no key yet keeps -inf; subtract 0 then, so that every
+  // exponent is exp2(-inf) = 0 and never inf - inf
+  const float mu_a = (mn_a == -INFINITY) ? 0.0f : mn_a;
+  const float mu_b = (mn_b == -INFINITY) ? 0.0f : mn_b;
+  al_a = ex2((st.m_a - mu_a) * scale2);
+  al_b = ex2((st.m_b - mu_b) * scale2);
+  st.m_a = mn_a;
+  st.m_b = mn_b;
+  const float ms_a = mu_a * scale2, ms_b = mu_b * scale2;
+  float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {              // a masked key gives exactly 0
+    sc[4 * n] = ex2(fmaf(sc[4 * n], scale2, -ms_a));
+    sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], scale2, -ms_a));
+    sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], scale2, -ms_b));
+    sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], scale2, -ms_b));
+    sum_a += sc[4 * n] + sc[4 * n + 1];
+    sum_b += sc[4 * n + 2] + sc[4 * n + 3];
+  }
+  st.l_a = st.l_a * al_a + sum_a;
+  st.l_b = st.l_b * al_b + sum_b;
+}
+
+// the probabilities rounded to bf16, as the A fragments of the second
+// product: four registers for each 16 keys
+__device__ __forceinline__ void pack_p(const float (&sc)[64],
+                                       uint32_t (&pr)[32]) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    pr[2 * n] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
+    pr[2 * n + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], float al_a,
+                                        float al_b) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    o[4 * n] *= al_a;
+    o[4 * n + 1] *= al_a;
+    o[4 * n + 2] *= al_b;
+    o[4 * n + 3] *= al_b;
+  }
+}
+
+// a work item: query tile mt of head h of batch row b; items are ordered
+// heaviest (last query tile) first, the heads of a K/V group side by side
+struct Work {
+  int b, h, q0, p, row_hi;
+  bool empty;                                 // pad rows only
+};
+__device__ __forceinline__ Work decode_work(int idx, int n_mt, int b_n,
+                                            int heads, int t,
+                                            const int* __restrict__ pad) {
+  Work w;
+  const int per = b_n * heads;
+  const int mt = n_mt - 1 - idx / per;
+  const int rem = idx % per;
+  w.b = rem / heads;
+  w.h = rem % heads;
+  w.q0 = mt * WG_BM;
+  w.p = min(max(pad[w.b], 0), t);
+  w.row_hi = min(w.q0 + WG_BM, t);
+  w.empty = w.row_hi <= w.p;
+  return w;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const int* __restrict__ pad, bf16* __restrict__ out,
+                     int b_n, int t, int heads, int rep, Strides os,
+                     float scale2, int n_mt, int n_work) {
+  using L = WgLayout<HD>;
+  constexpr int NO = HD / 2;                  // output accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BARS;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 16 + 32 * s; };
+  auto k_empty = [&](int s) { return bars + 24 + 32 * s; };
+  auto v_full = [&](int s) { return bars + 32 + 32 * s; };
+  auto v_empty = [&](int s) { return bars + 40 + 32 * s; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, EMPTY_ARRIVALS);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), EMPTY_ARRIVALS);
+      mbar_init(v_empty(s), EMPTY_ARRIVALS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == WG_CONSUMERS) {
+    // ======================= producer: one thread issues TMA loads
+    reg_dealloc<24>();
+    if (threadIdx.x == WG_CONSUMERS * 128) {
+      int it = 0, items = 0;                  // tiles, work items so far
+      for (int idx = blockIdx.x; idx < n_work; idx += gridDim.x) {
+        const Work w = decode_work(idx, n_mt, b_n, heads, t, pad);
+        if (w.empty) continue;
+        const int kvh = w.h / rep;
+        mbar_wait(q_empty, (items & 1) ^ 1);
+        mbar_arrive_expect_tx(q_full, L::TILE);
+#pragma unroll
+        for (int c = 0; c < L::NH; ++c)
+          tma_load_4d(base + L::Q + c * HALF_BYTES, &map_q, q_full, c * 64,
+                      w.q0, w.h, w.b);
+        const int kt_first = w.p / WG_BN, kt_last = (w.row_hi - 1) / WG_BN;
+        for (int kt = kt_first; kt <= kt_last; ++kt, ++it) {
+          const int s = it % WG_STAGES;
+          const uint32_t ph = ((it / WG_STAGES) & 1) ^ 1;
+          mbar_wait(k_empty(s), ph);
+          mbar_arrive_expect_tx(k_full(s), L::TILE);
+#pragma unroll
+          for (int c = 0; c < L::NH; ++c)
+            tma_load_4d(base + L::K + s * L::TILE + c * HALF_BYTES, &map_k,
+                        k_full(s), c * 64, kt * WG_BN, kvh, w.b);
+          mbar_wait(v_empty(s), ph);
+          mbar_arrive_expect_tx(v_full(s), L::TILE);
+#pragma unroll
+          for (int c = 0; c < L::NH; ++c)
+            tma_load_4d(base + L::V + s * L::TILE + c * HALF_BYTES, &map_v,
+                        v_full(s), c * 64, kt * WG_BN, kvh, w.b);
+        }
+        ++items;
+      }
+    }
+  } else {
+    // ======================= consumers: 64 query rows a warpgroup
+    reg_alloc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int lr = wg * WG_ROWS + warp * 16 + g;          // rows lr, lr + 8
+    const uint64_t q_desc =
+        smem_desc(base + L::Q + wg * WG_ROWS * 128, 16, ATOM_BYTES);
+
+    int it = 0, items = 0;
+    for (int idx = blockIdx.x; idx < n_work; idx += gridDim.x) {
+      const Work w = decode_work(idx, n_mt, b_n, heads, t, pad);
+      bf16* ob = out + w.b * os.b + w.h * os.h;
+      if (w.empty) {                          // pad rows only: zeros
+        const int ctid = threadIdx.x;         // 0 .. 255
+        for (int i = ctid; i < (w.row_hi - w.q0) * (HD / 8);
+             i += WG_CONSUMERS * 128) {
+          const int r = i / (HD / 8), c = i % (HD / 8);
+          *reinterpret_cast<uint4*>(ob + (long long)(w.q0 + r) * os.t
+                                    + 8 * c) = make_uint4(0, 0, 0, 0);
+        }
+        continue;
+      }
+      const int p = w.p;
+      const int row_a = w.q0 + lr, row_b = row_a + 8;
+      const int wg_first = w.q0 + wg * WG_ROWS;           // rows of the group
+      const int kt_first = p / WG_BN, kt_last = (w.row_hi - 1) / WG_BN;
+
+      float o[NO];
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+      RowState st{-INFINITY, -INFINITY, 0.0f, 0.0f};
+      float sc[64];                           // scores, then probabilities
+      uint32_t pr[32];                        // P in bf16: the A fragments
+      float al_a, al_b;
+      // A tile behind the pad, under the group's first row and inside the
+      // sequence has no masked key.
+      auto masked = [&](int k0) {
+        return (k0 < p) || (k0 + WG_BN - 1 > wg_first) || (k0 + WG_BN > t);
+      };
+      auto release_k = [&](int s, bool last) {
+        if (lane == 0) {
+          mbar_arrive(k_empty(s));
+          if (last) mbar_arrive(q_empty);     // Q is read no more
+        }
+      };
+
+      // The walk is skewed by one tile, so that the exponentials of tile
+      // n run while the tensor cores multiply P(n-1) V(n-1): S(n) and
+      // then O += P(n-1) V(n-1) are issued together, the softmax starts
+      // when S(n) alone has landed, and O is rescaled once the second
+      // product has landed too.
+      mbar_wait(q_full, items & 1);
+      {                                       // the first tile's scores
+        const int s = it % WG_STAGES;
+        mbar_wait(k_full(s), (it / WG_STAGES) & 1);
+        wgmma_fence();
+        issue_qk<HD>(sc, q_desc, base + L::K + s * L::TILE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        release_k(s, kt_first == kt_last);
+        const int k0 = kt_first * WG_BN;
+        softmax_tile(sc, st, al_a, al_b, masked(k0), k0, p, t, row_a, row_b,
+                     tq, scale2);             // o is zero: nothing to rescale
+        pack_p(sc, pr);
+      }
+      for (int kt = kt_first + 1; kt <= kt_last; ++kt) {
+        const int sv = it % WG_STAGES;        // V of the tile before
+        const uint32_t phv = (it / WG_STAGES) & 1;
+        ++it;
+        const int s = it % WG_STAGES;
+        mbar_wait(k_full(s), (it / WG_STAGES) & 1);
+        reg_fence(o);
+        wgmma_fence();
+        issue_qk<HD>(sc, q_desc, base + L::K + s * L::TILE);
+        wgmma_commit();
+        mbar_wait(v_full(sv), phv);
+        wgmma_fence();                        // P's registers feed this one
+        issue_pv<HD>(o, pr, base + L::V + sv * L::TILE);
+        wgmma_commit();
+        wgmma_wait<1>();                      // the scores have landed
+        reg_fence(sc);
+        release_k(s, kt == kt_last);
+        const int k0 = kt * WG_BN;
+        softmax_tile(sc, st, al_a, al_b, masked(k0), k0, p, t, row_a, row_b,
+                     tq, scale2);
+        wgmma_wait<0>();                      // O += P V has landed
+        reg_fence(o);
+        if (lane == 0) mbar_arrive(v_empty(sv));
+        rescale(o, al_a, al_b);
+        pack_p(sc, pr);
+      }
+      {                                       // the last tile's P V
+        const int sv = it % WG_STAGES;
+        mbar_wait(v_full(sv), (it / WG_STAGES) & 1);
+        reg_fence(o);
+        wgmma_fence();
+        issue_pv<HD>(o, pr, base + L::V + sv * L::TILE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(o);
+        if (lane == 0) mbar_arrive(v_empty(sv));
+        ++it;
+      }
+      float l_a = st.l_a, l_b = st.l_b;
+      ++items;
+
+      // ---- epilogue: finish the row sums over the quad, normalise, store
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+      const float inv_a = (row_a >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
+      const float inv_b = (row_b >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n) {
+        const int col = n * 8 + 2 * tq;
+        if (row_a < t)
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + (long long)row_a * os.t + col) =
+              __floats2bfloat162_rn(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
+        if (row_b < t)
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + (long long)row_b * os.t + col) =
+              __floats2bfloat162_rn(o[4 * n + 2] * inv_b,
+                                    o[4 * n + 3] * inv_b);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda and this library links against
+// the runtime only: take it from the libcuda.so.1 that the process has
+// loaded already.
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiledFn>(
+        dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// rank-4 map of a (batch, token, head, hd) bf16 tensor read as boxes of
+// `rows` tokens x 64 columns of one head; `tokens` bounds the token
+// dimension, so rows beyond it are zero-filled and never read
+bool make_map(CUtensorMap* map, const void* ptr, int hd, int tokens,
+              int n_heads, int b, Strides s, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row_bytes = (cuuint64_t)hd * sizeof(bf16);
+  auto stride = [&](int size, long long elems) {      // of a size-1 dim: any
+    return size > 1 ? (cuuint64_t)elems * sizeof(bf16) : row_bytes;
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)tokens,
+                              (cuuint64_t)n_heads, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {stride(tokens, s.t), stride(n_heads, s.h),
+                                 stride(b, s.b)};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
+                void* out, int b, int t, int heads, int kv_heads, Strides qs,
+                Strides ks, Strides vs, Strides os, float scale,
+                cudaStream_t stream) {
+  using L = WgLayout<HD>;
+  static int sm_count = 0;
+  auto kernel = flash_prefill_kernel<HD>;
+  if (sm_count == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) {
+      sm_count = 0;
+      return (int)err;
+    }
+  }
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, HD, t, heads, b, qs, WG_BM)
+      || !make_map(&mk, k, HD, t, kv_heads, b, ks, WG_BN)
+      || !make_map(&mv, v, HD, t, kv_heads, b, vs, WG_BN))
+    return (int)cudaErrorInvalidValue;
+  const int n_mt = (t + WG_BM - 1) / WG_BM;
+  const long long n_work = (long long)n_mt * b * heads;
+  if (n_work > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(n_work < sm_count ? n_work : sm_count);
+  kernel<<<grid, WG_THREADS, L::BYTES, stream>>>(
+      mq, mk, mv, pad, static_cast<bf16*>(out), b, t, heads, heads / kv_heads,
+      os, scale * 1.4426950408889634f, n_mt, (int)n_work);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -452,16 +816,27 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const long long* strides, float scale,
                              cudaStream_t stream) {
   if (b <= 0 || t <= 0 || heads <= 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads != 0)
+  if (kv_heads <= 0 || heads % kv_heads != 0 || (hd != 64 && hd != 128))
     return (int)cudaErrorInvalidValue;
   const int rep = heads / kv_heads;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, pad, out, b, t, heads, rep,
-                                   qs, ks, vs, os, scale, stream);
-  return dispatch<float>(hd, q, k, v, pad, out, b, t, heads, rep, qs, ks, vs,
+  if (is_bf16) {
+    if (hd == 64)
+      return launch_bf16<64>(q, k, v, pad, out, b, t, heads, kv_heads, qs,
+                             ks, vs, os, scale, stream);
+    return launch_bf16<128>(q, k, v, pad, out, b, t, heads, kv_heads, qs, ks,
+                            vs, os, scale, stream);
+  }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+  if (hd == 64)
+    return launch_f32<64>(qf, kf, vf, pad, of, b, t, heads, rep, qs, ks, vs,
+                          os, scale, stream);
+  return launch_f32<128>(qf, kf, vf, pad, of, b, t, heads, rep, qs, ks, vs,
                          os, scale, stream);
 }

@@ -7,97 +7,206 @@
 // leafgrasp_tpu/ops/edt.py (full sweep, banded sweep, query window,
 // sampled envelope, refinement windows).
 //
-// Bound: operations. Each (row, query, source) triple costs a subtract,
-// a multiply, an add and a min (2 counted operations: the add and the
-// min), against 12 bytes of traffic per (row, query) pair; the full
-// 1080 x 1440 x 1440 sweep is ~4.5 G operations over ~12 MB, far right
-// of the ridge. Design: a block owns MP_ROWS rows x MP_QT query
-// columns, one thread per query column holding MP_ROWS accumulators in
-// registers; the rows' source columns are staged through shared memory
-// MP_SC at a time and read as warp-wide broadcasts (no bank conflicts),
-// so the inner loop is pure register arithmetic. A per-(row tile,
-// query tile) band radius, in MP_QT-column chunks, narrows the sources
-// to the chunks that can win (the banded form).
+// Bound: operations. Counted as an add and a min for each (row, query,
+// source) triple, the full 1080 x 1440 x 1440 sweep is 4.5 G operations
+// over 12 MB: 0.067 ms at the card's 67 TFLOP/s, far right of the ridge.
+// That figure counts a fused multiply-add as two operations and lets a
+// min run at the add's rate; an SM issues one warp instruction a cycle in
+// each of its four partitions and runs min and max at half the rate of
+// add and multiply, so a triple that costs a multiply-add and a min
+// cannot take less than two cycles a warp: 2.24 G triples / (132 SMs x 4
+// x 32 lanes) x 2 cycles at the card's highest clock of 1.98 GHz is
+// 0.13 ms, the floor of this design. TMA and wgmma have nothing to
+// offer: an f32 min-plus is not a matrix product, and the staged tile of
+// a warp is 4 KB.
 //
-// All values are integer-valued f32 below 2^24, so every sum is exact
-// and the result is bit-identical to any other evaluation order.
+// Design. The square is expanded,
+//   g2[r, s] + (q - s)^2 = (g2[r, s] + s^2) - 2 q s + q^2,
+// so that h[r][s] = g2[r, s] + s^2 is staged once per value in shared
+// memory, the inner loop is acc = fminf(acc, fmaf(-2q, s, h)) (two
+// instructions a triple; the direct form costs a subtract, a multiply,
+// an add and a min), and q^2 is added once at the store. A warp owns one band tile:
+// MP_ROWS rows x 32 * QPT query columns (QPT query columns and MP_ROWS
+// rows a thread, 8 * QPT accumulators), and reads h as float4 over s, one
+// broadcast 16-byte load for 4 * QPT triples, so the loop is bound by the
+// issue of arithmetic and not by shared memory. The four warps of a block
+// share ONE tile and split its source range in four; each stages only
+// its own quarter (no block barrier in the loop, the next quarter-chunk
+// is fetched into registers while this one is multiplied) and the four
+// partial minima meet in shared memory at the end. A tile a block, not a
+// tile a warp, gives the full sweep 1620 blocks for 132 SMs where it
+// would give a partition three or four tiles. QPT is chosen by the
+// launcher from nq: 4 for wide query sets, 1 for narrow ones (the 17
+// columns of a refinement window would leave most lanes of a wider tile
+// idle). A per-(row tile, 128-column chunk) band radius narrows the
+// sources to the chunks that can win (the banded form); a tile never
+// straddles a chunk.
+//
+// Exactness. Every value is an integer. The callers keep
+// g2 <= 2^24 - 2 W^2 where it is finite (the wrapper states it), so
+// h < 2^24, -2 q s >= -2 W^2, and h - 2 q s = g2 + (q - s)^2 - q^2 lies in
+// (-2^24, 2^24): the fused multiply-add rounds once and that once is
+// exact, as is the final + q^2. INFINITY (a source out of range) stays
+// infinite through the multiply-add. The result is bit for bit that of
+// any other evaluation order. The file is built with -fmad=false; the
+// multiply-add is the explicit intrinsic.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define MP_ROWS 8
-#define MP_QT 128
-#define MP_SC 256
+#define MP_ROWS 8        // rows of a tile: the band's row tile
+#define MP_CHUNK 128     // columns of a band chunk
+#define MP_WARPS 4       // warps of a block: quarters of the source range
+#define MP_SC 128        // sources a warp stages at a time
+#define MP_LD (MP_SC / 32)
 
-__global__ void __launch_bounds__(MP_QT)
+template <int QPT, bool PER_ROW>
+__global__ void __launch_bounds__(MP_WARPS * 32)
 minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
-                     const int* __restrict__ qcol, int nq, int per_row,
-                     int s_lo, int s_hi, const int* __restrict__ band,
+                     const int* __restrict__ qcol, int nq, int s_lo,
+                     int s_hi, const int* __restrict__ band,
                      int n_band_cols, float* __restrict__ out) {
-  __shared__ float sg[MP_ROWS][MP_SC];
-  const int qt = blockIdx.x;
+  constexpr int QM = PER_ROW ? MP_ROWS : 1;     // distinct query sets
+  __shared__ __align__(16) float sh[MP_WARPS][MP_ROWS][MP_SC];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qbase = blockIdx.x * (32 * QPT);
   const int rt = blockIdx.y;
-  const int q = qt * MP_QT + threadIdx.x;
   const int r0 = rt * MP_ROWS;
-  const bool q_ok = q < nq;
 
-  float qf[MP_ROWS];
-  float acc[MP_ROWS];
+  // -2 q for this thread's query columns (per row in the refinement form)
+  float m2q[QM][QPT];
 #pragma unroll
-  for (int r = 0; r < MP_ROWS; ++r) {
-    const int rr = r0 + r;
-    int qc = 0;
-    if (q_ok && rr < R) {
-      qc = per_row ? qcol[(size_t)rr * nq + q] : qcol[q];
+  for (int m = 0; m < QM; ++m) {
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) {
+      const int q = qbase + j * 32 + lane;
+      const int rr = r0 + m;
+      int qc = 0;
+      if (q < nq && rr < R)
+        qc = PER_ROW ? qcol[(size_t)rr * nq + q] : qcol[q];
+      m2q[m][j] = -2.0f * (float)qc;
     }
-    qf[r] = (float)qc;
-    acc[r] = INFINITY;
   }
+  float acc[MP_ROWS][QPT];
+#pragma unroll
+  for (int r = 0; r < MP_ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) acc[r][j] = INFINITY;
 
-  int lo = s_lo;
-  int hi = s_hi;
+  int lo = s_lo, hi = s_hi;
   if (band != nullptr) {
+    const int qt = qbase / MP_CHUNK;
     const int nb = band[rt * n_band_cols + qt];
-    lo = max(lo, (qt - nb) * MP_QT);
-    hi = min(hi, (qt + nb + 1) * MP_QT);
+    lo = max(lo, (qt - nb) * MP_CHUNK);
+    hi = min(hi, (qt + nb + 1) * MP_CHUNK);
   }
+  // this warp's quarter of [lo, hi), a multiple of 4 sources long
+  const int span = max(hi - lo, 0);
+  const int quarter = (((span + MP_WARPS - 1) / MP_WARPS) + 3) & ~3;
+  const int wlo = lo + warp * quarter;
+  const int whi = min(hi, wlo + quarter);
 
-  for (int s0 = lo; s0 < hi; s0 += MP_SC) {
-    const int n = min(MP_SC, hi - s0);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < MP_ROWS * MP_SC; idx += blockDim.x) {
-      const int r = idx / MP_SC;
-      const int s = idx - r * MP_SC;
-      const int rr = r0 + r;
-      sg[r][s] = (rr < R && s < n) ? g2[(size_t)rr * W + s0 + s] : INFINITY;
-    }
-    __syncthreads();
-    for (int s = 0; s < n; ++s) {
-      const float sf = (float)(s0 + s);
+  float pre[MP_ROWS][MP_LD];                    // the next chunk, raw
+  auto fetch = [&](int s0) {
 #pragma unroll
-      for (int r = 0; r < MP_ROWS; ++r) {
-        const float d = qf[r] - sf;
-        acc[r] = fminf(acc[r], sg[r][s] + d * d);
+    for (int r = 0; r < MP_ROWS; ++r) {
+      const int rr = r0 + r;
+#pragma unroll
+      for (int i = 0; i < MP_LD; ++i) {
+        const int s = s0 + i * 32 + lane;
+        pre[r][i] = (rr < R && s < whi) ? g2[(size_t)rr * W + s] : INFINITY;
+      }
+    }
+  };
+  if (wlo < whi) fetch(wlo);
+  for (int s0 = wlo; s0 < whi; s0 += MP_SC) {
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < MP_LD; ++i) {
+      const float sf = (float)(s0 + i * 32 + lane);
+      const float s2 = sf * sf;
+#pragma unroll
+      for (int r = 0; r < MP_ROWS; ++r)
+        sh[warp][r][i * 32 + lane] = pre[r][i] + s2;     // inf stays inf
+    }
+    __syncwarp();
+    if (s0 + MP_SC < whi) fetch(s0 + MP_SC);
+    const int n = min(MP_SC, whi - s0);         // the tail beyond n is inf
+    float sf = (float)s0;
+    for (int s = 0; s < n; s += 4) {
+      float4 hv[MP_ROWS];
+#pragma unroll
+      for (int r = 0; r < MP_ROWS; ++r)
+        hv[r] = *reinterpret_cast<const float4*>(&sh[warp][r][s]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int r = 0; r < MP_ROWS; ++r) {
+          const float h = e == 0 ? hv[r].x : e == 1 ? hv[r].y
+                        : e == 2 ? hv[r].z : hv[r].w;
+#pragma unroll
+          for (int j = 0; j < QPT; ++j)
+            acc[r][j] = fminf(acc[r][j],
+                              __fmaf_rn(m2q[PER_ROW ? r : 0][j], sf, h));
+        }
+        sf += 1.0f;
       }
     }
   }
 
-  if (q_ok) {
+  // the four partial minima meet: each warp leaves its own in its staging
+  // area (8 * QPT floats a lane), then finishes two of the eight rows
+  __syncwarp();
+  float* mine = &sh[warp][0][0];
 #pragma unroll
-    for (int r = 0; r < MP_ROWS; ++r) {
-      const int rr = r0 + r;
-      if (rr < R) out[(size_t)rr * nq + q] = acc[r];
+  for (int r = 0; r < MP_ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < QPT; ++j)
+      mine[(r * QPT + j) * 32 + lane] = acc[r][j];
+  __syncthreads();
+  constexpr int RPW = MP_ROWS / MP_WARPS;
+#pragma unroll
+  for (int r = 0; r < MP_ROWS; ++r) {           // r static: m2q in registers
+    if (r / RPW != warp) continue;
+    const int rr = r0 + r;
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) {
+      const int q = qbase + j * 32 + lane;
+      float v = INFINITY;
+#pragma unroll
+      for (int w = 0; w < MP_WARPS; ++w)
+        v = fminf(v, (&sh[w][0][0])[(r * QPT + j) * 32 + lane]);
+      const float m = m2q[PER_ROW ? r : 0][j];
+      if (q < nq && rr < R)
+        out[(size_t)rr * nq + q] = v + 0.25f * (m * m);        // + q^2
     }
   }
 }
 
+template <int QPT, bool PER_ROW>
+static int launch(const float* g2, int R, int W, const int* qcol, int nq,
+                  int s_lo, int s_hi, const int* band, int n_band_cols,
+                  float* out, cudaStream_t stream) {
+  dim3 grid((nq + 32 * QPT - 1) / (32 * QPT), (R + MP_ROWS - 1) / MP_ROWS);
+  minplus_pass2_kernel<QPT, PER_ROW><<<grid, MP_WARPS * 32, 0, stream>>>(
+      g2, R, W, qcol, nq, s_lo, s_hi, band, n_band_cols, out);
+  return (int)cudaGetLastError();
+}
+
+// g2 (R, W) f32; qcol int32 (nq,) or, with per_row, (R, nq); band int32
+// (ceil(R / 8), n_band_cols) or null; out (R, nq) f32. The tile's width
+// follows nq: 128 query columns where there are that many, else 32.
 extern "C" int minplus_pass2(const float* g2, int R, int W, const int* qcol,
                              int nq, int per_row, int s_lo, int s_hi,
                              const int* band, int n_band_cols, float* out,
                              cudaStream_t stream) {
   if (R <= 0 || nq <= 0) return 0;
-  dim3 grid((nq + MP_QT - 1) / MP_QT, (R + MP_ROWS - 1) / MP_ROWS);
-  minplus_pass2_kernel<<<grid, MP_QT, 0, stream>>>(
-      g2, R, W, qcol, nq, per_row, s_lo, s_hi, band, n_band_cols, out);
-  return (int)cudaGetLastError();
+  if (per_row)
+    return launch<1, true>(g2, R, W, qcol, nq, s_lo, s_hi, band,
+                           n_band_cols, out, stream);
+  if (nq >= MP_CHUNK)
+    return launch<4, false>(g2, R, W, qcol, nq, s_lo, s_hi, band,
+                            n_band_cols, out, stream);
+  return launch<1, false>(g2, R, W, qcol, nq, s_lo, s_hi, band, n_band_cols,
+                          out, stream);
 }

@@ -13,11 +13,15 @@ no repeat to ``heads``), ``pad`` is (b,) int32.
 Replaces the TPU route ``_flash_prefill``
 (leafgrasp_tpu/vla/llava_jax.py:284), which pads the sequence to a block
 multiple on the host and repeats K/V to the query head count first; the
-kernel source, with its bound and design, is ``csrc/flash_prefill.cu``.
-Kernel and plain version differ in the order of the f32 sums and, in
-bf16, in where probabilities are rounded (before or after the division
-by the row sum): about 1e-6 in f32, and in bf16 a few ulps of the value
-(an ulp is 2^-8 of it) on unit-scale inputs.
+kernel source, with its bound and design, is ``csrc/flash_prefill.cu``:
+in bf16 a persistent ``wgmma`` kernel whose K/V tiles arrive by TMA
+through tensor maps of the tensors as they lie (so every stride must be
+a multiple of 16 bytes), in f32 a scalar kernel that exists to hold the
+masking and the softmax to 1e-5. Kernel and plain version differ in the
+order of the f32 sums and, in bf16, in where probabilities are rounded
+(before or after the division by the row sum): about 1e-6 in f32, and in
+bf16 a few ulps of the value (an ulp is 2^-8 of it) on unit-scale
+inputs.
 """
 
 from __future__ import annotations
@@ -95,7 +99,7 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _row_strides(x: torch.Tensor, name: str) -> list:
     """(batch, token, head) element strides of a (b, t, h, hd) tensor the
-    kernel can read 16 bytes at a time."""
+    kernel can read 16 bytes at a time (TMA takes no other strides)."""
     vec = 16 // x.element_size()
     sb, st, sh, sd = x.stride()
     if sd != 1 or st % vec or sh % vec or sb % vec \

@@ -10,8 +10,9 @@ leafgrasp_tpu/ops/edt.py.
    window, the envelope's sampled columns, per-row refinement windows,
    or the banded sweep.
 
-All values are integer-valued f32 below 2^24, so each result is bit
-for bit the JAX package's. The data-dependent choices of the JAX
+All values are integer-valued f32 and the frame is small enough that
+``(H + W)^2 + 2 W^2 < 2^24`` (held where ``g2`` is built), so each
+result is exact and bit for bit the JAX package's. The data-dependent choices of the JAX
 version (banded vs full sweep, the envelope coverage guard) are Python
 branches on a scalar read back with ``host_read``.
 """
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from leafgrasp_tpu_torch.kernels.minplus import (BAND_COLS, BAND_ROWS,
-                                                 minplus_pass2)
+                                                 max_g2, minplus_pass2)
 from leafgrasp_tpu_torch.kernels.rowband import squared_edt_rowband
 from leafgrasp_tpu_torch.utils.device import host_read
 
@@ -72,7 +73,16 @@ def nearest_seed_dist_1d(seeds: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return torch.minimum(d_before, d_after)
 
 
+def _check_sentinel(h: int, w: int) -> None:
+    """The largest pass-1 value, the sentinel ``(H + W)^2``, must stay
+    inside the range in which the min-plus kernel is exact."""
+    if (h + w) ** 2 > max_g2(w):
+        raise ValueError(f"a {h} x {w} frame: (H + W)^2 + 2 W^2 passes "
+                         f"2^24, the min-plus would not be exact")
+
+
 def _pass1_g2(seeds: torch.Tensor) -> torch.Tensor:
+    _check_sentinel(*seeds.shape[-2:])
     g = nearest_seed_dist_1d(seeds, axis=-2).to(torch.float32)
     return g * g
 
@@ -110,6 +120,7 @@ def squared_edt(seeds: torch.Tensor | None, g2: torch.Tensor | None = None,
             raise ValueError("squared_edt needs seeds or g2")
         g2 = _pass1_g2(seeds)
     h, w = g2.shape
+    _check_sentinel(h, w)
     big = float((h + w) * (h + w))
 
     chunk = BAND_COLS
@@ -299,6 +310,7 @@ def edt_max_argmax_batch(g2: torch.Tensor, stride: int = 16, k: int = 1024,
     host read of every channel's coverage guard, one refinement launch
     for the covered channels, a full sweep for the others."""
     c, h, w = g2.shape
+    _check_sentinel(h, w)
     g2 = g2.to(torch.float32).contiguous()
     big = float((h + w) * (h + w))
     js = _sample_cols(w, stride, g2.device)

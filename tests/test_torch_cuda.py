@@ -7,7 +7,7 @@ machine run it alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Without a CUDA device every test here skips. Tolerances: min-plus and
-row-banded EDT bit-exact (integer-valued f32 below 2^24); fused scoring
+row-banded EDT bit-exact (integer-valued f32, sums below 2^24); fused scoring
 1e-5 absolute, valid mask equal; attention gate 1e-5 absolute; segment
 histogram counts equal; flash prefill 2e-5 absolute in f32, and in bf16
 2^-6 of the value plus 2^-6 of the largest value of the same output row
@@ -34,7 +34,8 @@ from leafgrasp_tpu_torch.kernels.flash_prefill import (flash_prefill,
                                                        flash_prefill_plain)
 from leafgrasp_tpu_torch.kernels.histogram import (NBINS, segment_histogram,
                                                    segment_histogram_plain)
-from leafgrasp_tpu_torch.kernels.minplus import (BAND_ROWS, minplus_pass2,
+from leafgrasp_tpu_torch.kernels.minplus import (BAND_ROWS, MAX_WIDTH,
+                                                 max_g2, minplus_pass2,
                                                  minplus_pass2_plain)
 from leafgrasp_tpu_torch.kernels.rowband import (rowband_radii_plain,
                                                  squared_edt_rowband,
@@ -77,6 +78,38 @@ def test_minplus_kernel_matches_plain_on_card(cuda):
         assert torch.equal(minplus_pass2(g2, **kw),
                            minplus_pass2_plain(g2, **kw)), kw
     assert kernels.launch_counts()["minplus_pass2"] == len(forms)
+
+
+@pytest.mark.parametrize("shape", [(80, 1440), (40, 300), (19, 77)])
+def test_minplus_kernel_at_the_edge_of_its_range_on_card(cuda, shape):
+    """Sentinel rows, sources at the first, last or both columns, and
+    rows of the largest admitted value, as every-column queries (wide
+    and narrow tiles), per-row windows at both ends, and a source
+    sub-range: bit-exact."""
+    r, w = shape
+    g2 = torch.full((r, w), float((1080 + w) ** 2), device=cuda)
+    g2[1::5, 0] = 0.0
+    g2[2::5, w - 1] = 0.0
+    g2[3::5] = float(max_g2(w))
+    g2[4::5, 0], g2[4::5, w - 1] = 0.0, 1.0
+    ends = torch.tensor([0, 1, w // 2, w - 2, w - 1], dtype=torch.int32,
+                        device=cuda)
+    per_row = ends[None, :].repeat(r, 1).contiguous()
+    forms = [{}, {"qcol": ends}, {"qcol": per_row},
+             {"s_lo": 1, "s_hi": w - 1},
+             {"qcol": ends, "s_lo": w // 3, "s_hi": w // 3 + 5}]
+    for kw in forms:
+        got = minplus_pass2(g2, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, minplus_pass2_plain(g2, **kw)), kw
+
+
+def test_minplus_raises_on_card_for_a_width_beyond_its_range(cuda):
+    wide = torch.zeros((1, MAX_WIDTH + 1), device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="2\\^24"):
+        minplus_pass2(wide)
+    assert kernels.launch_counts()["minplus_pass2"] == 0
 
 
 def test_scoring_kernel_matches_plain_on_card(cuda):
@@ -209,11 +242,17 @@ FLASH_TOL = {torch.float32: (2e-5, 0.0, 0.0),
     ((3, 129, 4, 4, 64), (128, 0, 64)),
     ((2, 333, 6, 2, 128), (70, 5)),
     ((5, 640, 32, 8, 128), (0, 3, 64, 130, 639)),
+    ((1, 1, 4, 1, 128), (0,)),
+    ((2, 100, 4, 4, 128), (0, 99)),
+    ((2, 257, 8, 2, 128), (130, 70)),
+    ((1, 2437, 4, 1, 128), (300,)),
 ])
 def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, shape, pads):
-    """Unequal left pads including 0, ragged last tiles, K/V read through
-    the strides of a longer cache: real rows within tolerance, pad rows
-    exactly zero."""
+    """Unequal left pads including 0 and pads that end inside a 64-row
+    group, prompts of one token, shorter than a tile and no multiple of
+    one, one to four query heads a K/V head, K/V read through the strides
+    of a longer cache that holds NaN beyond t: real rows within
+    tolerance, pad rows exactly zero, everything finite."""
     b, t, heads, kvh, hd = shape
     rng = np.random.default_rng(21)
 
@@ -223,6 +262,8 @@ def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, shape, pads):
 
     q = t_(b, t, heads, hd)
     cache_k, cache_v = t_(b, t + 10, kvh, hd), t_(b, t + 10, kvh, hd)
+    cache_k[:, t:] = float("nan")
+    cache_v[:, t:] = float("nan")
     pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
     kernels.reset_launch_counts()
     got = flash_prefill(q, cache_k, cache_v, pad)

@@ -6,7 +6,7 @@ CPU dispatch and argument checks, and the build's flags. The kernels
 themselves are held against their plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 
-Tolerances: min-plus bit-exact (integer-valued f32 below 2^24); fused
+Tolerances: min-plus bit-exact (integer-valued f32, sums below 2^24); fused
 scoring 1e-5 absolute, valid mask equal; attention gate 1e-5 absolute.
 """
 
@@ -26,6 +26,7 @@ from leafgrasp_tpu_torch.kernels.attention import (MODES,
                                                    attention_gate_plain,
                                                    fused_attention_gate)
 from leafgrasp_tpu_torch.kernels.minplus import (BAND_COLS, BAND_ROWS,
+                                                 MAX_WIDTH, max_g2,
                                                  minplus_pass2,
                                                  minplus_pass2_plain)
 from leafgrasp_tpu_torch.kernels.scoring import (fused_score_maps,
@@ -152,6 +153,60 @@ def test_minplus_wrapper_cpu_and_checks(g2_stack):
         minplus_pass2(g2.to("meta"))
 
 
+def test_minplus_plain_matches_pallas_at_the_edge_of_its_range():
+    """Rows of the sentinel (H + W)^2 alone, with a source at the first,
+    the last or both columns, and rows of the largest value the
+    contract admits (2^24 - 2 W^2): the plain version, which the card
+    holds the kernel to, against the Pallas kernel in interpret mode and
+    a float64 reference, bit for bit. The width is a multiple of the
+    Pallas kernel's 128-column chunk: it pads a narrower row with
+    sentinel sources, which would win against the larger value."""
+    from leafgrasp_tpu.ops.pallas_edt import squared_edt_pass2
+    h, w = 96, 256
+    g2 = np.full((5, h, w), np.float32((h + w) ** 2))
+    g2[1, :, 0] = 0.0
+    g2[2, :, w - 1] = 0.0
+    g2[3, :, 0], g2[3, :, w - 1] = 0.0, 1.0
+    g2[4] = np.float32(max_g2(w))
+    assert float(g2.max()) + 2.0 * w * w == 2.0 ** 24
+    want = np.asarray(squared_edt_pass2(g2, interpret=True))
+    flat = g2.reshape(5 * h, w)
+    got = minplus_pass2_plain(_t(flat)).numpy()
+    np.testing.assert_array_equal(got.reshape(5, h, w), want)
+    full = np.broadcast_to(np.arange(w), (5 * h, w))
+    np.testing.assert_array_equal(
+        got, _brute(flat, full, np.zeros((5 * h, 1), int),
+                    np.full((5 * h, 1), w)))
+    assert got[0, 0] == (h + w) ** 2 and got[h, w - 1] == (w - 1) ** 2
+    assert (got[4 * h:] == max_g2(w)).all()
+
+
+def test_minplus_and_edt_raise_where_sums_could_pass_2_24():
+    """From shapes alone, with no value read: the min-plus (plain version
+    and wrapper) at a width whose sentinel leaves no room, and the EDT
+    entry points where (H + W)^2 + 2 W^2 >= 2^24."""
+    from leafgrasp_tpu_torch.ops import edt as tedt
+    assert 6 * MAX_WIDTH ** 2 < 2 ** 24 <= 6 * (MAX_WIDTH + 1) ** 2
+    ok = torch.zeros((1, MAX_WIDTH))
+    assert minplus_pass2(ok, qcol=torch.zeros(1, dtype=torch.int32)) \
+        .shape == (1, 1)
+    wide = torch.zeros((1, MAX_WIDTH + 1))
+    for fn in (minplus_pass2, minplus_pass2_plain):
+        with pytest.raises(ValueError, match="2\\^24"):
+            fn(wide)
+    tall = torch.zeros((3000, 1600), dtype=torch.bool)     # 4600^2 > room
+    assert (3000 + 1600) ** 2 > max_g2(1600) > (1080 + 1440) ** 2
+    for call in (lambda: tedt.squared_edt(tall),
+                 lambda: tedt.squared_edt_full(tall),
+                 lambda: tedt.edt_max_argmax(tall),
+                 lambda: tedt.squared_edt(None, g2=torch.zeros((3000, 1600))),
+                 lambda: tedt.edt_max_argmax_batch(
+                     torch.zeros((1, 3000, 1600)))):
+        with pytest.raises(ValueError, match="2\\^24"):
+            call()
+    tedt._check_sentinel(1080, 1440)           # the production frame fits
+
+
 # ---- fused scoring -----------------------------------------------------------
 
 def _scoring_inputs():
@@ -250,6 +305,11 @@ def test_build_flags_and_sources():
     names = sorted(p.name for p in build._sources())
     assert names == ["attention.cu", "flash_prefill.cu", "histogram.cu",
                      "minplus.cu", "rowband.cu", "scoring.cu"]
+    # the one header (inline PTX for mbarriers, TMA, wgmma) is hashed too
+    assert [p.name for p in build.CSRC_DIR.glob("*.cuh")] == ["hopper.cuh"]
+    flash = (build.CSRC_DIR / "flash_prefill.cu").read_text()
+    assert '#include "hopper.cuh"' in flash and "mma.sync" not in flash
+    assert "wgmma.mma_async" in (build.CSRC_DIR / "hopper.cuh").read_text()
     # the bit-exact kernels keep separate multiply and add; the flash
     # prefill alone may fuse them
     for p in build._sources():
@@ -284,12 +344,15 @@ def _flash_case(seed, b, t, heads, kvh, hd, pads, extra=6):
     ((2, 130, 4, 2, 16), (0, 37)),
     ((3, 160, 4, 4, 8), (128, 1, 159)),
     ((1, 128, 6, 2, 16), (5,)),
+    ((2, 40, 4, 4, 16), (0, 17)),      # one query head a K/V head, t < a tile
+    ((1, 1, 2, 2, 8), (0,)),
 ])
 def test_flash_prefill_plain_matches_jax_dense_route(shape, pads):
     """The kernel's plain version against the JAX package's dense route:
     ``_MistralAttention``'s ``attend`` under the mask that
-    ``_generate_prefill`` builds (causal AND key >= left pad), t >= 128,
-    unequal pads, f32, real rows to 1e-5. The JAX package's own flash
+    ``_generate_prefill`` builds (causal AND key >= left pad), t from 1
+    to beyond a tile, one to three query heads a K/V head, unequal pads,
+    f32, real rows to 1e-5. The JAX package's own flash
     route is a Pallas TPU kernel that needs the TPU backend and is never
     run on the CPU by its tests; the dense route is what it states that
     kernel to equal on real rows, so it is the reference here. The JAX
