@@ -137,10 +137,12 @@ KERNEL_FUNCTIONS = ("minplus_pass2_kernel", "fused_score_maps_kernel",
                     "segment_histogram_kernel", "flash_prefill_kernel",
                     "flash_prefill_f32_kernel")
 # The bf16 flash prefill before its redesign (mma.sync m16n8k16, cp.async,
-# 64-row blocks), at the serving shape, in the same run on the same card
-# as the first wgmma version (0.479 ms) and the library call (0.435 ms):
-# NVIDIA H100 80GB HBM3, 700.00 W. That kernel is gone from the sources.
-FLASH_PREV_MS = 1.234
+# 64-row blocks), at the serving shape, as this script's previous
+# version timed it in one run on one card with this version (0.441 and
+# 0.443 ms; the library call 0.437-0.445 ms): NVIDIA H100 80GB HBM3,
+# 700.00 W. That kernel is gone from the sources; the number is logged,
+# not part of the kernels line.
+FLASH_PREV_MS = 1.214
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -185,15 +187,19 @@ def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if kernel_function(ev.key) == kernel)
-    if total <= 0:
-        raise RuntimeError(f"the profiler saw no {kernel}")
-    return total / 1e3 / iters
+    # now and then a trace comes back without the records of a kernel
+    # that ran (seen once in some eighty profiles on an H100): profile
+    # again before giving up
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if kernel_function(ev.key) == kernel)
+        if total > 0:
+            return total / 1e3 / iters
+    raise RuntimeError(f"the profiler saw no {kernel}")
 
 
 def bound(bytes_moved: float, ops: float, peak_ops=PEAK_F32_OPS_PER_S):
@@ -211,18 +217,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def issue_floor_ms(torch, triples: float, slots: float = 2.0) -> float:
-    """Least ms for ``triples`` inner steps of ``slots`` warp-instruction
-    issue slots each: an SM issues one warp instruction (32 lanes) a
-    cycle in each of its four partitions, at the card's highest SM clock
-    as ``nvidia-smi`` gives it."""
+def issue_rate(torch) -> float:
+    """Warp-instruction lanes the card issues a second: each SM issues one
+    warp instruction (32 lanes) a cycle in each of its four partitions,
+    at the card's highest SM clock as ``nvidia-smi`` gives it."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=30, check=True)
     hz = float(out.stdout.strip().splitlines()[0]) * 1e6
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return slots * triples / (sms * 128 * hz) * 1e3
+    return torch.cuda.get_device_properties(0).multi_processor_count \
+        * 128 * hz
 
 
 def minplus_sources(r: int, w: int, nq: int, band=None) -> int:
@@ -289,7 +294,8 @@ def check_minplus(torch, dev, leaf, other):
             "s_lo": 273, "s_hi": 849}),
         "edge": (edge, {}),
     }
-    out = {}
+    out, floors = {}, {}
+    lanes_per_s = issue_rate(torch)
     for name, (x, kw) in forms.items():
         got = minplus_pass2(x, **kw)
         want = minplus_pass2_plain(x, **kw)
@@ -310,10 +316,13 @@ def check_minplus(torch, dev, leaf, other):
             "wrapper_ms": cuda_ms(lambda: minplus_pass2(x, **kw)),
             "plain_ms": cuda_ms(lambda: minplus_pass2_plain(x, **kw),
                                 iters=3, warmup=1),
-            "bound_ms": b_ms, "bound_by": b_by,
-            # a multiply-add and a min a triple, at the issue rate
-            "issue_floor_ms": issue_floor_ms(torch, triples)}
+            "bound_ms": b_ms, "bound_by": b_by}
         log(f"minplus {name} {json.dumps(out[name])}")
+        # computed, not measured, so not part of the kernels line: a
+        # multiply-add and a min a triple at the card's issue rate
+        floors[name] = 2.0 * triples / lanes_per_s * 1e3
+    log(f"minplus issue-rate floor ms (computed from the highest SM clock) "
+        f"{json.dumps(floors)}")
     full = out["full"]
     return {"name": "minplus_pass2", "route": "cuda",
             "source": "leafgrasp_tpu_torch/kernels/csrc/minplus.cu",
@@ -323,7 +332,6 @@ def check_minplus(torch, dev, leaf, other):
             "ms": full["ms"], "wrapper_ms": full["wrapper_ms"],
             "plain_ms": full["plain_ms"],
             "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-            "issue_floor_ms": full["issue_floor_ms"],
             "library_ms": None, "forms": out}
 
 
@@ -677,7 +685,6 @@ def check_flash(torch, dev):
            "shape": [b, t, heads, kvh, hd],
            "ms": kernel_ms(lambda: flash_prefill(q, k, v, pad0),
                            "flash_prefill_kernel", iters=10),
-           "prev_ms": FLASH_PREV_MS,
            "wrapper_ms": cuda_ms(lambda: flash_prefill(q, k, v, pad0),
                                  iters=10),
            "f32_ms": cuda_ms(lambda: flash_prefill(q32, k32, v32, pad0),
@@ -692,6 +699,8 @@ def check_flash(torch, dev):
            "max_row_share_vs_library": lib_share, "operations": ops,
            "bytes": moved}
     rec["tflops"] = ops / rec["ms"] / 1e9
+    log(f"flash_prefill before its redesign, a constant of the source and "
+        f"not measured in this run: {FLASH_PREV_MS} ms")
     log(f"flash_prefill {json.dumps(rec)}")
     return rec
 

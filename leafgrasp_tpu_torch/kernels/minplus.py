@@ -15,17 +15,19 @@ Replaces the TPU kernels ``squared_edt_pass2`` and
 and every XLA min-plus of leafgrasp_tpu/ops/edt.py; the kernel source,
 with its bound and design, is ``csrc/minplus.cu``.
 
-The contract on values: ``g2`` is integer-valued and, where finite, at
-most ``2^24 - 2 W^2`` (``max_g2(W)``); ``+inf`` marks a column that is
-no source. The kernel expands the square into
+The contract on values, on the card: ``g2`` is integer-valued and,
+where finite, at most ``2^24 - 2 W^2`` (``max_g2(W)``); ``+inf`` marks a
+column that is no source. The kernel expands the square into
 ``(g2 + s^2) - 2 q s + q^2`` with one fused multiply-add a source;
 under the contract every intermediate is an integer below 2^24 in
 magnitude, so kernel and plain version agree bit for bit. Values cannot
-be seen without a host read, so the wrapper checks what the shape
+be seen without a host read, so the CUDA route checks what the shape
 shows: a width that leaves no room below ``max_g2(W)`` for the sentinel of
 a frame as wide as it is tall, ``(2 W)^2``, raises (``W > MAX_WIDTH``).
-The callers in ``ops/edt.py`` hold ``(H + W)^2 <= max_g2(W)`` where
-they build ``g2``.
+The plain version keeps the direct form ``g2 + (q - s)^2``, exact while
+that sum stays below 2^24, and has no such limit. ``check_frame`` holds
+a frame's shape to the form its device runs; ``ops/edt.py`` calls it
+before every min-plus.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from leafgrasp_tpu_torch.kernels import LAUNCHES
 from leafgrasp_tpu_torch.kernels.build import check, load_library
 
 __all__ = ["minplus_pass2", "minplus_pass2_plain", "BAND_ROWS",
-           "BAND_COLS", "max_g2", "MAX_WIDTH"]
+           "BAND_COLS", "max_g2", "MAX_WIDTH", "check_frame"]
 
 BAND_ROWS = 8      # row tile of a band entry (MP_ROWS in the kernel)
 BAND_COLS = 128    # column chunk of a band entry (MP_CHUNK in the kernel)
@@ -44,8 +46,25 @@ MAX_WIDTH = 1672   # the widest W with (2 W)^2 + 2 W^2 < 2^24
 
 
 def max_g2(w: int) -> int:
-    """The largest finite ``g2`` value the min-plus takes at width ``w``."""
+    """The largest finite ``g2`` value the kernel takes at width ``w``."""
     return (1 << 24) - 2 * w * w
+
+
+def check_frame(h: int, w: int, device: torch.device) -> None:
+    """Raise where the min-plus over the pass-1 field of an ``h`` x ``w``
+    frame, whose largest value is the sentinel ``(h + w)^2``, would not
+    be exact on ``device``: the kernel needs ``(H + W)^2 + 2 W^2 < 2^24``
+    and ``W <= MAX_WIDTH``, the plain version ``(H + W)^2 + W^2 < 2^24``."""
+    big = (h + w) ** 2
+    if device.type == "cuda":
+        if w > MAX_WIDTH or big > max_g2(w):
+            raise ValueError(
+                f"a {h} x {w} frame on the card: (H + W)^2 + 2 W^2 could "
+                f"pass 2^24 (W at most {MAX_WIDTH}), the min-plus kernel "
+                f"would not be exact")
+    elif big + w * w > 1 << 24:
+        raise ValueError(f"a {h} x {w} frame: (H + W)^2 + W^2 passes 2^24, "
+                         f"the min-plus would not be exact")
 
 # elements of the (R, S, nq) candidate block the plain version builds
 _PLAIN_BLOCK = 1 << 25
@@ -56,9 +75,6 @@ def _check_args(g2, qcol, s_lo, s_hi, band):
         raise ValueError(f"g2 must be 2-D float32, got {g2.dtype} "
                          f"{tuple(g2.shape)}")
     r, w = g2.shape
-    if w > MAX_WIDTH:
-        raise ValueError(f"W={w}: the sums of the min-plus could pass 2^24 "
-                         f"(the widest exact W is {MAX_WIDTH})")
     s_hi = w if s_hi is None else int(s_hi)
     if not 0 <= s_lo < s_hi <= w:
         raise ValueError(f"bad source range [{s_lo}, {s_hi}) for W={w}")
@@ -121,9 +137,9 @@ def minplus_pass2(g2: torch.Tensor, qcol: torch.Tensor | None = None,
                   s_lo: int = 0, s_hi: int | None = None,
                   band: torch.Tensor | None = None) -> torch.Tensor:
     """The min-plus above: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. ``g2`` keeps the module's contract
-    (integers, finite values below ``max_g2(W)``); a ``W`` beyond
-    ``MAX_WIDTH`` raises."""
+    version for a CPU tensor. On the card ``g2`` keeps the module's
+    contract (integers, finite values at most ``max_g2(W)``) and a ``W``
+    beyond ``MAX_WIDTH`` raises."""
     if g2.device.type == "cpu":
         return minplus_pass2_plain(g2, qcol, s_lo, s_hi, band)
     if g2.device.type != "cuda":
@@ -131,6 +147,9 @@ def minplus_pass2(g2: torch.Tensor, qcol: torch.Tensor | None = None,
     s_hi = _check_args(g2, qcol, s_lo, s_hi, band)
     g2 = g2.contiguous()
     r, w = g2.shape
+    if w > MAX_WIDTH:
+        raise ValueError(f"W={w}: the sums of the min-plus kernel could "
+                         f"pass 2^24 (the widest exact W is {MAX_WIDTH})")
     if qcol is None:
         qcol = torch.arange(w, dtype=torch.int32, device=g2.device)
     qcol = qcol.contiguous()

@@ -10,9 +10,11 @@ leafgrasp_tpu/ops/edt.py.
    window, the envelope's sampled columns, per-row refinement windows,
    or the banded sweep.
 
-All values are integer-valued f32 and the frame is small enough that
-``(H + W)^2 + 2 W^2 < 2^24`` (held where ``g2`` is built), so each
-result is exact and bit for bit the JAX package's. The data-dependent choices of the JAX
+All values are integer-valued f32 and the frame is small enough for the
+min-plus to be exact (``_pass2``, through which every min-plus here
+goes, holds the frame's shape to ``check_frame``: on the card
+``(H + W)^2 + 2 W^2 < 2^24``), so each result is bit for bit the JAX
+package's. The data-dependent choices of the JAX
 version (banded vs full sweep, the envelope coverage guard) are Python
 branches on a scalar read back with ``host_read``.
 """
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from leafgrasp_tpu_torch.kernels.minplus import (BAND_COLS, BAND_ROWS,
-                                                 max_g2, minplus_pass2)
+                                                 check_frame, minplus_pass2)
 from leafgrasp_tpu_torch.kernels.rowband import squared_edt_rowband
 from leafgrasp_tpu_torch.utils.device import host_read
 
@@ -73,16 +75,15 @@ def nearest_seed_dist_1d(seeds: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return torch.minimum(d_before, d_after)
 
 
-def _check_sentinel(h: int, w: int) -> None:
-    """The largest pass-1 value, the sentinel ``(H + W)^2``, must stay
-    inside the range in which the min-plus kernel is exact."""
-    if (h + w) ** 2 > max_g2(w):
-        raise ValueError(f"a {h} x {w} frame: (H + W)^2 + 2 W^2 passes "
-                         f"2^24, the min-plus would not be exact")
+def _pass2(g2: torch.Tensor, h: int, **kw) -> torch.Tensor:
+    """The min-plus over rows ``g2`` (R, W) of the pass-1 field of a
+    frame ``h`` rows tall: the one place that holds the frame's shape to
+    the range in which the min-plus is exact on its device."""
+    check_frame(h, g2.shape[-1], g2.device)
+    return minplus_pass2(g2.contiguous(), **kw)
 
 
 def _pass1_g2(seeds: torch.Tensor) -> torch.Tensor:
-    _check_sentinel(*seeds.shape[-2:])
     g = nearest_seed_dist_1d(seeds, axis=-2).to(torch.float32)
     return g * g
 
@@ -103,7 +104,7 @@ def squared_edt_full(seeds: torch.Tensor | None,
     """Exact squared EDT by the full min-plus sweep over all columns."""
     if g2 is None:
         g2 = _pass1_g2(seeds)
-    return minplus_pass2(g2.contiguous())
+    return _pass2(g2, g2.shape[0])
 
 
 def squared_edt(seeds: torch.Tensor | None, g2: torch.Tensor | None = None,
@@ -120,7 +121,6 @@ def squared_edt(seeds: torch.Tensor | None, g2: torch.Tensor | None = None,
             raise ValueError("squared_edt needs seeds or g2")
         g2 = _pass1_g2(seeds)
     h, w = g2.shape
-    _check_sentinel(h, w)
     big = float((h + w) * (h + w))
 
     chunk = BAND_COLS
@@ -142,12 +142,11 @@ def squared_edt(seeds: torch.Tensor | None, g2: torch.Tensor | None = None,
     max_off = torch.clamp((b_max / chunk).to(torch.int32) + 1,
                           max=n_chunks - 1)
     max_off = host_read(max_off)
-    g2 = g2.contiguous()
     if 2 * max_off + 1 < n_chunks:
         band = torch.full((-(-h // BAND_ROWS), n_chunks), max_off,
                           dtype=torch.int32, device=g2.device)
-        return minplus_pass2(g2, band=band)
-    return minplus_pass2(g2)
+        return _pass2(g2, h, band=band)
+    return _pass2(g2, h)
 
 
 def edt(seeds: torch.Tensor) -> torch.Tensor:
@@ -228,7 +227,7 @@ def _refine(g2: torch.Tensor, flat: torch.Tensor, js: torch.Tensor,
     scols = js[flat % ws].to(torch.int64)
     win = torch.arange(-slack, slack + 1, device=g2.device)
     jwin = torch.clamp(scols[:, None] + win[None, :], 0, w - 1)
-    d2r = minplus_pass2(g2[rows].contiguous(), qcol=jwin.to(torch.int32))
+    d2r = _pass2(g2[rows], h, qcol=jwin.to(torch.int32))
     dr = exact_sqrt(d2r)
     mx = dr.max()
     flat_pix = rows[:, None] * w + jwin
@@ -238,7 +237,7 @@ def _refine(g2: torch.Tensor, flat: torch.Tensor, js: torch.Tensor,
 
 
 def _full_max_argmax(g2: torch.Tensor):
-    d = exact_sqrt(minplus_pass2(g2.contiguous()))
+    d = exact_sqrt(_pass2(g2, g2.shape[0]))
     return d.max(), torch.argmax(d).to(torch.int32)
 
 
@@ -255,7 +254,7 @@ def edt_max_argmax(seeds: torch.Tensor, g2: torch.Tensor | None = None,
         g2 = _pass1_g2(seeds)
     js = _sample_cols(w, stride, g2.device)
     slack = stride // 2
-    ds = exact_sqrt(minplus_pass2(g2.contiguous(), qcol=js))
+    ds = exact_sqrt(_pass2(g2, h, qcol=js))
     m_low = ds.max()
     kth_bound, flat, exhaustive = _tile_candidates(ds, k)
     covered = True
@@ -278,9 +277,9 @@ def squared_edt_window(g2: torch.Tensor, r0: int, c0: int, hq: int,
         g2 = g2[None]
     c, h, w = g2.shape
     hq, wq = min(hq, h), min(wq, w)
-    g2r = g2[:, r0:r0 + hq, :].reshape(c * hq, w).contiguous()
+    g2r = g2[:, r0:r0 + hq, :].reshape(c * hq, w)
     qcol = torch.arange(c0, c0 + wq, dtype=torch.int32, device=g2.device)
-    d2 = minplus_pass2(g2r, qcol=qcol).reshape(c, hq, wq)
+    d2 = _pass2(g2r, h, qcol=qcol).reshape(c, hq, wq)
     return d2[0] if squeeze else d2
 
 
@@ -296,9 +295,9 @@ def squared_edt_window_src(g2: torch.Tensor, r0: int, c0: int, hq: int,
     hq, wq = min(hq, h), min(wq, w)
     sw = min(wq + 2 * src_pad, w)
     s0 = min(max(c0 - src_pad, 0), w - sw)
-    g2r = g2[:, r0:r0 + hq, :].reshape(c * hq, w).contiguous()
+    g2r = g2[:, r0:r0 + hq, :].reshape(c * hq, w)
     qcol = torch.arange(c0, c0 + wq, dtype=torch.int32, device=g2.device)
-    d2 = minplus_pass2(g2r, qcol=qcol, s_lo=s0, s_hi=s0 + sw)
+    d2 = _pass2(g2r, h, qcol=qcol, s_lo=s0, s_hi=s0 + sw)
     d2 = d2.reshape(c, hq, wq)
     return d2[0] if squeeze else d2
 
@@ -310,13 +309,12 @@ def edt_max_argmax_batch(g2: torch.Tensor, stride: int = 16, k: int = 1024,
     host read of every channel's coverage guard, one refinement launch
     for the covered channels, a full sweep for the others."""
     c, h, w = g2.shape
-    _check_sentinel(h, w)
     g2 = g2.to(torch.float32).contiguous()
     big = float((h + w) * (h + w))
     js = _sample_cols(w, stride, g2.device)
     ws = js.shape[0]
     slack = stride // 2
-    ds = exact_sqrt(minplus_pass2(g2.reshape(c * h, w), qcol=js)) \
+    ds = exact_sqrt(_pass2(g2.reshape(c * h, w), h, qcol=js)) \
         .reshape(c, h, ws)
 
     cands, guards = [], []
@@ -344,8 +342,8 @@ def edt_max_argmax_batch(g2: torch.Tensor, stride: int = 16, k: int = 1024,
         rows = flat // ws
         scols = js[flat % ws].to(torch.int64)
         jwin = torch.clamp(scols[:, None] + w_all[None, :], 0, w - 1)
-        dr = exact_sqrt(minplus_pass2(rows_all[rows].contiguous(),
-                                      qcol=jwin.to(torch.int32)))
+        dr = exact_sqrt(_pass2(rows_all[rows], h,
+                               qcol=jwin.to(torch.int32)))
         sizes = [cands[ci].shape[0] for ci in ok]
         for ci, dr_c, rows_c, jwin_c in zip(ok, dr.split(sizes),
                                             rows.split(sizes),

@@ -105,10 +105,33 @@ def test_minplus_kernel_at_the_edge_of_its_range_on_card(cuda, shape):
 
 
 def test_minplus_raises_on_card_for_a_width_beyond_its_range(cuda):
+    """The kernel's width limit holds on the card only, and a frame too
+    tall for the expanded form raises in every mode of the frame path
+    before any min-plus is launched."""
+    import dataclasses
+    from leafgrasp_tpu_torch.config import GraspScoringConfig
+    from leafgrasp_tpu_torch.geometry.grasp_scorer import (
+        compute_grasp_scores)
     wide = torch.zeros((1, MAX_WIDTH + 1), device=cuda)
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="2\\^24"):
         minplus_pass2(wide)
+    q0 = torch.zeros(1, dtype=torch.int32)
+    assert minplus_pass2(wide.cpu(), qcol=q0).shape == (1, 1)
+    h, w = 3829, 256                # (H + W)^2 + 2 W^2 just passes 2^24
+    assert (h + w) ** 2 + w * w < 2 ** 24 < (h + w) ** 2 + 2 * w * w
+    leaf = torch.zeros((h, w), dtype=torch.bool, device=cuda)
+    leaf[5:60, 10:200] = True
+    other = torch.zeros_like(leaf)
+    other[100:130, 5:250] = True
+    one = torch.ones((), dtype=torch.float32, device=cuda)
+    for mode in ("union", "union_half", "reference_self"):
+        cfg = dataclasses.replace(GraspScoringConfig(),
+                                  isolation_context=mode)
+        with pytest.raises(ValueError, match="2\\^24"):
+            compute_grasp_scores(leaf, leaf | other,
+                                 torch.ones((h, w), device=cuda), one, one,
+                                 one, cfg)
     assert kernels.launch_counts()["minplus_pass2"] == 0
 
 

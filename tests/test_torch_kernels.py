@@ -182,29 +182,58 @@ def test_minplus_plain_matches_pallas_at_the_edge_of_its_range():
 
 
 def test_minplus_and_edt_raise_where_sums_could_pass_2_24():
-    """From shapes alone, with no value read: the min-plus (plain version
-    and wrapper) at a width whose sentinel leaves no room, and the EDT
-    entry points where (H + W)^2 + 2 W^2 >= 2^24."""
+    """From shapes alone, with no value read. The width limit of the
+    expanded form is the CUDA route's alone: the plain version and the
+    CPU dispatch take a wider row. ``check_frame`` holds a frame to
+    (H + W)^2 + 2 W^2 < 2^24 on the card and to (H + W)^2 + W^2 < 2^24
+    elsewhere, and every EDT entry point and every isolation mode of the
+    frame path reaches it."""
+    import dataclasses
+    from leafgrasp_tpu_torch.config import GraspScoringConfig
+    from leafgrasp_tpu_torch.geometry.grasp_scorer import (
+        compute_grasp_scores)
+    from leafgrasp_tpu_torch.kernels.minplus import check_frame
     from leafgrasp_tpu_torch.ops import edt as tedt
     assert 6 * MAX_WIDTH ** 2 < 2 ** 24 <= 6 * (MAX_WIDTH + 1) ** 2
-    ok = torch.zeros((1, MAX_WIDTH))
-    assert minplus_pass2(ok, qcol=torch.zeros(1, dtype=torch.int32)) \
-        .shape == (1, 1)
     wide = torch.zeros((1, MAX_WIDTH + 1))
+    q0 = torch.zeros(1, dtype=torch.int32)
     for fn in (minplus_pass2, minplus_pass2_plain):
+        assert fn(wide, qcol=q0).shape == (1, 1)
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    check_frame(1080, 1440, card)              # the production frame fits
+    check_frame(1080, 1920, cpu)
+    check_frame(2100, 1600, cpu)               # exact in the direct form only
+    assert (1080 + 1440) ** 2 < max_g2(1440)
+    assert (2100 + 1600) ** 2 > max_g2(1600)
+    for shape in ((2100, 1600), (3000, 1600), (1080, MAX_WIDTH + 1)):
         with pytest.raises(ValueError, match="2\\^24"):
-            fn(wide)
-    tall = torch.zeros((3000, 1600), dtype=torch.bool)     # 4600^2 > room
-    assert (3000 + 1600) ** 2 > max_g2(1600) > (1080 + 1440) ** 2
-    for call in (lambda: tedt.squared_edt(tall),
-                 lambda: tedt.squared_edt_full(tall),
-                 lambda: tedt.edt_max_argmax(tall),
-                 lambda: tedt.squared_edt(None, g2=torch.zeros((3000, 1600))),
-                 lambda: tedt.edt_max_argmax_batch(
-                     torch.zeros((1, 3000, 1600)))):
+            check_frame(*shape, card)
+    h, w = 4090, 8                             # (H + W)^2 alone passes 2^24
+    with pytest.raises(ValueError, match="2\\^24"):
+        check_frame(h, w, cpu)
+    tall = torch.zeros((h, w), dtype=torch.bool)
+    tall[5:60, 2:6] = True
+    g2 = torch.zeros((h, w))
+    calls = [lambda: tedt.squared_edt(tall),
+             lambda: tedt.squared_edt_full(tall),
+             lambda: tedt.edt_max_argmax(tall),
+             lambda: tedt.edt_max_argmax(tall, g2=g2),
+             lambda: tedt.squared_edt(None, g2=g2),
+             lambda: tedt.squared_edt_window(g2, 0, 0, 16, 4),
+             lambda: tedt.squared_edt_window_src(g2[None], 0, 0, 16, 4, 2),
+             lambda: tedt.edt_max_argmax_batch(g2[None])]
+    other = torch.zeros_like(tall)
+    other[100:130, 1:7] = True
+    zero = torch.zeros((), dtype=torch.float32)
+    for mode in ("union", "union_half", "reference_self"):
+        cfg = dataclasses.replace(GraspScoringConfig(),
+                                  isolation_context=mode)
+        calls.append(lambda cfg=cfg: compute_grasp_scores(
+            tall, tall | other, torch.ones((h, w)), zero, zero, zero + 1.0,
+            cfg))
+    for call in calls:
         with pytest.raises(ValueError, match="2\\^24"):
             call()
-    tedt._check_sentinel(1080, 1440)           # the production frame fits
 
 
 # ---- fused scoring -----------------------------------------------------------
