@@ -11,11 +11,16 @@ Phases, each a hard failure (non-zero exit):
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: fused scoring at 1080 x 1440 (max abs diff
    <= 1e-5, valid mask equal), the attention gate at (20, 16, 256) in all
-   four modes (<= 1e-5), the min-plus in its full, window, sampled,
-   refinement and banded forms, with a source sub-range, and at the edge
-   of its exact range (sentinel and largest admitted rows, sources at
-   both ends of the row), all bit-exact, the row-banded EDT at
-   (1, 540, 720) and (3, 1080, 1440) (bit-exact, radii included), and the
+   four modes and at the other architectures' shapes and the kernel's
+   limits, from a contiguous input, from the NCHW view the CNN passes and
+   from other strides (<= 1e-5), the min-plus in its full, window,
+   sampled, refinement and banded forms, with a source sub-range, and at
+   the edge of its exact range (sentinel and largest admitted rows,
+   sources at both ends of the row), then in its direct form on a
+   2100 x 1600 frame and at the edge of that form's range, and in its
+   expanded form on a 1080 x 1920 frame, all bit-exact, the row-banded
+   EDT at (1, 540, 720), (1, 540, 960) and (3, 1080, 1440) (bit-exact,
+   radii included), and the
    segment histogram at 1080 x 1440 with 18 segments (counts equal; the
    histogram median within range / 256^2 of the sorted median), and the
    flash-attention prefill in f32 (<= 2e-5 on real rows) and bf16
@@ -33,7 +38,9 @@ Phases, each a hard failure (non-zero exit):
    after; then hold the first frame of each family and variant against
    the port's own CPU path built the same way (same leaf id and grasp
    pixel), and the ``hist_median`` frames against the default's (same
-   leaf, same tall leaves, same pixel);
+   leaf, same tall leaves, same pixel); then one 1080 x 1920 frame in
+   each isolation mode on the card against the CPU path (same leaf,
+   pixel and flag);
 4. profile one frame per mode (``torch.profiler``): device busy time and
    the kernels that take it;
 5. drive a ``GraspService`` (``union_half``, standard CNN) on the card
@@ -81,6 +88,10 @@ import time
 import numpy as np
 
 H, W = 1080, 1440
+# frames the card takes since the min-plus has a direct form: 1080p
+# landscape (expanded form) and a frame exact only in the direct form
+WIDE_H, WIDE_W = 1080, 1920
+TALL_H, TALL_W = 2100, 1600
 CX, CY, F = np.float32(707.87), np.float32(494.07), np.float32(1750.68)
 # (name, num_leaves, seed, margin): the bench families (bench.py:37-41)
 FAMILIES = [("sparse", 6, 8, 120), ("crowded", 12, 3, 60),
@@ -133,7 +144,7 @@ PEAK_BF16_OPS_PER_S = 989e12
 VLA_ONLY_KERNELS = ("flash_prefill",)    # not on the frame path
 KERNEL_FUNCTIONS = ("minplus_pass2_kernel", "fused_score_maps_kernel",
                     "fused_attention_gate_kernel", "rowband_kernel",
-                    "rowband_pool_kernel", "rowband_radius_kernel",
+                    "rowband_radius_kernel",
                     "segment_histogram_kernel", "flash_prefill_kernel",
                     "flash_prefill_f32_kernel")
 # The bf16 flash prefill before its redesign (mma.sync m16n8k16, cp.async,
@@ -247,12 +258,41 @@ def minplus_sources(r: int, w: int, nq: int, band=None) -> int:
     return total
 
 
+def pass1_g2(torch, dev, h, w):
+    """The pass-1 field of the first leaf's complement on an h x w scene
+    of the sparse family, as the frame path's full EDT makes it."""
+    from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
+    from leafgrasp_tpu_torch.ops.edt import nearest_seed_dist_1d
+    _, n, seed, margin = FAMILIES[0]
+    mask, _ = make_leaf_scene(h, w, num_leaves=n, seed=seed, margin=margin)
+    leaf = torch.as_tensor(mask, device=dev) == 1
+    g = nearest_seed_dist_1d(~leaf, axis=0).to(torch.float32)
+    return (g * g).contiguous()
+
+
+def edge_rows(torch, dev, w, big, top):
+    """Rows of the sentinel ``big`` alone, with a source at the first, the
+    last or both columns, and rows of the largest admitted value ``top``;
+    every column is a query."""
+    edge = torch.full((80, w), float(big), device=dev)
+    edge[16:32, 0] = 0.0
+    edge[32:48, w - 1] = 0.0
+    edge[48:64] = float(top)
+    edge[64:80, 0] = 0.0
+    edge[64:80, w - 1] = 1.0
+    return edge
+
+
 def check_minplus(torch, dev, leaf, other):
     """The min-plus in each form the main path calls, with a source
     sub-range as ``squared_edt_window_src`` calls it, and at the edge of
-    the range in which its sums are exact; all bit-exact."""
+    the range in which its sums are exact; then the frames the direct
+    form brought back: a 2100 x 1600 frame's full sweep and the edge of
+    the direct form's range, and a 1080 x 1920 frame's full sweep in the
+    expanded form; all bit-exact."""
     from leafgrasp_tpu_torch.kernels.minplus import (
-        BAND_COLS, BAND_ROWS, max_g2, minplus_pass2, minplus_pass2_plain)
+        BAND_COLS, BAND_ROWS, max_g2, minplus_form, minplus_pass2,
+        minplus_pass2_plain)
     from leafgrasp_tpu_torch.ops.edt import (_tile_candidates, exact_sqrt,
                                             nearest_seed_dist_1d)
     from leafgrasp_tpu_torch.ops.morphology import dilate, elliptical_kernel
@@ -273,53 +313,62 @@ def check_minplus(torch, dev, leaf, other):
     win_g2 = g2[:, 200:200 + hq, :].reshape(c3 * hq, W).contiguous()
     band = torch.full((-(-H // BAND_ROWS), -(-W // BAND_COLS)), 2,
                       dtype=torch.int32, device=dev)
-    # the edge: rows of the sentinel (H + W)^2 alone, with a source at the
-    # first, the last or both columns, and rows of the largest value the
-    # contract admits; every column is a query
-    edge = torch.full((80, W), float((H + W) ** 2), device=dev)
-    edge[16:32, 0] = 0.0
-    edge[32:48, W - 1] = 0.0
-    edge[48:64] = float(max_g2(W))
-    edge[64:80, 0] = 0.0
-    edge[64:80, W - 1] = 1.0
+    tall_big = (TALL_H + TALL_W) ** 2
+    wide_big = (WIDE_H + WIDE_W) ** 2
+    # name -> (g2, keywords, the bound the caller states)
     forms = {
-        "full": (g2[1], {}),
+        "full": (g2[1], {}, None),
         "window": (win_g2, {"qcol": torch.arange(
-            400, 400 + wq, dtype=torch.int32, device=dev)}),
-        "sampled": (g2.reshape(c3 * H, W), {"qcol": js}),
-        "refine": (refine_g2, {"qcol": jwin.to(torch.int32).contiguous()}),
-        "banded": (g2[0].contiguous(), {"band": band}),
+            400, 400 + wq, dtype=torch.int32, device=dev)}, None),
+        "sampled": (g2.reshape(c3 * H, W), {"qcol": js}, None),
+        "refine": (refine_g2, {"qcol": jwin.to(torch.int32).contiguous()},
+                   None),
+        "banded": (g2[0].contiguous(), {"band": band}, None),
         "subrange": (win_g2, {"qcol": torch.arange(
             401, 401 + wq, dtype=torch.int32, device=dev),
-            "s_lo": 273, "s_hi": 849}),
-        "edge": (edge, {}),
+            "s_lo": 273, "s_hi": 849}, None),
+        "edge": (edge_rows(torch, dev, W, (H + W) ** 2, max_g2(W)), {},
+                 None),
+        "direct_2100x1600": (pass1_g2(torch, dev, TALL_H, TALL_W), {},
+                             tall_big),
+        "direct_edge": (edge_rows(torch, dev, TALL_W, tall_big,
+                                  2 ** 24 - TALL_W ** 2), {},
+                        2 ** 24 - TALL_W ** 2),
+        "expanded_1080x1920": (pass1_g2(torch, dev, WIDE_H, WIDE_W), {},
+                               wide_big),
     }
     out, floors = {}, {}
     lanes_per_s = issue_rate(torch)
-    for name, (x, kw) in forms.items():
-        got = minplus_pass2(x, **kw)
+    for name, (x, kw, g2_max) in forms.items():
+        r, w = x.shape
+        form = minplus_form(w, g2_max)
+        if name.startswith(("direct", "expanded")) \
+                and form != name.split("_")[0]:
+            raise RuntimeError(f"minplus {name}: the {form} form was chosen")
+        got = minplus_pass2(x, g2_max=g2_max, **kw)
         want = minplus_pass2_plain(x, **kw)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         if not torch.equal(got, want):
             raise RuntimeError(f"minplus {name}: kernel != plain, max abs "
                                f"diff {err}")
-        r, w = x.shape
         nq = w if "qcol" not in kw else kw["qcol"].shape[-1]
         n_src = kw.get("s_hi", w) - kw.get("s_lo", 0)
         triples = minplus_sources(r, n_src, nq, kw.get("band"))
         b_ms, b_by = bound(4.0 * (r * n_src + r * nq), 2.0 * triples)
         out[name] = {
-            "shape": [r, w, nq], "max_abs_err": err,
-            "ms": kernel_ms(lambda: minplus_pass2(x, **kw),
+            "shape": [r, w, nq], "form": form, "max_abs_err": err,
+            "ms": kernel_ms(lambda: minplus_pass2(x, g2_max=g2_max, **kw),
                             "minplus_pass2_kernel"),
-            "wrapper_ms": cuda_ms(lambda: minplus_pass2(x, **kw)),
+            "wrapper_ms": cuda_ms(lambda: minplus_pass2(x, g2_max=g2_max,
+                                                        **kw)),
             "plain_ms": cuda_ms(lambda: minplus_pass2_plain(x, **kw),
                                 iters=3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by}
         log(f"minplus {name} {json.dumps(out[name])}")
         # computed, not measured, so not part of the kernels line: a
-        # multiply-add and a min a triple at the card's issue rate
+        # multiply-add and a min a triple at the card's issue rate (the
+        # direct form adds a subtract for eight triples)
         floors[name] = 2.0 * triples / lanes_per_s * 1e3
     log(f"minplus issue-rate floor ms (computed from the highest SM clock) "
         f"{json.dumps(floors)}")
@@ -380,28 +429,49 @@ def check_scoring(torch, dev, leaf, other, depth):
     return rec
 
 
+# (N, HW, C, R) of the gate: the four architectures at the path's 20
+# patches (lightweight, standard, deep, wide; R = C / 16), the kernel's
+# limits, and a C that is no multiple of 32 with an odd HW
+GATE_SHAPES = {"lightweight": (20, 16, 128, 8), "standard": (20, 16, 256, 16),
+               "deep": (20, 4, 256, 16), "wide": (20, 16, 512, 32),
+               "limits": (3, 64, 1024, 64), "odd": (5, 9, 48, 3)}
+
+
 def check_attention(torch, dev):
-    """The CNN's gate at its main-path shape, all four modes."""
+    """The CNN's gate in all four modes at each architecture's shape and
+    at the kernel's limits, from the NCHW view the CNN passes (read
+    through its strides), from a contiguous input and from other strides;
+    timed at the main path's shape in the path's layout and contiguous."""
     from leafgrasp_tpu_torch.kernels.attention import (
         MODES as GATE_MODES, attention_gate_plain, fused_attention_gate)
     rng = np.random.default_rng(0)
-    n, hw, c, r = 20, 16, 256, 16
 
     def t(*shape, scale=1.0):
         return torch.as_tensor((rng.standard_normal(shape) * scale)
                                .astype(np.float32), device=dev)
 
-    x = torch.relu(t(n, hw, c))
-    params = (t(c, 1, scale=c ** -0.5), t(1), t(c, r, scale=c ** -0.5),
-              t(r), t(r, c, scale=r ** -0.5), t(c))
-    errs, times = {}, {}
+    errs, times, inputs = {}, {}, {}
+    for arch, (n, hw, c, r) in GATE_SHAPES.items():
+        base = torch.relu(t(n, c, hw))
+        params = (t(c, 1, scale=c ** -0.5), t(1), t(c, r, scale=c ** -0.5),
+                  t(r), t(r, c, scale=r ** -0.5), t(c))
+        layouts = {"nchw_view": base.transpose(1, 2),
+                   "contiguous": base.transpose(1, 2).contiguous(),
+                   "strided": torch.relu(t(n, hw, 2 * c))[:, :, ::2]}
+        for layout, x in layouts.items():
+            for mode in GATE_MODES:
+                got = fused_attention_gate(x, *params, mode)
+                want = attention_gate_plain(x, *params, mode)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                errs[f"{arch}/{layout}/{mode}"] = err
+                if err > GATE_TOL:
+                    raise RuntimeError(f"attention {arch} {layout} {mode}: "
+                                       f"max abs err {err}")
+        inputs[arch] = (layouts, params)
+    layouts, params = inputs["standard"]
+    x = layouts["nchw_view"]
     for mode in GATE_MODES:
-        got = fused_attention_gate(x, *params, mode)
-        want = attention_gate_plain(x, *params, mode)
-        torch.cuda.synchronize()
-        errs[mode] = (got - want).abs().max().item()
-        if errs[mode] > GATE_TOL:
-            raise RuntimeError(f"attention {mode}: max abs err {errs[mode]}")
         times[mode] = {
             "ms": None if mode == "none" else kernel_ms(
                 lambda: fused_attention_gate(x, *params, mode),
@@ -410,6 +480,13 @@ def check_attention(torch, dev):
                 lambda: fused_attention_gate(x, *params, mode)),
             "plain_ms": cuda_ms(
                 lambda: attention_gate_plain(x, *params, mode))}
+    spatial_ms = {}
+    for arch, (lays, prm) in inputs.items():
+        for layout in ("nchw_view", "contiguous"):
+            spatial_ms[f"{arch}/{layout}"] = kernel_ms(
+                lambda: fused_attention_gate(lays[layout], *prm, "spatial"),
+                "fused_attention_gate_kernel")
+    n, hw, c, _ = GATE_SHAPES["standard"]
     # spatial, the standard model's mode: x read once and written once,
     # a C-long dot, a sigmoid and a multiply per element
     b_ms, b_by = bound(2 * 4 * n * hw * c + 4 * (c + 1), 3.0 * n * hw * c)
@@ -421,7 +498,7 @@ def check_attention(torch, dev):
            "wrapper_ms": times["spatial"]["wrapper_ms"],
            "plain_ms": times["spatial"]["plain_ms"],
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-           "modes_ms": times}
+           "modes_ms": times, "spatial_ms": spatial_ms}
     log(f"fused_attention_gate {json.dumps(rec)}")
     return rec
 
@@ -442,16 +519,26 @@ def rowband_pairs(nb, h: int, w: int) -> int:
 
 def check_rowband(torch, dev, leaf, other):
     """The row-banded EDT at the path's shape (the pooled, dilated
-    interference at half resolution) and on three full frames,
-    bit-exact against the full sweep, radii included."""
+    interference at half resolution), at the half resolution of a
+    1080 x 1920 frame, and on three full frames, bit-exact against the
+    full sweep, radii included."""
+    from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
     from leafgrasp_tpu_torch.kernels.rowband import (
         rowband_radii_plain, squared_edt_rowband, squared_edt_rowband_plain)
     from leafgrasp_tpu_torch.ops.edt import nearest_seed_dist_1d
     from leafgrasp_tpu_torch.ops.morphology import dilate, elliptical_kernel
 
-    inter = dilate(other, elliptical_kernel(40))
-    pooled = inter.reshape(H // 2, 2, W // 2, 2).any(dim=3).any(dim=1)
-    forms = {"half": pooled[None],
+    def half_interference(other):
+        inter = dilate(other, elliptical_kernel(40))
+        h, w = inter.shape
+        return inter.reshape(h // 2, 2, w // 2, 2).any(dim=3).any(dim=1)[None]
+
+    _, n, seed, margin = FAMILIES[0]
+    wide, _ = make_leaf_scene(WIDE_H, WIDE_W, num_leaves=n, seed=seed,
+                              margin=margin)
+    wide = torch.as_tensor(wide, device=dev)
+    forms = {"half": half_interference(other),
+             "half_1080x1920": half_interference((wide > 0) & (wide != 1)),
              "full3": torch.stack([~leaf, leaf, other])}
     out = {}
     for name, seeds in forms.items():
@@ -474,19 +561,25 @@ def check_rowband(torch, dev, leaf, other):
         def run():
             return squared_edt_rowband(g2r)
 
+        sweep = kernel_ms(run, "rowband_kernel")
+        radius = kernel_ms(run, "rowband_radius_kernel")
         out[name] = {
             "shape": [c, h, w], "max_abs_err": err,
             "pairs_in_band": pairs, "pairs_full_sweep": c * h * h * w,
-            "ms": kernel_ms(run, "rowband_kernel")
-            + kernel_ms(run, "rowband_pool_kernel")
-            + kernel_ms(run, "rowband_radius_kernel"),
-            "sweep_ms": kernel_ms(run, "rowband_kernel"),
+            "ms": sweep + radius, "sweep_ms": sweep, "radius_ms": radius,
             "wrapper_ms": cuda_ms(run),
             "plain_ms": cuda_ms(lambda: squared_edt_rowband_plain(g2r),
                                 iters=3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
             "full_sweep_bound_ms": full_ms}
         log(f"rowband {name} {json.dumps(out[name])}")
+    # computed, not measured: a multiply-add and a min a pair at the card's
+    # issue rate
+    lanes_per_s = issue_rate(torch)
+    floors = {k: 2.0 * v["pairs_in_band"] / lanes_per_s * 1e3
+              for k, v in out.items()}
+    log(f"rowband issue-rate floor ms (computed from the highest SM clock) "
+        f"{json.dumps(floors)}")
     half = out["half"]
     return {"name": "squared_edt_rowband", "route": "cuda",
             "source": "leafgrasp_tpu_torch/kernels/csrc/rowband.cu",
@@ -781,6 +874,42 @@ def cross_check(results, cfgs, model_cpu, scenes):
             f"{want[0]}")
         if got != want:
             raise RuntimeError(f"{name}: hist_median {got} != default {want}")
+
+
+def run_wide_frames(torch, cfgs, model, model_cpu):
+    """Phase 3c: a 1080 x 1920 frame (the sparse family's scene at that
+    width) in each isolation mode on the card, against the CPU path built
+    the same way: same leaf, pixel and flag."""
+    from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    _, n, seed, margin = FAMILIES[0]
+    scene = make_leaf_scene(WIDE_H, WIDE_W, num_leaves=n, seed=seed,
+                            margin=margin)
+    cx = np.float32(CX * WIDE_W / W)
+    reset_launch_counts()
+    for mode in MODES:
+        t0 = time.perf_counter()
+        res = make_frame_fn(cfgs[mode], with_cnn=True)(*scene, cx, CY, F,
+                                                       model)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = make_frame_fn(cfgs[mode], with_cnn=True, device="cpu")(
+            *scene, cx, CY, F, model_cpu)
+        got = (int(res.leaf_id), res.grasp_uv.cpu().numpy().tolist(),
+               bool(res.degenerate))
+        want = (int(ref.leaf_id), ref.grasp_uv.numpy().tolist(),
+                bool(ref.degenerate))
+        log(f"frame {WIDE_H}x{WIDE_W} {mode}: card (leaf, uv, degenerate) "
+            f"{got} cpu {want}, card {ms:.1f} ms (first call)")
+        if got != want or not bool(res.found):
+            raise RuntimeError(f"{WIDE_H}x{WIDE_W} {mode}: card {got} != "
+                               f"cpu {want}")
+    counts = launch_counts()
+    log(f"phase 3c: {WIDE_H}x{WIDE_W} launches {json.dumps(counts)}")
+    if counts["minplus_pass2"] == 0 or counts["squared_edt_rowband"] == 0:
+        raise RuntimeError(f"{WIDE_H}x{WIDE_W}: the EDT kernels never ran")
 
 
 def profile_frames(torch, fns, model, scenes):
@@ -1386,6 +1515,8 @@ def main() -> int:
         raise RuntimeError(f"the main path launched no {missing}")
     cross_check(results, cfgs, model_cpu, scenes)
     log("phase 3: card frames match the CPU path")
+    run_wide_frames(torch, cfgs, model, model_cpu)
+    log(f"phase 3c: {WIDE_H}x{WIDE_W} frames match the CPU path")
 
     profile_frames(torch, fns, model, scenes)
     log("phase 4: profiled")

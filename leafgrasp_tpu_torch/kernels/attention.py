@@ -11,7 +11,10 @@ For x of shape (N, HW, C) (NHWC with the spatial axes flattened):
 Replaces the TPU kernel ``fused_attention_gate``
 (leafgrasp_tpu/models/attention_pallas.py:63); the plain version is its
 oracle ``attention_gate_reference`` (:26-39). The kernel source, with
-its bound and design, is ``csrc/attention.cu``.
+its bound and design, is ``csrc/attention.cu``. The kernel reads x
+through its strides where it is contiguous or the NCHW activations of
+the CNN seen as (N, HW, C) (``x.transpose(1, 2)`` contiguous), and
+writes its output in the same layout; any other layout is copied first.
 """
 
 from __future__ import annotations
@@ -77,13 +80,19 @@ def fused_attention_gate(x, ws, bs, w1, b1, w2, b2,
     if hw > _MAX_HW or c > _MAX_C or r > _MAX_R:
         raise ValueError(f"(HW, C, R) = {(hw, c, r)} beyond the kernel's "
                          f"limits {(_MAX_HW, _MAX_C, _MAX_R)}")
-    x = x.contiguous()
+    cmajor = not x.is_contiguous() and x.transpose(1, 2).is_contiguous()
+    if cmajor:
+        out = torch.empty((n, c, hw), dtype=x.dtype,
+                          device=x.device).transpose(1, 2)
+    else:
+        x = x.contiguous()
+        out = torch.empty_like(x)
+    vec = (hw * c) % 4 == 0 and x.data_ptr() % 16 == 0
     params = [t.contiguous() for t in (ws, bs, w1, b1, w2, b2)]
-    out = torch.empty_like(x)
     lib = load_library()
     err = lib.fused_attention_gate(
         x.data_ptr(), *[t.data_ptr() for t in params], n, hw, c, r,
-        int(spatial), int(channel), out.data_ptr(),
+        int(spatial), int(channel), int(cmajor), int(vec), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "fused_attention_gate")
     LAUNCHES["fused_attention_gate"] += 1

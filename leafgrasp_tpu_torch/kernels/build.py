@@ -51,14 +51,16 @@ _F = ctypes.c_float
 # C signatures of the exported launchers (each returns a cudaError_t).
 _SIGNATURES = {
     # g2, R, W, qcol, nq, qcol_per_row, s_lo, s_hi, band, n_band_cols,
-    # out, stream
-    "minplus_pass2": [_VP, _I, _I, _VP, _I, _I, _I, _I, _VP, _I, _VP, _VP],
+    # direct, out, stream
+    "minplus_pass2": [_VP, _I, _I, _VP, _I, _I, _I, _I, _VP, _I, _I, _VP,
+                      _VP],
     # din, dout, dclose, dwide, grad, m, stem, scal, weights, H, W,
     # 8 f32 outputs, valid (uint8), stream
     "fused_score_maps": [_VP] * 9 + [_I, _I] + [_VP] * 9 + [_VP],
-    # x, ws, bs, w1, b1, w2, b2, N, HW, C, R, spatial, channel, out, stream
-    "fused_attention_gate": [_VP] * 7 + [_I] * 6 + [_VP, _VP],
-    # g2r, C, H, W, g2c scratch, nb, out, stream
+    # x, ws, bs, w1, b1, w2, b2, N, HW, C, R, spatial, channel, cmajor,
+    # vec, out, stream
+    "fused_attention_gate": [_VP] * 7 + [_I] * 8 + [_VP, _VP],
+    # g2r, C, H, W, nb4 scratch, nb, out, stream
     "squared_edt_rowband": [_VP, _I, _I, _I, _VP, _VP, _VP, _VP],
     # depth, ids, lo, inv_w, n, num, blocks, out, stream
     "segment_histogram": [_VP] * 4 + [_I] * 3 + [_VP, _VP],

@@ -42,14 +42,24 @@
 // sources to the chunks that can win (the banded form); a tile never
 // straddles a chunk.
 //
-// Exactness. Every value is an integer. The callers keep
-// g2 <= 2^24 - 2 W^2 where it is finite (the wrapper states it), so
+// Exactness. Every value is an integer. In the expanded form the callers
+// keep g2 <= 2^24 - 2 W^2 where it is finite (the wrapper states it), so
 // h < 2^24, -2 q s >= -2 W^2, and h - 2 q s = g2 + (q - s)^2 - q^2 lies in
 // (-2^24, 2^24): the fused multiply-add rounds once and that once is
 // exact, as is the final + q^2. INFINITY (a source out of range) stays
 // infinite through the multiply-add. The result is bit for bit that of
 // any other evaluation order. The file is built with -fmad=false; the
 // multiply-add is the explicit intrinsic.
+//
+// The direct form (DIRECT = true) serves the frames whose sentinel leaves
+// no room for the expansion, g2 + W^2 <= 2^24 but g2 > 2^24 - 2 W^2
+// (2100 x 1600, say). It stages g2 as it is and adds no q^2 at the store;
+// a triple costs d = q - s (once for the tile's eight rows where the query
+// columns are shared), fmaf(d, d, g2) and a min: every value is an integer
+// of at most 2^24, so the one rounding of the multiply-add is exact, and
+// it is the plain version's g2 + d * d bit for bit. The wrapper picks the
+// form from the bound its caller states and W alone (kernels/minplus.py
+// minplus_form).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,7 +70,7 @@
 #define MP_SC 128        // sources a warp stages at a time
 #define MP_LD (MP_SC / 32)
 
-template <int QPT, bool PER_ROW>
+template <int QPT, bool PER_ROW, bool DIRECT>
 __global__ void __launch_bounds__(MP_WARPS * 32)
 minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
                      const int* __restrict__ qcol, int nq, int s_lo,
@@ -73,7 +83,8 @@ minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
   const int rt = blockIdx.y;
   const int r0 = rt * MP_ROWS;
 
-  // -2 q for this thread's query columns (per row in the refinement form)
+  // -2 q (expanded) or q (direct) for this thread's query columns, per row
+  // in the refinement form
   float m2q[QM][QPT];
 #pragma unroll
   for (int m = 0; m < QM; ++m) {
@@ -84,7 +95,7 @@ minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
       int qc = 0;
       if (q < nq && rr < R)
         qc = PER_ROW ? qcol[(size_t)rr * nq + q] : qcol[q];
-      m2q[m][j] = -2.0f * (float)qc;
+      m2q[m][j] = DIRECT ? (float)qc : -2.0f * (float)qc;
     }
   }
   float acc[MP_ROWS][QPT];
@@ -124,7 +135,7 @@ minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
 #pragma unroll
     for (int i = 0; i < MP_LD; ++i) {
       const float sf = (float)(s0 + i * 32 + lane);
-      const float s2 = sf * sf;
+      const float s2 = DIRECT ? 0.0f : sf * sf;
 #pragma unroll
       for (int r = 0; r < MP_ROWS; ++r)
         sh[warp][r][i * 32 + lane] = pre[r][i] + s2;     // inf stays inf
@@ -140,14 +151,24 @@ minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
         hv[r] = *reinterpret_cast<const float4*>(&sh[warp][r][s]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        float d[QM][QPT];                       // q - s, direct form only
+        if (DIRECT) {
+#pragma unroll
+          for (int m = 0; m < QM; ++m)
+#pragma unroll
+            for (int j = 0; j < QPT; ++j) d[m][j] = m2q[m][j] - sf;
+        }
 #pragma unroll
         for (int r = 0; r < MP_ROWS; ++r) {
           const float h = e == 0 ? hv[r].x : e == 1 ? hv[r].y
                         : e == 2 ? hv[r].z : hv[r].w;
 #pragma unroll
-          for (int j = 0; j < QPT; ++j)
+          for (int j = 0; j < QPT; ++j) {
+            const int m = PER_ROW ? r : 0;
             acc[r][j] = fminf(acc[r][j],
-                              __fmaf_rn(m2q[PER_ROW ? r : 0][j], sf, h));
+                              DIRECT ? __fmaf_rn(d[m][j], d[m][j], h)
+                                     : __fmaf_rn(m2q[m][j], sf, h));
+          }
         }
         sf += 1.0f;
       }
@@ -178,35 +199,49 @@ minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
         v = fminf(v, (&sh[w][0][0])[(r * QPT + j) * 32 + lane]);
       const float m = m2q[PER_ROW ? r : 0][j];
       if (q < nq && rr < R)
-        out[(size_t)rr * nq + q] = v + 0.25f * (m * m);        // + q^2
+        out[(size_t)rr * nq + q] = DIRECT ? v : v + 0.25f * (m * m);  // + q^2
     }
   }
 }
 
-template <int QPT, bool PER_ROW>
+template <int QPT, bool PER_ROW, bool DIRECT>
 static int launch(const float* g2, int R, int W, const int* qcol, int nq,
                   int s_lo, int s_hi, const int* band, int n_band_cols,
                   float* out, cudaStream_t stream) {
   dim3 grid((nq + 32 * QPT - 1) / (32 * QPT), (R + MP_ROWS - 1) / MP_ROWS);
-  minplus_pass2_kernel<QPT, PER_ROW><<<grid, MP_WARPS * 32, 0, stream>>>(
-      g2, R, W, qcol, nq, s_lo, s_hi, band, n_band_cols, out);
+  minplus_pass2_kernel<QPT, PER_ROW, DIRECT>
+      <<<grid, MP_WARPS * 32, 0, stream>>>(g2, R, W, qcol, nq, s_lo, s_hi,
+                                          band, n_band_cols, out);
   return (int)cudaGetLastError();
 }
 
+template <bool DIRECT>
+static int launch_form(const float* g2, int R, int W, const int* qcol,
+                       int nq, int per_row, int s_lo, int s_hi,
+                       const int* band, int n_band_cols, float* out,
+                       cudaStream_t stream) {
+  if (per_row)
+    return launch<1, true, DIRECT>(g2, R, W, qcol, nq, s_lo, s_hi, band,
+                                   n_band_cols, out, stream);
+  if (nq >= MP_CHUNK)
+    return launch<4, false, DIRECT>(g2, R, W, qcol, nq, s_lo, s_hi, band,
+                                    n_band_cols, out, stream);
+  return launch<1, false, DIRECT>(g2, R, W, qcol, nq, s_lo, s_hi, band,
+                                  n_band_cols, out, stream);
+}
+
 // g2 (R, W) f32; qcol int32 (nq,) or, with per_row, (R, nq); band int32
-// (ceil(R / 8), n_band_cols) or null; out (R, nq) f32. The tile's width
-// follows nq: 128 query columns where there are that many, else 32.
+// (ceil(R / 8), n_band_cols) or null; out (R, nq) f32; direct selects the
+// direct form. The tile's width follows nq: 128 query columns where there
+// are that many, else 32.
 extern "C" int minplus_pass2(const float* g2, int R, int W, const int* qcol,
                              int nq, int per_row, int s_lo, int s_hi,
-                             const int* band, int n_band_cols, float* out,
-                             cudaStream_t stream) {
+                             const int* band, int n_band_cols, int direct,
+                             float* out, cudaStream_t stream) {
   if (R <= 0 || nq <= 0) return 0;
-  if (per_row)
-    return launch<1, true>(g2, R, W, qcol, nq, s_lo, s_hi, band,
-                           n_band_cols, out, stream);
-  if (nq >= MP_CHUNK)
-    return launch<4, false>(g2, R, W, qcol, nq, s_lo, s_hi, band,
+  if (direct)
+    return launch_form<true>(g2, R, W, qcol, nq, per_row, s_lo, s_hi, band,
+                             n_band_cols, out, stream);
+  return launch_form<false>(g2, R, W, qcol, nq, per_row, s_lo, s_hi, band,
                             n_band_cols, out, stream);
-  return launch<1, false>(g2, R, W, qcol, nq, s_lo, s_hi, band, n_band_cols,
-                          out, stream);
 }

@@ -15,19 +15,28 @@ Replaces the TPU kernels ``squared_edt_pass2`` and
 and every XLA min-plus of leafgrasp_tpu/ops/edt.py; the kernel source,
 with its bound and design, is ``csrc/minplus.cu``.
 
-The contract on values, on the card: ``g2`` is integer-valued and,
-where finite, at most ``2^24 - 2 W^2`` (``max_g2(W)``); ``+inf`` marks a
-column that is no source. The kernel expands the square into
-``(g2 + s^2) - 2 q s + q^2`` with one fused multiply-add a source;
-under the contract every intermediate is an integer below 2^24 in
-magnitude, so kernel and plain version agree bit for bit. Values cannot
-be seen without a host read, so the CUDA route checks what the shape
-shows: a width that leaves no room below ``max_g2(W)`` for the sentinel of
-a frame as wide as it is tall, ``(2 W)^2``, raises (``W > MAX_WIDTH``).
-The plain version keeps the direct form ``g2 + (q - s)^2``, exact while
-that sum stays below 2^24, and has no such limit. ``check_frame`` holds
-a frame's shape to the form its device runs; ``ops/edt.py`` calls it
-before every min-plus.
+The contract on values, on the card: ``g2`` is integer-valued and
+``+inf`` marks a column that is no source. The kernel runs in one of two
+forms, which ``minplus_form`` picks from ``W`` and the largest finite
+value the caller states (``g2_max``), with no host read:
+
+* expanded, where ``g2_max <= 2^24 - 2 W^2`` (``max_g2(W)``): the square
+  is expanded into ``(g2 + s^2) - 2 q s + q^2``, one fused multiply-add a
+  source, and every intermediate is an integer below 2^24 in magnitude;
+* direct, where ``g2_max + W^2 <= 2^24``: ``fmaf(q - s, q - s, g2)``, an
+  integer of at most 2^24 rounded once;
+* otherwise it raises, where the plain version would not be exact
+  either.
+
+A call without ``g2_max`` keeps the expanded form's contract, finite
+values at most ``max_g2(W)``, and raises from the shape alone where that
+leaves no room for the sentinel of a frame as wide as it is tall,
+``(2 W)^2`` (``W > MAX_WIDTH``). Either way kernel and plain version
+agree bit for bit. The plain version computes the direct form
+``g2 + (q - s)^2``, exact while that sum stays at most 2^24.
+``check_frame`` holds a frame's shape to the same range on both devices;
+``ops/edt.py`` calls it before every min-plus and states the frame's
+sentinel as ``g2_max``.
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ from leafgrasp_tpu_torch.kernels import LAUNCHES
 from leafgrasp_tpu_torch.kernels.build import check, load_library
 
 __all__ = ["minplus_pass2", "minplus_pass2_plain", "BAND_ROWS",
-           "BAND_COLS", "max_g2", "MAX_WIDTH", "check_frame"]
+           "BAND_COLS", "max_g2", "MAX_WIDTH", "check_frame",
+           "minplus_form"]
 
 BAND_ROWS = 8      # row tile of a band entry (MP_ROWS in the kernel)
 BAND_COLS = 128    # column chunk of a band entry (MP_CHUNK in the kernel)
@@ -50,21 +60,32 @@ def max_g2(w: int) -> int:
     return (1 << 24) - 2 * w * w
 
 
-def check_frame(h: int, w: int, device: torch.device) -> None:
+def minplus_form(w: int, g2_max: int | None = None) -> str:
+    """The form of the min-plus kernel that is exact at width ``w`` for
+    finite values of at most ``g2_max``: ``"expanded"`` or ``"direct"``.
+    Without ``g2_max`` the caller keeps ``max_g2(w)`` and ``w`` must be at
+    most ``MAX_WIDTH``. Raises where neither form is exact, which is where
+    the plain version is not exact either."""
+    if g2_max is None:
+        if w > MAX_WIDTH:
+            raise ValueError(f"W={w}: the sums of the min-plus kernel could "
+                             f"pass 2^24 (the widest W without a stated "
+                             f"bound is {MAX_WIDTH})")
+        return "expanded"
+    if g2_max <= max_g2(w):
+        return "expanded"
+    if g2_max + w * w <= 1 << 24:
+        return "direct"
+    raise ValueError(f"values up to {g2_max} at W={w}: g2 + (q - s)^2 could "
+                     f"pass 2^24, the min-plus would not be exact")
+
+
+def check_frame(h: int, w: int) -> None:
     """Raise where the min-plus over the pass-1 field of an ``h`` x ``w``
     frame, whose largest value is the sentinel ``(h + w)^2``, would not
-    be exact on ``device``: the kernel needs ``(H + W)^2 + 2 W^2 < 2^24``
-    and ``W <= MAX_WIDTH``, the plain version ``(H + W)^2 + W^2 < 2^24``."""
-    big = (h + w) ** 2
-    if device.type == "cuda":
-        if w > MAX_WIDTH or big > max_g2(w):
-            raise ValueError(
-                f"a {h} x {w} frame on the card: (H + W)^2 + 2 W^2 could "
-                f"pass 2^24 (W at most {MAX_WIDTH}), the min-plus kernel "
-                f"would not be exact")
-    elif big + w * w > 1 << 24:
-        raise ValueError(f"a {h} x {w} frame: (H + W)^2 + W^2 passes 2^24, "
-                         f"the min-plus would not be exact")
+    be exact: ``(H + W)^2 + W^2 <= 2^24``, on either device (the card
+    picks its form by ``minplus_form``, which covers that range whole)."""
+    minplus_form(w, (h + w) ** 2)
 
 # elements of the (R, S, nq) candidate block the plain version builds
 _PLAIN_BLOCK = 1 << 25
@@ -135,11 +156,13 @@ def minplus_pass2_plain(g2: torch.Tensor, qcol: torch.Tensor | None = None,
 
 def minplus_pass2(g2: torch.Tensor, qcol: torch.Tensor | None = None,
                   s_lo: int = 0, s_hi: int | None = None,
-                  band: torch.Tensor | None = None) -> torch.Tensor:
+                  band: torch.Tensor | None = None,
+                  g2_max: int | None = None) -> torch.Tensor:
     """The min-plus above: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. On the card ``g2`` keeps the module's
-    contract (integers, finite values at most ``max_g2(W)``) and a ``W``
-    beyond ``MAX_WIDTH`` raises."""
+    contract: integers, finite values at most ``g2_max`` where the caller
+    states it, else at most ``max_g2(W)`` with ``W <= MAX_WIDTH``; the form
+    follows from ``minplus_form``, which raises outside the exact range."""
     if g2.device.type == "cpu":
         return minplus_pass2_plain(g2, qcol, s_lo, s_hi, band)
     if g2.device.type != "cuda":
@@ -147,9 +170,7 @@ def minplus_pass2(g2: torch.Tensor, qcol: torch.Tensor | None = None,
     s_hi = _check_args(g2, qcol, s_lo, s_hi, band)
     g2 = g2.contiguous()
     r, w = g2.shape
-    if w > MAX_WIDTH:
-        raise ValueError(f"W={w}: the sums of the min-plus kernel could "
-                         f"pass 2^24 (the widest exact W is {MAX_WIDTH})")
+    direct = minplus_form(w, g2_max) == "direct"
     if qcol is None:
         qcol = torch.arange(w, dtype=torch.int32, device=g2.device)
     qcol = qcol.contiguous()
@@ -162,7 +183,7 @@ def minplus_pass2(g2: torch.Tensor, qcol: torch.Tensor | None = None,
     lib = load_library()
     err = lib.minplus_pass2(
         g2.data_ptr(), r, w, qcol.data_ptr(), nq, int(qcol.dim() == 2),
-        int(s_lo), s_hi, band_ptr, n_band_cols, out.data_ptr(),
+        int(s_lo), s_hi, band_ptr, n_band_cols, int(direct), out.data_ptr(),
         torch.cuda.current_stream(g2.device).cuda_stream)
     check(err, "minplus_pass2")
     LAUNCHES["minplus_pass2"] += 1

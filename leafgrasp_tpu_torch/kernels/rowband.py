@@ -7,10 +7,13 @@ pass 1. Replaces the TPU kernel ``squared_edt_rowband``
 (leafgrasp_tpu/ops/pallas_edt.py:215); the kernel source, with its bound
 and design, is ``csrc/rowband.cu``. The kernel visits, per 8 x 128
 output tile, only the candidate rows within the tile's radius ``nb``,
-which its prologue derives from an 8-row pooled upper bound; the plain
-version sweeps every row. Values are integer-valued f32 below 2^24 and
-any pointwise upper bound gives an exact band, so kernel and plain
-version agree bit for bit.
+which its first launch derives from an 8-row pooled upper bound; the
+plain version sweeps every row. The kernel's second launch merges the
+partial minima of a tile's pieces of work by an atomic minimum on the
+bits, so on the card ``g2r`` holds non-negative values or ``+inf`` (the
+squared distances it is made for). Values are integer-valued f32 and any
+pointwise upper bound gives an exact band, so kernel and plain version
+agree bit for bit.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def squared_edt_rowband_plain(g2r: torch.Tensor) -> torch.Tensor:
 
 
 def rowband_radii_plain(g2r: torch.Tensor) -> torch.Tensor:
-    """The per-tile row radii as the kernel's prologue computes them:
+    """The per-tile row radii as the kernel's first launch computes them:
     int32 (C, ceil(H/8), ceil(W/128)). Pool each tile's rows by min,
     solve the min-plus at 1/8 row resolution with the offset
     ``(8 (|I - I'| + 1))^2`` (an upper bound of every output of row tile
@@ -79,7 +82,9 @@ def rowband_radii_plain(g2r: torch.Tensor) -> torch.Tensor:
     upper = torch.nn.functional.pad(upper, (0, ct * TILE_COLS - w),
                                     value=0.0)
     tile_max = upper.reshape(c, rt, ct, TILE_COLS).amax(dim=3)
-    nb = torch.sqrt(tile_max.to(torch.float64)).to(torch.int32) + 1
+    # a root at or above H clamps to H (+inf included)
+    tile_max = torch.clamp(tile_max.to(torch.float64), max=float(h) * h)
+    nb = torch.sqrt(tile_max).to(torch.int32) + 1
     return torch.clamp(nb, max=h)
 
 
@@ -97,12 +102,12 @@ def squared_edt_rowband(g2r: torch.Tensor, return_radii: bool = False):
     c, h, w = g2r.shape
     rt, ct = -(-h // TILE_ROWS), -(-w // TILE_COLS)
     dev = g2r.device
-    g2c = torch.empty((c, rt, w), dtype=torch.float32, device=dev)
+    nb4 = torch.empty((c, rt, ct, 4), dtype=torch.int32, device=dev)
     nb = torch.empty((c, rt, ct), dtype=torch.int32, device=dev)
     out = torch.empty_like(g2r)
     lib = load_library()
     err = lib.squared_edt_rowband(
-        g2r.data_ptr(), c, h, w, g2c.data_ptr(), nb.data_ptr(),
+        g2r.data_ptr(), c, h, w, nb4.data_ptr(), nb.data_ptr(),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "squared_edt_rowband")
     LAUNCHES["squared_edt_rowband"] += 1

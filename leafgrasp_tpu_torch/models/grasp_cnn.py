@@ -84,7 +84,9 @@ class AttentionGate(nn.Module):
         if self.mode == "none":
             return x
         n, c, h, w = x.shape
-        xs = x.permute(0, 2, 3, 1).reshape(n, h * w, c).contiguous()
+        # the (N, HW, C) view of the NCHW activations, read through its
+        # strides: no copy
+        xs = x.permute(0, 2, 3, 1).reshape(n, h * w, c)
         out = fused_attention_gate(
             xs, self.spatial_kernel, self.spatial_bias, self.squeeze_kernel,
             self.squeeze_bias, self.excite_kernel, self.excite_bias,

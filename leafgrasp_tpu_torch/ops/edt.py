@@ -12,8 +12,9 @@ leafgrasp_tpu/ops/edt.py.
 
 All values are integer-valued f32 and the frame is small enough for the
 min-plus to be exact (``_pass2``, through which every min-plus here
-goes, holds the frame's shape to ``check_frame``: on the card
-``(H + W)^2 + 2 W^2 < 2^24``), so each result is bit for bit the JAX
+goes, holds the frame's shape to ``check_frame``, ``(H + W)^2 + W^2 <=
+2^24`` on either device, and states the frame's sentinel to the kernel,
+which picks its form from it), so each result is bit for bit the JAX
 package's. The data-dependent choices of the JAX
 version (banded vs full sweep, the envelope coverage guard) are Python
 branches on a scalar read back with ``host_read``.
@@ -78,9 +79,11 @@ def nearest_seed_dist_1d(seeds: torch.Tensor, axis: int = 0) -> torch.Tensor:
 def _pass2(g2: torch.Tensor, h: int, **kw) -> torch.Tensor:
     """The min-plus over rows ``g2`` (R, W) of the pass-1 field of a
     frame ``h`` rows tall: the one place that holds the frame's shape to
-    the range in which the min-plus is exact on its device."""
-    check_frame(h, g2.shape[-1], g2.device)
-    return minplus_pass2(g2.contiguous(), **kw)
+    the range in which the min-plus is exact, and that states the field's
+    largest finite value, the sentinel ``(h + W)^2``, to the kernel."""
+    w = g2.shape[-1]
+    check_frame(h, w)
+    return minplus_pass2(g2.contiguous(), g2_max=(h + w) ** 2, **kw)
 
 
 def _pass1_g2(seeds: torch.Tensor) -> torch.Tensor:

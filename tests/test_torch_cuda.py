@@ -7,7 +7,7 @@ machine run it alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Without a CUDA device every test here skips. Tolerances: min-plus and
-row-banded EDT bit-exact (integer-valued f32, sums below 2^24); fused scoring
+row-banded EDT bit-exact (integer-valued f32, sums at most 2^24); fused scoring
 1e-5 absolute, valid mask equal; attention gate 1e-5 absolute; segment
 histogram counts equal; flash prefill 2e-5 absolute in f32, and in bf16
 2^-6 of the value plus 2^-6 of the largest value of the same output row
@@ -104,35 +104,94 @@ def test_minplus_kernel_at_the_edge_of_its_range_on_card(cuda, shape):
         assert torch.equal(got, minplus_pass2_plain(g2, **kw)), kw
 
 
-def test_minplus_raises_on_card_for_a_width_beyond_its_range(cuda):
-    """The kernel's width limit holds on the card only, and a frame too
-    tall for the expanded form raises in every mode of the frame path
-    before any min-plus is launched."""
+def _edge_rows(r, w, top, big):
+    """Rows of the sentinel ``big`` alone, with a source at the first, the
+    last or both columns, and rows of the largest value ``top``."""
+    g2 = torch.full((r, w), float(big), device="cuda")
+    g2[1::5, 0] = 0.0
+    g2[2::5, w - 1] = 0.0
+    g2[3::5] = float(top)
+    g2[4::5, 0], g2[4::5, w - 1] = 0.0, 1.0
+    return g2
+
+
+@pytest.mark.parametrize("h,w,form", [(2100, 1600, "direct"),
+                                      (3829, 256, "direct"),
+                                      (1080, 1920, "expanded"),
+                                      (1080, 1440, "expanded")])
+def test_minplus_forms_over_the_whole_exact_range_on_card(cuda, h, w, form):
+    """The direct form (2100 x 1600, and a frame just past the expanded
+    form's range) and the expanded form at W = 1920, each at the edge of
+    its range (rows of the largest value it admits) and with the frame's
+    sentinel, every query form: bit-exact against the plain version."""
+    from leafgrasp_tpu_torch.kernels.minplus import minplus_form
+    big = (h + w) ** 2
+    assert minplus_form(w, big) == form
+    top = max_g2(w) if form == "expanded" else 2 ** 24 - w * w
+    g2 = _edge_rows(40, w, top, big)
+    ends = torch.tensor([0, 1, w // 2, w - 2, w - 1], dtype=torch.int32,
+                        device=cuda)
+    band = torch.full((40 // BAND_ROWS, -(-w // 128)), 3, dtype=torch.int32,
+                      device=cuda)
+    forms = [{}, {"qcol": ends}, {"qcol": ends[None, :].repeat(40, 1)},
+             {"band": band}, {"s_lo": 1, "s_hi": w - 1},
+             {"qcol": ends, "s_lo": w // 3, "s_hi": w // 3 + 5}]
+    for kw in forms:
+        got = minplus_pass2(g2, g2_max=max(big, top), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, minplus_pass2_plain(g2, **kw)), kw
+
+
+def test_minplus_card_raises_only_where_the_cpu_raises(cuda):
+    """Without a stated bound a width past MAX_WIDTH raises on the card
+    alone (the old contract); with the frame's sentinel stated, the card
+    raises exactly where the CPU raises, before any launch, and a frame
+    that only the direct form takes runs the frame path's EDTs on both
+    devices to the same field."""
     import dataclasses
     from leafgrasp_tpu_torch.config import GraspScoringConfig
     from leafgrasp_tpu_torch.geometry.grasp_scorer import (
         compute_grasp_scores)
+    from leafgrasp_tpu_torch.ops import edt as tedt
     wide = torch.zeros((1, MAX_WIDTH + 1), device=cuda)
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="2\\^24"):
         minplus_pass2(wide)
     q0 = torch.zeros(1, dtype=torch.int32)
     assert minplus_pass2(wide.cpu(), qcol=q0).shape == (1, 1)
-    h, w = 3829, 256                # (H + W)^2 + 2 W^2 just passes 2^24
-    assert (h + w) ** 2 + w * w < 2 ** 24 < (h + w) ** 2 + 2 * w * w
-    leaf = torch.zeros((h, w), dtype=torch.bool, device=cuda)
-    leaf[5:60, 10:200] = True
-    other = torch.zeros_like(leaf)
-    other[100:130, 5:250] = True
-    one = torch.ones((), dtype=torch.float32, device=cuda)
-    for mode in ("union", "union_half", "reference_self"):
-        cfg = dataclasses.replace(GraspScoringConfig(),
-                                  isolation_context=mode)
+    assert minplus_pass2(wide, g2_max=0).shape == (1, MAX_WIDTH + 1)
+    # (H + W)^2 + W^2 just passes 2^24: both devices raise, nothing launched
+    h, w = 3840, 256
+    assert (h + w) ** 2 + w * w > 2 ** 24
+    kernels.reset_launch_counts()
+    for dev in (cuda, torch.device("cpu")):
+        leaf = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        leaf[5:60, 10:200] = True
+        other = torch.zeros_like(leaf)
+        other[100:130, 5:250] = True
+        one = torch.ones((), dtype=torch.float32, device=dev)
         with pytest.raises(ValueError, match="2\\^24"):
-            compute_grasp_scores(leaf, leaf | other,
-                                 torch.ones((h, w), device=cuda), one, one,
-                                 one, cfg)
+            tedt.squared_edt(leaf)
+        for mode in ("union", "union_half", "reference_self"):
+            cfg = dataclasses.replace(GraspScoringConfig(),
+                                      isolation_context=mode)
+            with pytest.raises(ValueError, match="2\\^24"):
+                compute_grasp_scores(leaf, leaf | other,
+                                     torch.ones((h, w), device=dev), one,
+                                     one, one, cfg)
     assert kernels.launch_counts()["minplus_pass2"] == 0
+    # (H + W)^2 + 2 W^2 passes 2^24, the direct form takes it
+    h, w = 3829, 256
+    leaf = torch.zeros((h, w), dtype=torch.bool)
+    leaf[5:60, 10:200] = True
+    leaf[3000:3100, 40:60] = True
+    want_full = tedt.squared_edt_full(leaf)
+    want_mx, want_at = tedt.edt_max_argmax(leaf)
+    got_full = tedt.squared_edt_full(leaf.to(cuda))
+    got_mx, got_at = tedt.edt_max_argmax(leaf.to(cuda))
+    assert torch.equal(got_full.cpu(), want_full)
+    assert float(got_mx) == float(want_mx) and int(got_at) == int(want_at)
+    assert kernels.launch_counts()["minplus_pass2"] >= 3
 
 
 def test_scoring_kernel_matches_plain_on_card(cuda):
@@ -160,29 +219,61 @@ def test_scoring_kernel_matches_plain_on_card(cuda):
     assert kernels.launch_counts()["fused_score_maps"] == 2
 
 
-def test_attention_kernel_matches_plain_on_card(cuda):
+# (N, HW, C, R): the four architectures' gates at the path's batch of 20
+# (R = C / 16), the kernel's limits, a C that is no multiple of 32 with an
+# odd HW (no 16-byte access), and a tile too large to stage
+GATE_SHAPES = [(20, 16, 128, 8), (20, 16, 256, 16), (20, 4, 256, 16),
+               (20, 16, 512, 32), (3, 64, 1024, 64), (5, 9, 48, 3),
+               (4, 1, 100, 6), (2, 64, 200, 64)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "nchw_view", "strided"])
+@pytest.mark.parametrize("shape", GATE_SHAPES)
+def test_attention_kernel_matches_plain_on_card(cuda, shape, layout):
+    """Every mode within 1e-5 of the plain version, from a contiguous
+    input, from the (N, HW, C) view of NCHW activations (read through its
+    strides, output in the same layout), and from a slice with other
+    strides (copied first)."""
+    n, hw, c, r = shape
     rng = np.random.default_rng(3)
 
-    def t(*shape, s=1.0):
-        return torch.as_tensor((rng.normal(size=shape) * s)
+    def t(*sh, s=1.0):
+        return torch.as_tensor((rng.normal(size=sh) * s)
                                .astype(np.float32), device=cuda)
 
-    x = t(20, 16, 256)
-    params = (t(256, 1, s=0.1), t(1, s=0.1), t(256, 16, s=0.1),
-              t(16, s=0.1), t(16, 256, s=0.1), t(256, s=0.1))
+    if layout == "contiguous":
+        x = t(n, hw, c)
+    elif layout == "nchw_view":
+        x = t(n, c, hw).transpose(1, 2)
+    else:
+        x = t(n, hw, 2 * c)[:, :, ::2]
+    params = (t(c, 1, s=0.1), t(1, s=0.1), t(c, r, s=0.1),
+              t(r, s=0.1), t(r, c, s=0.1), t(c, s=0.1))
+    kernels.reset_launch_counts()
     for mode in MODES:
         got = fused_attention_gate(x, *params, mode)
         want = attention_gate_plain(x, *params, mode)
+        assert got.shape == x.shape
         assert float((got - want).abs().max()) <= 1e-5, mode
+        if not x.is_contiguous() and x.transpose(1, 2).is_contiguous() \
+                and mode != "none":
+            assert got.stride() == x.stride()
+    assert kernels.launch_counts()["fused_attention_gate"] == 3
 
 
-@pytest.mark.parametrize("shape", [(96, 160), (75, 130), (540, 720)])
+@pytest.mark.parametrize("shape", [(96, 160), (75, 130), (540, 720),
+                                   (540, 960), (5, 300), (64, 100), (7, 9)])
 def test_rowband_kernel_matches_plain_on_card(cuda, shape):
     """Dense, single-leaf, sparse and seedless channels; odd sizes leave
-    ragged row and column tiles. Bit-exact, radii included."""
+    ragged row and column tiles, H < 8 and W < 128 leave one. Bit-exact,
+    radii included."""
     h, w = shape
-    mask, _ = make_leaf_scene(height=h, width=w, num_leaves=3, seed=4,
-                              margin=min(h, w) // 5)
+    if min(h, w) >= 40:
+        mask, _ = make_leaf_scene(height=h, width=w, num_leaves=3, seed=4,
+                                  margin=min(h, w) // 5)
+    else:
+        mask = np.zeros((h, w), np.int32)
+        mask[h // 2, w // 3:] = 2
     rng = np.random.default_rng(9)
     seeds = torch.as_tensor(np.stack([
         mask > 0, mask == 2, rng.random((h, w)) < 0.002,
@@ -198,6 +289,40 @@ def test_rowband_kernel_matches_plain_on_card(cuda, shape):
     assert kernels.launch_counts()["squared_edt_rowband"] == 1
     # a seedless channel keeps the sentinel (H + W)^2 everywhere
     assert torch.all(got[3] == float((h + w) ** 2))
+
+
+@pytest.mark.parametrize("case", ["one_seed_row", "band_covers_all",
+                                  "full_resolution", "inf_rows"])
+def test_rowband_kernel_at_extremes_on_card(cuda, case):
+    """One row with a seed (every tile's band reaches it), a single seed
+    in a corner (the far tiles' bands cover every row), three channels at
+    full resolution (more tiles than one segment of item offsets), and
+    rows of +inf: bit-exact, radii included."""
+    if case == "one_seed_row":
+        seeds = torch.zeros((2, 300, 400), dtype=torch.bool, device=cuda)
+        seeds[0, 150, :] = True
+        seeds[1, 299, 7] = True
+    elif case == "band_covers_all":
+        seeds = torch.zeros((1, 540, 720), dtype=torch.bool, device=cuda)
+        seeds[0, 0, 0] = True
+    elif case == "full_resolution":
+        mask, _ = make_leaf_scene(height=1080, width=1440, num_leaves=6,
+                                  seed=8, margin=120)
+        mask = torch.as_tensor(mask, device=cuda)
+        seeds = torch.stack([mask != 1, mask == 1, (mask > 1)])
+    else:
+        seeds = torch.zeros((1, 200, 260), dtype=torch.bool, device=cuda)
+        seeds[0, 120:, 30] = True
+    g = nearest_seed_dist_1d(seeds, axis=2).to(torch.float32)
+    g2r = (g * g).contiguous()
+    if case == "inf_rows":
+        g2r[0, :100] = float("inf")
+    got, nb = squared_edt_rowband(g2r, return_radii=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, squared_edt_rowband_plain(g2r))
+    assert torch.equal(nb, rowband_radii_plain(g2r))
+    if case == "band_covers_all":
+        assert int(nb.max()) == 540
 
 
 @pytest.mark.parametrize("shape,num", [((40, 70), 5), ((1080, 1440), 18),

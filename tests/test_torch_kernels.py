@@ -182,35 +182,39 @@ def test_minplus_plain_matches_pallas_at_the_edge_of_its_range():
 
 
 def test_minplus_and_edt_raise_where_sums_could_pass_2_24():
-    """From shapes alone, with no value read. The width limit of the
-    expanded form is the CUDA route's alone: the plain version and the
-    CPU dispatch take a wider row. ``check_frame`` holds a frame to
-    (H + W)^2 + 2 W^2 < 2^24 on the card and to (H + W)^2 + W^2 < 2^24
-    elsewhere, and every EDT entry point and every isolation mode of the
-    frame path reaches it."""
+    """From shapes alone, with no value read. The width limit of a call
+    that states no bound is the CUDA route's alone: the plain version and
+    the CPU dispatch take a wider row. ``check_frame`` holds a frame to
+    (H + W)^2 + W^2 <= 2^24 whatever the device (the card runs the
+    expanded form below 2^24 - 2 W^2 and the direct form above it), and
+    every EDT entry point and every isolation mode of the frame path
+    reaches it."""
     import dataclasses
     from leafgrasp_tpu_torch.config import GraspScoringConfig
     from leafgrasp_tpu_torch.geometry.grasp_scorer import (
         compute_grasp_scores)
-    from leafgrasp_tpu_torch.kernels.minplus import check_frame
+    from leafgrasp_tpu_torch.kernels.minplus import check_frame, minplus_form
     from leafgrasp_tpu_torch.ops import edt as tedt
     assert 6 * MAX_WIDTH ** 2 < 2 ** 24 <= 6 * (MAX_WIDTH + 1) ** 2
     wide = torch.zeros((1, MAX_WIDTH + 1))
     q0 = torch.zeros(1, dtype=torch.int32)
     for fn in (minplus_pass2, minplus_pass2_plain):
         assert fn(wide, qcol=q0).shape == (1, 1)
-    cpu, card = torch.device("cpu"), torch.device("cuda")
-    check_frame(1080, 1440, card)              # the production frame fits
-    check_frame(1080, 1920, cpu)
-    check_frame(2100, 1600, cpu)               # exact in the direct form only
+    check_frame(1080, 1440)                    # the production frame fits
+    check_frame(1080, 1920)
+    check_frame(2100, 1600)                    # exact in the direct form only
+    check_frame(1080, MAX_WIDTH + 1)
+    assert minplus_form(1440, (1080 + 1440) ** 2) == "expanded"
+    assert minplus_form(1920, (1080 + 1920) ** 2) == "expanded"
+    assert minplus_form(1600, (2100 + 1600) ** 2) == "direct"
     assert (1080 + 1440) ** 2 < max_g2(1440)
     assert (2100 + 1600) ** 2 > max_g2(1600)
-    for shape in ((2100, 1600), (3000, 1600), (1080, MAX_WIDTH + 1)):
+    for shape in ((3000, 1600), (3829, 1000)):
         with pytest.raises(ValueError, match="2\\^24"):
-            check_frame(*shape, card)
+            check_frame(*shape)
     h, w = 4090, 8                             # (H + W)^2 alone passes 2^24
     with pytest.raises(ValueError, match="2\\^24"):
-        check_frame(h, w, cpu)
+        check_frame(h, w)
     tall = torch.zeros((h, w), dtype=torch.bool)
     tall[5:60, 2:6] = True
     g2 = torch.zeros((h, w))
@@ -234,6 +238,42 @@ def test_minplus_and_edt_raise_where_sums_could_pass_2_24():
     for call in calls:
         with pytest.raises(ValueError, match="2\\^24"):
             call()
+
+
+@pytest.mark.parametrize("h,w,g2_max,form", [
+    (1080, 1440, None, "expanded"),            # no bound stated: W alone
+    (None, MAX_WIDTH, None, "expanded"),
+    (None, MAX_WIDTH + 1, None, None),
+    (1080, 1440, "frame", "expanded"),
+    (1080, 1920, "frame", "expanded"),         # 3000^2 + 2 * 1920^2 < 2^24
+    (2100, 1600, "frame", "direct"),           # 3700^2 + 1600^2 <= 2^24
+    (3000, 1600, "frame", None),
+    (None, MAX_WIDTH + 1, 0, "expanded"),      # a stated bound lifts W
+    (None, 1600, max_g2(1600), "expanded"),    # the expanded form's edge
+    (None, 1600, max_g2(1600) + 1, "direct"),
+    (None, 1600, 2 ** 24 - 1600 ** 2, "direct"),   # the direct form's edge
+    (None, 1600, 2 ** 24 - 1600 ** 2 + 1, None),
+])
+def test_minplus_form_at_each_edge(h, w, g2_max, form):
+    """The one choice of the min-plus form, shared by ``check_frame`` and
+    the wrapper: pure Python, so it is held here at each edge. ``None``
+    as the form means it raises; "frame" states the frame's sentinel
+    (H + W)^2, as ``ops/edt.py`` does."""
+    from leafgrasp_tpu_torch.kernels.minplus import check_frame, minplus_form
+    if g2_max == "frame":
+        g2_max = (h + w) ** 2
+    if form is None:
+        with pytest.raises(ValueError, match="2\\^24"):
+            minplus_form(w, g2_max)
+    else:
+        assert minplus_form(w, g2_max) == form
+    if h is not None and g2_max is not None:
+        # check_frame raises exactly where the card has no exact form
+        if form is None:
+            with pytest.raises(ValueError, match="2\\^24"):
+                check_frame(h, w)
+        else:
+            check_frame(h, w)
 
 
 # ---- fused scoring -----------------------------------------------------------
@@ -315,6 +355,44 @@ def test_attention_plain_matches_jax(mode):
     assert torch.equal(fused_attention_gate(xs, *tp, mode),
                        attention_gate_plain(xs, *tp, mode))
     assert kernels.launch_counts()["fused_attention_gate"] == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_attention_gate_module_passes_the_nchw_view_uncopied(mode,
+                                                             monkeypatch):
+    """``AttentionGate`` hands the gate the (N, HW, C) view of its NCHW
+    activations as it lies (the kernel reads it through its strides), and
+    the same values come out as from the copied, contiguous input."""
+    from leafgrasp_tpu_torch.models import grasp_cnn
+    rng = np.random.default_rng(12)
+    n, c, h, w = 3, 32, 4, 4
+    gate = grasp_cnn.AttentionGate(mode, c, reduction=16)
+    with torch.no_grad():
+        for p in list(gate.parameters()) + list(gate.buffers()):
+            p.copy_(_t((rng.normal(size=p.shape) * 0.3).astype(np.float32)))
+    x = _t(rng.normal(size=(n, c, h, w)).astype(np.float32))
+    seen = []
+
+    def spy(xs, *args):
+        seen.append(xs)
+        return fused_attention_gate(xs, *args)
+
+    monkeypatch.setattr(grasp_cnn, "fused_attention_gate", spy)
+    got = gate(x)
+    assert got.shape == x.shape
+    if mode == "none":
+        assert got is x and not seen
+        return
+    (xs,) = seen
+    assert xs.shape == (n, h * w, c) and not xs.is_contiguous()
+    assert xs.transpose(1, 2).is_contiguous() and xs.data_ptr() == x.data_ptr()
+    params = [getattr(gate, k) for k in (
+        "spatial_kernel", "spatial_bias", "squeeze_kernel", "squeeze_bias",
+        "excite_kernel", "excite_bias")]
+    want = attention_gate_plain(xs.contiguous(), *params, mode)
+    torch.testing.assert_close(
+        got, want.reshape(n, h, w, c).permute(0, 3, 1, 2), rtol=0,
+        atol=1e-6)
 
 
 def test_attention_rejects_unknown_mode():
