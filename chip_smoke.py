@@ -15,14 +15,17 @@ Phases, each a hard failure (non-zero exit):
    limits, from a contiguous input, from the NCHW view the CNN passes and
    from other strides (<= 1e-5), the min-plus in its full, window,
    sampled, refinement and banded forms, with a source sub-range, and at
-   the edge of its exact range (sentinel and largest admitted rows,
-   sources at both ends of the row), then in its direct form on a
-   2100 x 1600 frame and at the edge of that form's range, and in its
-   expanded form on a 1080 x 1920 frame, all bit-exact, the row-banded
-   EDT at (1, 540, 720), (1, 540, 960) and (3, 1080, 1440) (bit-exact,
-   radii included), and the
-   segment histogram at 1080 x 1440 with 18 segments (counts equal; the
-   histogram median within range / 256^2 of the sorted median), and the
+   the edge of its expanded form's range (sentinel and largest admitted
+   rows, sources at both ends of the row), then in its direct form on
+   2100 x 1600, 2048 x 2448 and 2160 x 3840 frames, on a seedless field
+   and a source sub-range without a seed (the sentinel, past 2^24,
+   everywhere) and at the old edge of that form, and in its expanded
+   form on a 1080 x 1920 frame, all bit-exact, the row-banded EDT at
+   (1, 540, 720), (1, 540, 960) and (3, 1080, 1440) (bit-exact, radii
+   included), and the segment histogram at 1080 x 1440 with 18 segments
+   at one and two brackets, at a ragged size, from an offset view and
+   with ids out of range (counts equal; the histogram median, two
+   launches, within range / 256^2 of the sorted median), and the
    flash-attention prefill in f32 (<= 2e-5 on real rows) and bf16
    (<= 2^-6 of the value plus 2^-6 of the largest value of its output row) with unequal left pads at (2, 200, 4 heads over 2, 64),
    (5, 640, 32 over 8, 128), the serving shape (5, 2400, 32 over 8,
@@ -40,7 +43,8 @@ Phases, each a hard failure (non-zero exit):
    pixel), and the ``hist_median`` frames against the default's (same
    leaf, same tall leaves, same pixel); then one 1080 x 1920 frame in
    each isolation mode on the card against the CPU path (same leaf,
-   pixel and flag);
+   pixel and flag, phase 3c), and one 2048 x 2448 frame (5 MP) in the
+   ``union`` mode (phase 3d), whose min-plus runs in its direct form;
 4. profile one frame per mode (``torch.profiler``): device busy time and
    the kernels that take it;
 5. drive a ``GraspService`` (``union_half``, standard CNN) on the card
@@ -92,6 +96,11 @@ H, W = 1080, 1440
 # landscape (expanded form) and a frame exact only in the direct form
 WIDE_H, WIDE_W = 1080, 1920
 TALL_H, TALL_W = 2100, 1600
+# frames whose sentinel (H + W)^2 passes 2^24, which the min-plus's
+# direct form takes as the JAX package does: a 5 MP machine-vision sensor
+# frame and 4K UHD
+MP5_H, MP5_W = 2048, 2448
+UHD_H, UHD_W = 2160, 3840
 CX, CY, F = np.float32(707.87), np.float32(494.07), np.float32(1750.68)
 # (name, num_leaves, seed, margin): the bench families (bench.py:37-41)
 FAMILIES = [("sparse", 6, 8, 120), ("crowded", 12, 3, 60),
@@ -262,11 +271,15 @@ def pass1_g2(torch, dev, h, w):
     """The pass-1 field of the first leaf's complement on an h x w scene
     of the sparse family, as the frame path's full EDT makes it."""
     from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
-    from leafgrasp_tpu_torch.ops.edt import nearest_seed_dist_1d
     _, n, seed, margin = FAMILIES[0]
     mask, _ = make_leaf_scene(h, w, num_leaves=n, seed=seed, margin=margin)
-    leaf = torch.as_tensor(mask, device=dev) == 1
-    g = nearest_seed_dist_1d(~leaf, axis=0).to(torch.float32)
+    return seeds_g2(torch, ~(torch.as_tensor(mask, device=dev) == 1))
+
+
+def seeds_g2(torch, seeds):
+    """The pass-1 squared field of a seed mask."""
+    from leafgrasp_tpu_torch.ops.edt import nearest_seed_dist_1d
+    g = nearest_seed_dist_1d(seeds, axis=0).to(torch.float32)
     return (g * g).contiguous()
 
 
@@ -284,12 +297,16 @@ def edge_rows(torch, dev, w, big, top):
 
 
 def check_minplus(torch, dev, leaf, other):
-    """The min-plus in each form the main path calls, with a source
-    sub-range as ``squared_edt_window_src`` calls it, and at the edge of
-    the range in which its sums are exact; then the frames the direct
-    form brought back: a 2100 x 1600 frame's full sweep and the edge of
-    the direct form's range, and a 1080 x 1920 frame's full sweep in the
-    expanded form; all bit-exact."""
+    """The min-plus in each form the main path calls, with the bound the
+    path states (the frame's sentinel), with a source sub-range as
+    ``squared_edt_window_src`` calls it, and at the edge of the expanded
+    form's exact range; then the frames the direct form takes: the full
+    sweeps of a 2100 x 1600, a 2048 x 2448 (5 MP) and a 2160 x 3840 (4K)
+    frame's field, whose sentinels pass 2^24, 80 rows of a seedless
+    2048 x 2448 field and a source sub-range that holds no seed (both
+    the sentinel everywhere), and rows of the direct form's old edge; and
+    a 1080 x 1920 frame's full sweep in the expanded form; all
+    bit-exact."""
     from leafgrasp_tpu_torch.kernels.minplus import (
         BAND_COLS, BAND_ROWS, max_g2, minplus_form, minplus_pass2,
         minplus_pass2_plain)
@@ -313,33 +330,55 @@ def check_minplus(torch, dev, leaf, other):
     win_g2 = g2[:, 200:200 + hq, :].reshape(c3 * hq, W).contiguous()
     band = torch.full((-(-H // BAND_ROWS), -(-W // BAND_COLS)), 2,
                       dtype=torch.int32, device=dev)
+    big = (H + W) ** 2
     tall_big = (TALL_H + TALL_W) ** 2
     wide_big = (WIDE_H + WIDE_W) ** 2
-    # name -> (g2, keywords, the bound the caller states)
+    mp5_big = (MP5_H + MP5_W) ** 2
+    uhd_big = (UHD_H + UHD_W) ** 2
+    # a 5 MP frame without a seed, and one whose only seeds (a 40 x 40
+    # blob) lie far left of the sub-range's source columns (its last 600)
+    no_seed = torch.zeros((MP5_H, MP5_W), dtype=torch.bool, device=dev)
+    blob = no_seed.clone()
+    blob[500:540, 100:140] = True
+    mid = slice(MP5_H // 2 - 40, MP5_H // 2 + 40)
+    # name -> (g2, keywords, the bound the caller states, the value every
+    # output must hold or None)
     forms = {
-        "full": (g2[1], {}, None),
+        "full": (g2[1], {}, big, None),
         "window": (win_g2, {"qcol": torch.arange(
-            400, 400 + wq, dtype=torch.int32, device=dev)}, None),
-        "sampled": (g2.reshape(c3 * H, W), {"qcol": js}, None),
+            400, 400 + wq, dtype=torch.int32, device=dev)}, big, None),
+        "sampled": (g2.reshape(c3 * H, W), {"qcol": js}, big, None),
         "refine": (refine_g2, {"qcol": jwin.to(torch.int32).contiguous()},
-                   None),
-        "banded": (g2[0].contiguous(), {"band": band}, None),
+                   big, None),
+        "banded": (g2[0].contiguous(), {"band": band}, big, None),
         "subrange": (win_g2, {"qcol": torch.arange(
             401, 401 + wq, dtype=torch.int32, device=dev),
-            "s_lo": 273, "s_hi": 849}, None),
-        "edge": (edge_rows(torch, dev, W, (H + W) ** 2, max_g2(W)), {},
+            "s_lo": 273, "s_hi": 849}, big, None),
+        "edge": (edge_rows(torch, dev, W, big, max_g2(W)), {}, max_g2(W),
                  None),
         "direct_2100x1600": (pass1_g2(torch, dev, TALL_H, TALL_W), {},
-                             tall_big),
+                             tall_big, None),
+        "direct_2048x2448": (pass1_g2(torch, dev, MP5_H, MP5_W), {},
+                             mp5_big, None),
+        "direct_2160x3840": (pass1_g2(torch, dev, UHD_H, UHD_W), {},
+                             uhd_big, None),
+        "direct_seedless_2048x2448": (seeds_g2(torch, no_seed)[mid], {},
+                                      mp5_big, mp5_big),
+        "direct_subrange_no_seed_2048x2448": (
+            seeds_g2(torch, blob)[mid].contiguous(),
+            {"qcol": torch.arange(MP5_W - 500, MP5_W - 100,
+                                  dtype=torch.int32, device=dev),
+             "s_lo": MP5_W - 600, "s_hi": MP5_W},
+            mp5_big, mp5_big),
         "direct_edge": (edge_rows(torch, dev, TALL_W, tall_big,
                                   2 ** 24 - TALL_W ** 2), {},
-                        2 ** 24 - TALL_W ** 2),
+                        2 ** 24 - TALL_W ** 2, None),
         "expanded_1080x1920": (pass1_g2(torch, dev, WIDE_H, WIDE_W), {},
-                               wide_big),
+                               wide_big, None),
     }
     out, floors = {}, {}
     lanes_per_s = issue_rate(torch)
-    for name, (x, kw, g2_max) in forms.items():
+    for name, (x, kw, g2_max, every) in forms.items():
         r, w = x.shape
         form = minplus_form(w, g2_max)
         if name.startswith(("direct", "expanded")) \
@@ -352,12 +391,16 @@ def check_minplus(torch, dev, leaf, other):
         if not torch.equal(got, want):
             raise RuntimeError(f"minplus {name}: kernel != plain, max abs "
                                f"diff {err}")
+        if every is not None and not bool((got == float(every)).all()):
+            raise RuntimeError(f"minplus {name}: not the sentinel {every} "
+                               f"everywhere")
         nq = w if "qcol" not in kw else kw["qcol"].shape[-1]
         n_src = kw.get("s_hi", w) - kw.get("s_lo", 0)
         triples = minplus_sources(r, n_src, nq, kw.get("band"))
         b_ms, b_by = bound(4.0 * (r * n_src + r * nq), 2.0 * triples)
         out[name] = {
-            "shape": [r, w, nq], "form": form, "max_abs_err": err,
+            "shape": [r, w, nq], "form": form, "g2_max": g2_max,
+            "max_abs_err": err,
             "ms": kernel_ms(lambda: minplus_pass2(x, g2_max=g2_max, **kw),
                             "minplus_pass2_kernel"),
             "wrapper_ms": cuda_ms(lambda: minplus_pass2(x, g2_max=g2_max,
@@ -592,9 +635,15 @@ def check_rowband(torch, dev, leaf, other):
 
 
 def check_histogram(torch, dev, mask, depth):
-    """The segment histogram at 1080 x 1440 with 18 segments, at the
-    first level and at a refined level, counts equal; then the median
-    built on it against the sorted median."""
+    """The segment histogram at 1080 x 1440 with 18 segments: one bracket
+    at the first level and at a refined level, and the refined level's
+    two brackets in one launch (R = 2, as the median makes it), each
+    against its plain version and ``torch.bincount``; a pixel count that
+    is no multiple of the vector width, an offset view (the unaligned
+    head), depth and ids at different offsets, and ids out of range;
+    counts equal. Timed at one and two brackets, the grid swept; then the
+    median built on it against the sorted median."""
+    from leafgrasp_tpu_torch.kernels import histogram as khist
     from leafgrasp_tpu_torch.kernels.histogram import (
         NBINS, segment_histogram, segment_histogram_plain)
     from leafgrasp_tpu_torch.ops.median import _refine, masked_median_hist
@@ -606,28 +655,51 @@ def check_histogram(torch, dev, mask, depth):
     span = torch.clamp(dmax - dmin, min=1e-12)
     lo1, w1 = dmin.expand(num).contiguous(), span.expand(num).contiguous()
     hist1 = segment_histogram(depth, ids, lo1, NBINS / w1, num)
-    lo2, w2 = _refine(hist1, (counts // 2).to(torch.float32), lo1, w1)
-    levels = {"level1": (lo1, NBINS / w1), "level2": (lo2, NBINS / w2)}
+    ks = torch.stack([torch.clamp(counts - 1, min=0) // 2, counts // 2]) \
+        .to(torch.float32)
+    lo2, w2 = _refine(hist1, ks, lo1, w1)
+    lo2, iw2 = lo2.contiguous(), (NBINS / w2.expand_as(lo2)).contiguous()
+    levels = {"level1": (lo1, NBINS / w1), "level2": (lo2[1], iw2[1]),
+              "level2_two_brackets": (lo2, iw2)}
+
+    def keys(d, i, lo, inv_w):
+        """bincount keys of the same function, R brackets stacked."""
+        lo, inv_w = lo.reshape(-1, num), inv_w.reshape(-1, num)
+        il = i.reshape(-1).to(torch.int64)
+        ok = (il >= 0) & (il < num)
+        ic = torch.clamp(il, 0, num - 1)
+        b = torch.clamp((d.reshape(-1)[None] - lo[:, ic]) * inv_w[:, ic],
+                        0.0, float(NBINS - 1)).to(torch.int64)
+        seg = torch.arange(lo.shape[0], device=dev)[:, None] * num + ic
+        cells = lo.shape[0] * num * NBINS
+        return torch.where(ok[None], seg * NBINS + b,
+                           torch.full_like(b, cells)).reshape(-1), cells
+
     out = {}
     for name, (lo, inv_w) in levels.items():
+        rr = lo.shape[0] if lo.dim() == 2 else 1
         got = segment_histogram(depth, ids, lo, inv_w, num)
         want = segment_histogram_plain(depth, ids, lo, inv_w, num)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        if not torch.equal(got, want) or float(got.sum()) != H * W:
+        if not torch.equal(got, want) or float(got.sum()) != rr * H * W:
             raise RuntimeError(f"segment_histogram {name}: counts differ, "
                                f"max abs diff {err}")
-        idl = ids.reshape(-1).to(torch.int64)
-        key = idl * NBINS + torch.clamp(
-            (depth.reshape(-1) - lo[idl]) * inv_w[idl], 0.0,
-            float(NBINS - 1)).to(torch.int64)
-        if not torch.equal(torch.bincount(key, minlength=num * NBINS)
-                           .reshape(num, NBINS).to(torch.float32), got):
+        key, cells = keys(depth, ids, lo, inv_w)
+        if not torch.equal(torch.bincount(key, minlength=cells)[:cells]
+                           .reshape(got.shape).to(torch.float32), got):
             raise RuntimeError(f"segment_histogram {name}: bincount differs")
-        b_ms, b_by = bound(8.0 * H * W + 8.0 * num + 4.0 * num * NBINS,
-                           4.0 * H * W)
+        if rr == 2 and not all(torch.equal(got[r], segment_histogram(
+                depth, ids, lo[r], inv_w[r], num)) for r in range(2)):
+            raise RuntimeError(f"segment_histogram {name}: a bracket "
+                               f"differs from its one-bracket launch")
+        # each pixel's depth and id read once, the brackets read once and
+        # the counts written once; a subtract, a multiply and a clip a
+        # pixel and bracket
+        b_ms, b_by = bound(8.0 * H * W + 8.0 * rr * num
+                           + 4.0 * rr * num * NBINS, 4.0 * rr * H * W)
         out[name] = {
-            "max_abs_err": err,
+            "brackets": rr, "max_abs_err": err,
             "ms": kernel_ms(
                 lambda: segment_histogram(depth, ids, lo, inv_w, num),
                 "segment_histogram_kernel"),
@@ -640,9 +712,49 @@ def check_histogram(torch, dev, mask, depth):
             # does, so it is a lower limit for the library route;
             # plain_ms is the like-for-like figure
             "library_ms": cuda_ms(
-                lambda: torch.bincount(key, minlength=num * NBINS)),
+                lambda: torch.bincount(key, minlength=cells + 1)),
             "bound_ms": b_ms, "bound_by": b_by}
         log(f"segment_histogram {name} {json.dumps(out[name])}")
+
+    # the edges of a call: no multiple of the vector width, an offset view
+    # (the unaligned head), depth and ids at different offsets from a
+    # 16-byte boundary (the wrapper copies), ids out of range
+    flat_d, flat_i = depth.reshape(-1), ids.reshape(-1)
+    wild = (flat_i * 7 % (num + 3)) - 1                    # -1 .. num + 1
+    cases = {"ragged": (flat_d[:H * W - 5], flat_i[:H * W - 5]),
+             "offset_view": (flat_d[3:], flat_i[3:]),
+             "offsets_differ": (flat_d[1:], flat_i[:-1]),
+             "ids_out_of_range": (flat_d, wild)}
+    for name, (d, i) in cases.items():
+        for lo, inv_w in (levels["level1"], levels["level2_two_brackets"]):
+            got = segment_histogram(d, i, lo, inv_w, num)
+            want = segment_histogram_plain(d, i, lo, inv_w, num)
+            torch.cuda.synchronize()
+            inside = float(((i >= 0) & (i < num)).sum())
+            if not torch.equal(got, want) \
+                    or float(got.sum()) != inside * (lo.numel() // num):
+                raise RuntimeError(f"segment_histogram {name}: counts "
+                                   f"differ")
+    log(f"segment_histogram edge cases {list(cases)}: counts equal at one "
+        f"and two brackets")
+
+    # the grid: blocks an SM the launcher aims at (the default is
+    # khist._BLOCKS_PER_SM; one block of 1024 threads fills an SM's
+    # registers, so more run in waves)
+    sweep = {}
+    default = khist._BLOCKS_PER_SM
+    try:
+        for per_sm in (1, 2, 4):
+            khist._BLOCKS_PER_SM = per_sm
+            sweep[per_sm] = {
+                name: kernel_ms(lambda: segment_histogram(
+                    depth, ids, *levels[name], num),
+                    "segment_histogram_kernel")
+                for name in ("level1", "level2_two_brackets")}
+    finally:
+        khist._BLOCKS_PER_SM = default
+    log(f"segment_histogram grid sweep, kernel ms by blocks an SM "
+        f"(default {default}): {json.dumps(sweep)}")
 
     med = masked_median_hist(depth, ids, counts, num)
     med_err = 0.0
@@ -656,12 +768,21 @@ def check_histogram(torch, dev, mask, depth):
         med_err = max(med_err, abs(float(med[n]) - ref))
     if med_err > tol:
         raise RuntimeError(f"masked_median_hist: off by {med_err} > {tol}")
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
     from leafgrasp_tpu_torch.ops.components import masked_median
+    reset_launch_counts()
+    masked_median_hist(depth, ids, counts, num)
+    med_launches = launch_counts()["segment_histogram"]
+    if med_launches != 2:
+        raise RuntimeError(f"masked_median_hist launched the histogram "
+                           f"{med_launches} times, not 2")
     med_ms = {
         "hist_ms": cuda_ms(
             lambda: masked_median_hist(depth, ids, counts, num)),
         "bisection_ms": cuda_ms(
             lambda: masked_median(depth, ids, counts, num)),
+        "histogram_launches": med_launches,
         "max_abs_err_vs_sorted": med_err, "tolerance": tol}
     log(f"masked_median {json.dumps(med_ms)}")
     first = out["level1"]
@@ -674,7 +795,7 @@ def check_histogram(torch, dev, mask, depth):
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "levels": out,
-            "median": med_ms}
+            "grid_sweep_ms": sweep, "median": med_ms}
 
 
 def flash_diff(got, want, tol):
@@ -910,6 +1031,48 @@ def run_wide_frames(torch, cfgs, model, model_cpu):
     log(f"phase 3c: {WIDE_H}x{WIDE_W} launches {json.dumps(counts)}")
     if counts["minplus_pass2"] == 0 or counts["squared_edt_rowband"] == 0:
         raise RuntimeError(f"{WIDE_H}x{WIDE_W}: the EDT kernels never ran")
+
+
+def run_5mp_frame(torch, cfgs, model, model_cpu):
+    """Phase 3d: one 2048 x 2448 frame (a 5 MP machine-vision sensor; the
+    sparse family's scene at that size) in the default ``union`` mode on
+    the card, against the CPU path built the same way: same leaf, pixel
+    and flag. Its sentinel (H + W)^2 passes 2^24, so every min-plus of
+    its EDTs runs in the direct form."""
+    from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    _, n, seed, margin = FAMILIES[0]
+    scene = make_leaf_scene(MP5_H, MP5_W, num_leaves=n, seed=seed,
+                            margin=margin)
+    cx, cy = np.float32(CX * MP5_W / W), np.float32(CY * MP5_H / H)
+    fn = make_frame_fn(cfgs["union"], with_cnn=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    card_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = fn(*scene, cx, cy, F, model)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    ref = make_frame_fn(cfgs["union"], with_cnn=True, device="cpu")(
+        *scene, cx, cy, F, model_cpu)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    got = (int(res.leaf_id), res.grasp_uv.cpu().numpy().tolist(),
+           bool(res.degenerate))
+    want = (int(ref.leaf_id), ref.grasp_uv.numpy().tolist(),
+            bool(ref.degenerate))
+    log(f"frame {MP5_H}x{MP5_W} union: card (leaf, uv, degenerate) {got} "
+        f"cpu {want}; card ms {card_ms} (first call, second), cpu path "
+        f"{cpu_ms:.1f} ms; launches {json.dumps(counts)}")
+    if got != want or not bool(res.found):
+        raise RuntimeError(f"{MP5_H}x{MP5_W} union: card {got} != cpu "
+                           f"{want}")
+    if counts["minplus_pass2"] == 0:
+        raise RuntimeError(f"{MP5_H}x{MP5_W}: the min-plus never ran")
 
 
 def profile_frames(torch, fns, model, scenes):
@@ -1517,6 +1680,8 @@ def main() -> int:
     log("phase 3: card frames match the CPU path")
     run_wide_frames(torch, cfgs, model, model_cpu)
     log(f"phase 3c: {WIDE_H}x{WIDE_W} frames match the CPU path")
+    run_5mp_frame(torch, cfgs, model, model_cpu)
+    log(f"phase 3d: the {MP5_H}x{MP5_W} frame matches the CPU path")
 
     profile_frames(torch, fns, model, scenes)
     log("phase 4: profiled")

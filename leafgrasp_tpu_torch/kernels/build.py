@@ -62,8 +62,8 @@ _SIGNATURES = {
     "fused_attention_gate": [_VP] * 7 + [_I] * 8 + [_VP, _VP],
     # g2r, C, H, W, nb4 scratch, nb, out, stream
     "squared_edt_rowband": [_VP, _I, _I, _I, _VP, _VP, _VP, _VP],
-    # depth, ids, lo, inv_w, n, num, blocks, out, stream
-    "segment_histogram": [_VP] * 4 + [_I] * 3 + [_VP, _VP],
+    # depth, ids, lo, inv_w, n, num, r, blocks, out, stream
+    "segment_histogram": [_VP] * 4 + [_I] * 4 + [_VP, _VP],
     # q, k, v, pad, out, b, t, heads, kv_heads, hd, is_bf16,
     # strides (12 int64), scale, stream
     "flash_prefill": [_VP] * 5 + [_I] * 6 + [_VP, _F, _VP],

@@ -24,8 +24,9 @@
 //   g2[r, s] + (q - s)^2 = (g2[r, s] + s^2) - 2 q s + q^2,
 // so that h[r][s] = g2[r, s] + s^2 is staged once per value in shared
 // memory, the inner loop is acc = fminf(acc, fmaf(-2q, s, h)) (two
-// instructions a triple; the direct form costs a subtract, a multiply,
-// an add and a min), and q^2 is added once at the store. A warp owns one band tile:
+// instructions a triple; the direct form below costs two as well where
+// the tile's rows share the square), and q^2 is added once at the store.
+// A warp owns one band tile:
 // MP_ROWS rows x 32 * QPT query columns (QPT query columns and MP_ROWS
 // rows a thread, 8 * QPT accumulators), and reads h as float4 over s, one
 // broadcast 16-byte load for 4 * QPT triples, so the loop is bound by the
@@ -42,7 +43,7 @@
 // sources to the chunks that can win (the banded form); a tile never
 // straddles a chunk.
 //
-// Exactness. Every value is an integer. In the expanded form the callers
+// Exactness. In the expanded form every value is an integer: the callers
 // keep g2 <= 2^24 - 2 W^2 where it is finite (the wrapper states it), so
 // h < 2^24, -2 q s >= -2 W^2, and h - 2 q s = g2 + (q - s)^2 - q^2 lies in
 // (-2^24, 2^24): the fused multiply-add rounds once and that once is
@@ -51,15 +52,19 @@
 // any other evaluation order. The file is built with -fmad=false; the
 // multiply-add is the explicit intrinsic.
 //
-// The direct form (DIRECT = true) serves the frames whose sentinel leaves
-// no room for the expansion, g2 + W^2 <= 2^24 but g2 > 2^24 - 2 W^2
-// (2100 x 1600, say). It stages g2 as it is and adds no q^2 at the store;
-// a triple costs d = q - s (once for the tile's eight rows where the query
-// columns are shared), fmaf(d, d, g2) and a min: every value is an integer
-// of at most 2^24, so the one rounding of the multiply-add is exact, and
-// it is the plain version's g2 + d * d bit for bit. The wrapper picks the
-// form from the bound its caller states and W alone (kernels/minplus.py
-// minplus_form).
+// The direct form (DIRECT = true) serves every call outside the expanded
+// form's range: frames whose sentinel (H + W)^2 leaves no room for the
+// expansion (2048 x 2448, 2160 x 3840, 2100 x 1600), and calls that state
+// no bound. It stages g2 as it is and adds no q^2 at the store; a triple
+// costs d = q - s and dd = d * d (once for the tile's eight rows where the
+// query columns are shared), g2 + dd and a min. The square and the sum
+// are rounded one after the other (__fmul_rn, then __fadd_rn), as the
+// plain version and the JAX package compute g2 + (q - s)^2: the square
+// is exact while W <= 4097 and rounds alike everywhere past that, the sum
+// rounds once, and rounding is monotone, so the minimum is theirs bit for
+// bit whatever the values, past 2^24 included (a seedless frame's
+// sentinel). The wrapper picks the form from the bound its caller states
+// and W alone (kernels/minplus.py minplus_form).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -151,12 +156,15 @@ minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
         hv[r] = *reinterpret_cast<const float4*>(&sh[warp][r][s]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float d[QM][QPT];                       // q - s, direct form only
+        float dd[QM][QPT];                      // (q - s)^2, direct form only
         if (DIRECT) {
 #pragma unroll
           for (int m = 0; m < QM; ++m)
 #pragma unroll
-            for (int j = 0; j < QPT; ++j) d[m][j] = m2q[m][j] - sf;
+            for (int j = 0; j < QPT; ++j) {
+              const float d = m2q[m][j] - sf;
+              dd[m][j] = __fmul_rn(d, d);
+            }
         }
 #pragma unroll
         for (int r = 0; r < MP_ROWS; ++r) {
@@ -166,7 +174,7 @@ minplus_pass2_kernel(const float* __restrict__ g2, int R, int W,
           for (int j = 0; j < QPT; ++j) {
             const int m = PER_ROW ? r : 0;
             acc[r][j] = fminf(acc[r][j],
-                              DIRECT ? __fmaf_rn(d[m][j], d[m][j], h)
+                              DIRECT ? __fadd_rn(dd[m][j], h)
                                      : __fmaf_rn(m2q[m][j], sf, h));
           }
         }

@@ -15,28 +15,30 @@ Replaces the TPU kernels ``squared_edt_pass2`` and
 and every XLA min-plus of leafgrasp_tpu/ops/edt.py; the kernel source,
 with its bound and design, is ``csrc/minplus.cu``.
 
-The contract on values, on the card: ``g2`` is integer-valued and
-``+inf`` marks a column that is no source. The kernel runs in one of two
-forms, which ``minplus_form`` picks from ``W`` and the largest finite
-value the caller states (``g2_max``), with no host read:
+The contract on values, on the card: ``g2`` holds f32 values, ``+inf``
+marking a column that is no source. The kernel runs in one of two forms,
+which ``minplus_form`` picks from ``W`` and the largest finite value the
+caller states (``g2_max``), with no host read:
 
-* expanded, where ``g2_max <= 2^24 - 2 W^2`` (``max_g2(W)``): the square
-  is expanded into ``(g2 + s^2) - 2 q s + q^2``, one fused multiply-add a
-  source, and every intermediate is an integer below 2^24 in magnitude;
-* direct, where ``g2_max + W^2 <= 2^24``: ``fmaf(q - s, q - s, g2)``, an
-  integer of at most 2^24 rounded once;
-* otherwise it raises, where the plain version would not be exact
-  either.
+* expanded, where ``g2_max <= 2^24 - 2 W^2`` (``max_g2(W)``, integer
+  values): the square is expanded into ``(g2 + s^2) - 2 q s + q^2``, one
+  fused multiply-add a source, and every intermediate is an integer below
+  2^24 in magnitude, so nothing rounds;
+* direct, everywhere else and wherever no bound is stated:
+  ``(q - s)^2`` rounded to f32, then ``g2 + (q - s)^2`` rounded once.
 
-A call without ``g2_max`` keeps the expanded form's contract, finite
-values at most ``max_g2(W)``, and raises from the shape alone where that
-leaves no room for the sentinel of a frame as wide as it is tall,
-``(2 W)^2`` (``W > MAX_WIDTH``). Either way kernel and plain version
-agree bit for bit. The plain version computes the direct form
-``g2 + (q - s)^2``, exact while that sum stays at most 2^24.
-``check_frame`` holds a frame's shape to the same range on both devices;
-``ops/edt.py`` calls it before every min-plus and states the frame's
-sentinel as ``g2_max``.
+The direct form is the JAX package's own evaluation
+(leafgrasp_tpu/ops/edt.py, ``off = (q - s)^2`` then ``g2 + off``), and
+the plain version's: the square is exact while ``W <= 4097``
+(``(W - 1)^2 <= 2^24``) and rounds alike on every device past that, and
+the sum rounds once, the same way everywhere. Rounding is monotone, so
+the minimum of the rounded candidates is the same too: kernel, plain
+version and JAX agree bit for bit at every frame size and for any values,
+past 2^24 included (a seedless frame's sentinel ``(H + W)^2``, say).
+Within the expanded form's range both forms give the same result; the
+expanded one keeps the production frames (1080 x 1440, 1080 x 1920)
+where they were. ``ops/edt.py`` states each frame's sentinel as
+``g2_max``.
 """
 
 from __future__ import annotations
@@ -47,12 +49,10 @@ from leafgrasp_tpu_torch.kernels import LAUNCHES
 from leafgrasp_tpu_torch.kernels.build import check, load_library
 
 __all__ = ["minplus_pass2", "minplus_pass2_plain", "BAND_ROWS",
-           "BAND_COLS", "max_g2", "MAX_WIDTH", "check_frame",
-           "minplus_form"]
+           "BAND_COLS", "max_g2", "minplus_form"]
 
 BAND_ROWS = 8      # row tile of a band entry (MP_ROWS in the kernel)
 BAND_COLS = 128    # column chunk of a band entry (MP_CHUNK in the kernel)
-MAX_WIDTH = 1672   # the widest W with (2 W)^2 + 2 W^2 < 2^24
 
 
 def max_g2(w: int) -> int:
@@ -61,31 +61,14 @@ def max_g2(w: int) -> int:
 
 
 def minplus_form(w: int, g2_max: int | None = None) -> str:
-    """The form of the min-plus kernel that is exact at width ``w`` for
-    finite values of at most ``g2_max``: ``"expanded"`` or ``"direct"``.
-    Without ``g2_max`` the caller keeps ``max_g2(w)`` and ``w`` must be at
-    most ``MAX_WIDTH``. Raises where neither form is exact, which is where
-    the plain version is not exact either."""
-    if g2_max is None:
-        if w > MAX_WIDTH:
-            raise ValueError(f"W={w}: the sums of the min-plus kernel could "
-                             f"pass 2^24 (the widest W without a stated "
-                             f"bound is {MAX_WIDTH})")
+    """The form of the min-plus kernel at width ``w`` for finite values of
+    at most ``g2_max``: ``"expanded"`` where that is exact (``g2_max <=
+    max_g2(w)``), else ``"direct"``, which rounds as the plain version
+    and the JAX package do for any values; without ``g2_max``, direct."""
+    if g2_max is not None and g2_max <= max_g2(w):
         return "expanded"
-    if g2_max <= max_g2(w):
-        return "expanded"
-    if g2_max + w * w <= 1 << 24:
-        return "direct"
-    raise ValueError(f"values up to {g2_max} at W={w}: g2 + (q - s)^2 could "
-                     f"pass 2^24, the min-plus would not be exact")
+    return "direct"
 
-
-def check_frame(h: int, w: int) -> None:
-    """Raise where the min-plus over the pass-1 field of an ``h`` x ``w``
-    frame, whose largest value is the sentinel ``(h + w)^2``, would not
-    be exact: ``(H + W)^2 + W^2 <= 2^24``, on either device (the card
-    picks its form by ``minplus_form``, which covers that range whole)."""
-    minplus_form(w, (h + w) ** 2)
 
 # elements of the (R, S, nq) candidate block the plain version builds
 _PLAIN_BLOCK = 1 << 25
@@ -122,7 +105,8 @@ def minplus_pass2_plain(g2: torch.Tensor, qcol: torch.Tensor | None = None,
                         band: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version, chunked over source columns so the
     (R, S, nq) candidate block stays bounded (the unchunked (H, W, W)
-    tensor at 1080 x 1440 would be 8.9 GB)."""
+    tensor at 1080 x 1440 would be 8.9 GB). It rounds ``(q - s)^2``, then
+    ``g2 + (q - s)^2``, as the JAX package does."""
     s_hi = _check_args(g2, qcol, s_lo, s_hi, band)
     r, w = g2.shape
     dev = g2.device
@@ -159,10 +143,9 @@ def minplus_pass2(g2: torch.Tensor, qcol: torch.Tensor | None = None,
                   band: torch.Tensor | None = None,
                   g2_max: int | None = None) -> torch.Tensor:
     """The min-plus above: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. On the card ``g2`` keeps the module's
-    contract: integers, finite values at most ``g2_max`` where the caller
-    states it, else at most ``max_g2(W)`` with ``W <= MAX_WIDTH``; the form
-    follows from ``minplus_form``, which raises outside the exact range."""
+    version for a CPU tensor. ``g2_max``, the largest finite value of
+    ``g2`` where the caller knows it, lets ``minplus_form`` pick the
+    expanded form; either form gives the plain version's result."""
     if g2.device.type == "cpu":
         return minplus_pass2_plain(g2, qcol, s_lo, s_hi, band)
     if g2.device.type != "cuda":

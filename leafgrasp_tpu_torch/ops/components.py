@@ -85,7 +85,7 @@ def leaf_stats(mask_ids: torch.Tensor, depth: torch.Tensor,
     ``camera_cx/cy``/``f_norm`` are f32 0-dim tensors or numbers.
 
     ``hist_median`` takes the medians from the two-level histogram
-    (ops/median.py, three launches of the segment histogram kernel)
+    (ops/median.py, two launches of the segment histogram kernel)
     instead of the 18-round bisection; the two agree within
     range / 256^2, not bit for bit, so the bisection is the default (the
     counterpart of the JAX package's ``use_pallas`` argument here)."""

@@ -10,14 +10,13 @@ leafgrasp_tpu/ops/edt.py.
    window, the envelope's sampled columns, per-row refinement windows,
    or the banded sweep.
 
-All values are integer-valued f32 and the frame is small enough for the
-min-plus to be exact (``_pass2``, through which every min-plus here
-goes, holds the frame's shape to ``check_frame``, ``(H + W)^2 + W^2 <=
-2^24`` on either device, and states the frame's sentinel to the kernel,
-which picks its form from it), so each result is bit for bit the JAX
-package's. The data-dependent choices of the JAX
-version (banded vs full sweep, the envelope coverage guard) are Python
-branches on a scalar read back with ``host_read``.
+``_pass2`` states the frame's sentinel ``(H + W)^2`` to the kernel,
+which picks its form from it and rounds as the JAX package does at every
+frame size (see kernels/minplus.py), so each result is bit for bit the
+JAX package's, past 2^24 too (a seedless frame's sentinel). The
+data-dependent choices of the JAX version (banded vs full sweep, the
+envelope coverage guard) are Python branches on a scalar read back with
+``host_read``.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from leafgrasp_tpu_torch.kernels.minplus import (BAND_COLS, BAND_ROWS,
-                                                 check_frame, minplus_pass2)
+                                                 minplus_pass2)
 from leafgrasp_tpu_torch.kernels.rowband import squared_edt_rowband
 from leafgrasp_tpu_torch.utils.device import host_read
 
@@ -78,11 +77,9 @@ def nearest_seed_dist_1d(seeds: torch.Tensor, axis: int = 0) -> torch.Tensor:
 
 def _pass2(g2: torch.Tensor, h: int, **kw) -> torch.Tensor:
     """The min-plus over rows ``g2`` (R, W) of the pass-1 field of a
-    frame ``h`` rows tall: the one place that holds the frame's shape to
-    the range in which the min-plus is exact, and that states the field's
-    largest finite value, the sentinel ``(h + W)^2``, to the kernel."""
+    frame ``h`` rows tall, with the field's largest finite value, the
+    sentinel ``(h + W)^2``, stated to the kernel."""
     w = g2.shape[-1]
-    check_frame(h, w)
     return minplus_pass2(g2.contiguous(), g2_max=(h + w) ** 2, **kw)
 
 

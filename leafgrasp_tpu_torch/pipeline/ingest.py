@@ -129,7 +129,7 @@ class GraspService:
     device : None means CUDA (raises if CUDA is absent; there is no
         fallback to the CPU). The tests pass ``"cpu"``.
     hist_median : leaf selection takes its median depths from the
-        two-level histogram (ops/median.py, three launches of the
+        two-level histogram (ops/median.py, two launches of the
         segment-histogram kernel per frame) instead of the 18-round
         bisection. Default False: the two agree within 1e-5 m, not bit
         for bit.

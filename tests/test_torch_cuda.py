@@ -7,7 +7,8 @@ machine run it alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Without a CUDA device every test here skips. Tolerances: min-plus and
-row-banded EDT bit-exact (integer-valued f32, sums at most 2^24); fused scoring
+row-banded EDT bit-exact (integer-valued f32 to 2^24, and past it the
+plain version's rounding); fused scoring
 1e-5 absolute, valid mask equal; attention gate 1e-5 absolute; segment
 histogram counts equal; flash prefill 2e-5 absolute in f32, and in bf16
 2^-6 of the value plus 2^-6 of the largest value of the same output row
@@ -34,8 +35,8 @@ from leafgrasp_tpu_torch.kernels.flash_prefill import (flash_prefill,
                                                        flash_prefill_plain)
 from leafgrasp_tpu_torch.kernels.histogram import (NBINS, segment_histogram,
                                                    segment_histogram_plain)
-from leafgrasp_tpu_torch.kernels.minplus import (BAND_ROWS, MAX_WIDTH,
-                                                 max_g2, minplus_pass2,
+from leafgrasp_tpu_torch.kernels.minplus import (BAND_ROWS, max_g2,
+                                                 minplus_form, minplus_pass2,
                                                  minplus_pass2_plain)
 from leafgrasp_tpu_torch.kernels.rowband import (rowband_radii_plain,
                                                  squared_edt_rowband,
@@ -124,7 +125,6 @@ def test_minplus_forms_over_the_whole_exact_range_on_card(cuda, h, w, form):
     form's range) and the expanded form at W = 1920, each at the edge of
     its range (rows of the largest value it admits) and with the frame's
     sentinel, every query form: bit-exact against the plain version."""
-    from leafgrasp_tpu_torch.kernels.minplus import minplus_form
     big = (h + w) ** 2
     assert minplus_form(w, big) == form
     top = max_g2(w) if form == "expanded" else 2 ** 24 - w * w
@@ -142,55 +142,69 @@ def test_minplus_forms_over_the_whole_exact_range_on_card(cuda, h, w, form):
         assert torch.equal(got, minplus_pass2_plain(g2, **kw)), kw
 
 
+@pytest.mark.parametrize("h,w", [(2048, 2448), (2160, 3840)])
+def test_minplus_direct_form_past_2_24_on_card(cuda, h, w):
+    """A 5 MP and a 4K UHD frame, whose sentinel (H + W)^2 passes 2^24:
+    80 rows of the pass-1 field of a frame with seeds and of one without,
+    every query form and a source sub-range, in the direct form,
+    bit-exact against the plain version."""
+    big = (h + w) ** 2
+    assert big > 2 ** 24 and minplus_form(w, big) == "direct"
+    seeds = torch.zeros((h, w), dtype=torch.bool, device=cuda)
+    seeds[300:340, 100:140] = True
+    seeds[h - 500:h - 460, w - 200:w - 160] = True
+    for s in (seeds, torch.zeros_like(seeds)):
+        g = nearest_seed_dist_1d(s, axis=0).to(torch.float32)
+        g2 = (g * g)[h // 2 - 40:h // 2 + 40].contiguous()
+        ends = torch.tensor([0, 1, w // 2, w - 2, w - 1], dtype=torch.int32,
+                            device=cuda)
+        band = torch.full((80 // BAND_ROWS, -(-w // 128)), 4,
+                          dtype=torch.int32, device=cuda)
+        forms = [{}, {"qcol": ends}, {"qcol": ends[None, :].repeat(80, 1)},
+                 {"band": band},
+                 {"qcol": torch.arange(w // 2, w // 2 + 64, dtype=torch.int32,
+                                       device=cuda),
+                  "s_lo": w // 2 - 100, "s_hi": w // 2 + 164}]
+        for kw in forms:
+            got = minplus_pass2(g2, g2_max=big, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, minplus_pass2_plain(g2, **kw)), kw
+        if not s.any():
+            assert bool((got == float(big)).all())
+
+
 def test_minplus_card_raises_only_where_the_cpu_raises(cuda):
-    """Without a stated bound a width past MAX_WIDTH raises on the card
-    alone (the old contract); with the frame's sentinel stated, the card
-    raises exactly where the CPU raises, before any launch, and a frame
-    that only the direct form takes runs the frame path's EDTs on both
-    devices to the same field."""
+    """Neither device raises any more: a call that states no bound takes
+    the direct form, whatever its width, and a frame past the old range
+    runs the EDTs and every isolation mode of the grasp scorer on both
+    devices to the same fields."""
     import dataclasses
     from leafgrasp_tpu_torch.config import GraspScoringConfig
     from leafgrasp_tpu_torch.geometry.grasp_scorer import (
         compute_grasp_scores)
     from leafgrasp_tpu_torch.ops import edt as tedt
-    wide = torch.zeros((1, MAX_WIDTH + 1), device=cuda)
+    wide = torch.full((3, 1673), float(4000 ** 2), device=cuda)
+    wide[:, 7] = 0.0
+    assert torch.equal(minplus_pass2(wide), minplus_pass2_plain(wide))
+    h, w = 3840, 256                         # (H + W)^2 + W^2 past 2^24
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="2\\^24"):
-        minplus_pass2(wide)
-    q0 = torch.zeros(1, dtype=torch.int32)
-    assert minplus_pass2(wide.cpu(), qcol=q0).shape == (1, 1)
-    assert minplus_pass2(wide, g2_max=0).shape == (1, MAX_WIDTH + 1)
-    # (H + W)^2 + W^2 just passes 2^24: both devices raise, nothing launched
-    h, w = 3840, 256
-    assert (h + w) ** 2 + w * w > 2 ** 24
-    kernels.reset_launch_counts()
+    out = {}
     for dev in (cuda, torch.device("cpu")):
         leaf = torch.zeros((h, w), dtype=torch.bool, device=dev)
         leaf[5:60, 10:200] = True
         other = torch.zeros_like(leaf)
         other[100:130, 5:250] = True
         one = torch.ones((), dtype=torch.float32, device=dev)
-        with pytest.raises(ValueError, match="2\\^24"):
-            tedt.squared_edt(leaf)
+        res = [tedt.squared_edt(leaf), *tedt.edt_max_argmax(leaf)]
         for mode in ("union", "union_half", "reference_self"):
             cfg = dataclasses.replace(GraspScoringConfig(),
                                       isolation_context=mode)
-            with pytest.raises(ValueError, match="2\\^24"):
-                compute_grasp_scores(leaf, leaf | other,
-                                     torch.ones((h, w), device=dev), one,
-                                     one, one, cfg)
-    assert kernels.launch_counts()["minplus_pass2"] == 0
-    # (H + W)^2 + 2 W^2 passes 2^24, the direct form takes it
-    h, w = 3829, 256
-    leaf = torch.zeros((h, w), dtype=torch.bool)
-    leaf[5:60, 10:200] = True
-    leaf[3000:3100, 40:60] = True
-    want_full = tedt.squared_edt_full(leaf)
-    want_mx, want_at = tedt.edt_max_argmax(leaf)
-    got_full = tedt.squared_edt_full(leaf.to(cuda))
-    got_mx, got_at = tedt.edt_max_argmax(leaf.to(cuda))
-    assert torch.equal(got_full.cpu(), want_full)
-    assert float(got_mx) == float(want_mx) and int(got_at) == int(want_at)
+            res.append(compute_grasp_scores(
+                leaf, leaf | other, torch.ones((h, w), device=dev), one,
+                one, one, cfg).distance_map)
+        out[dev.type] = [r.cpu() for r in res]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
     assert kernels.launch_counts()["minplus_pass2"] >= 3
 
 
@@ -348,10 +362,65 @@ def test_histogram_kernel_matches_plain_on_card(cuda, shape, num):
     assert kernels.launch_counts()["segment_histogram"] == 1
 
 
+@pytest.mark.parametrize("case", ["two_brackets", "ragged", "offset_view",
+                                  "offsets_differ", "max_segments"])
+def test_histogram_kernel_brackets_and_alignment_on_card(cuda, case):
+    """Two brackets in one launch against the plain version and against
+    two one-bracket launches; a pixel count that is no multiple of the
+    vector width; an offset view (the unaligned head); depth and ids at
+    different offsets from a 16-byte boundary (the wrapper copies); and
+    the most segments the shared memory holds. Counts equal."""
+    from leafgrasp_tpu_torch.kernels.histogram import _MAX_SEGMENTS
+    rng = np.random.default_rng(13)
+    n, num, brackets = 1080 * 1440, 18, 2
+    if case == "ragged":
+        n = 1080 * 1440 - 5
+    elif case == "max_segments":
+        n, num, brackets = 300 * 401, _MAX_SEGMENTS, 1
+    depth = torch.as_tensor((rng.random(n + 8) * 0.5 + 0.3)
+                            .astype(np.float32), device=cuda)
+    ids = torch.as_tensor(rng.integers(-1, num + 2, n + 8).astype(np.int32),
+                          device=cuda)
+    d, i = depth[:n], ids[:n]
+    if case == "offset_view":
+        d, i = depth[3:n + 3], ids[3:n + 3]
+    elif case == "offsets_differ":
+        d, i = depth[1:n + 1], ids[2:n + 2]
+    lo = torch.as_tensor((0.3 + rng.random((brackets, num)) * 0.2)
+                         .astype(np.float32), device=cuda)
+    inv_w = NBINS / torch.as_tensor(
+        (0.05 + rng.random((brackets, num)) * 0.4).astype(np.float32),
+        device=cuda)
+    kernels.reset_launch_counts()
+    got = segment_histogram(d, i, lo, inv_w, num)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["segment_histogram"] == 1
+    assert torch.equal(got, segment_histogram_plain(d, i, lo, inv_w, num))
+    for r in range(brackets):
+        assert torch.equal(got[r], segment_histogram(d, i, lo[r], inv_w[r],
+                                                     num))
+    assert float(got.sum()) == brackets * float(((i >= 0) & (i < num)).sum())
+
+
+def test_masked_median_hist_launches_twice_on_card(cuda):
+    from leafgrasp_tpu_torch.ops.median import masked_median_hist
+    rng = np.random.default_rng(14)
+    depth = torch.as_tensor((rng.random((1080, 1440)) * 0.5 + 0.3)
+                            .astype(np.float32), device=cuda)
+    ids = torch.as_tensor(rng.integers(0, 18, (1080, 1440)).astype(np.int32),
+                          device=cuda)
+    counts = torch.bincount(ids.reshape(-1).long(), minlength=18)
+    kernels.reset_launch_counts()
+    got = masked_median_hist(depth, ids, counts, 18)
+    assert kernels.launch_counts()["segment_histogram"] == 2
+    want = masked_median_hist(depth.cpu(), ids.cpu(), counts.cpu(), 18)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_frame_launch_counts_on_card(cuda):
     """A ``union_half`` frame on the card launches the row-banded EDT at
     least twice; with ``hist_median=True`` it also launches the segment
-    histogram three times, and picks the default's leaf and pixel."""
+    histogram twice, and picks the default's leaf and pixel."""
     from leafgrasp_tpu_torch.config import (DEFAULT_CONFIG, FrameConfig,
                                             LeafSelectionConfig, ModelConfig)
     from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
@@ -374,7 +443,7 @@ def test_frame_launch_counts_on_card(cuda):
     assert counts["segment_histogram"] == 0
     kernels.reset_launch_counts()
     hist = make_frame_fn(cfg, with_cnn=True, hist_median=True)(*args)
-    assert kernels.launch_counts()["segment_histogram"] == 3
+    assert kernels.launch_counts()["segment_histogram"] == 2
     assert int(hist.leaf_id) == int(base.leaf_id) > 0
     assert torch.equal(hist.grasp_uv, base.grasp_uv)
 

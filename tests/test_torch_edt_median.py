@@ -5,7 +5,8 @@ inputs. The Pallas kernels run in interpret mode, as the JAX package's
 own tests run them on the CPU.
 
 Tolerances: every EDT bit-exact (integer squared distances, one
-correctly rounded root); histogram counts equal; the histogram median
+correctly rounded root), the row-banded plain version on +inf fields
+equal to a float64 brute force; histogram counts equal; the histogram median
 1e-6 against the JAX histogram median (the same arithmetic, different
 summation libraries) and range / 256^2 against ``np.median``;
 ``union_half`` distance fields bit-exact, score maps 1e-5 absolute,
@@ -138,6 +139,78 @@ def test_rowband_radii_bound_the_result():
     assert torch.equal(banded, out)
 
 
+def _rowband_brute(g2r):
+    """float64 reference of the row min-plus, +inf included."""
+    g = g2r.astype(np.float64)
+    i = np.arange(g.shape[1], dtype=np.float64)
+    off = (i[:, None] - i[None, :]) ** 2                    # (out, cand)
+    return (g[:, None, :, :] + off[None, :, :, None]).min(axis=2)
+
+
+def _radii_brute(g2r):
+    """float64 reference of the per-tile radii (``rowband_radii_plain``'s
+    definition): 8-row pooled minima, the min-plus at tile resolution
+    with the offset (8 (|I - K| + 1))^2, each tile's largest value over
+    its columns (columns past W bound nothing), floor(sqrt) + 1, at most
+    H."""
+    c, h, w = g2r.shape
+    rt, ct = -(-h // TILE_ROWS), -(-w // TILE_COLS)
+    g = np.full((c, rt * TILE_ROWS, w), np.inf)
+    g[:, :h] = g2r
+    pooled = g.reshape(c, rt, TILE_ROWS, w).min(axis=2)
+    k = np.arange(rt)
+    off = ((np.abs(k[:, None] - k[None, :]) + 1) * TILE_ROWS) ** 2.0
+    upper = (pooled[:, None, :, :] + off[None, :, :, None]).min(axis=2)
+    upper = np.pad(upper, ((0, 0), (0, 0), (0, ct * TILE_COLS - w)))
+    tile_max = upper.reshape(c, rt, ct, TILE_COLS).max(axis=3)
+    nb = np.floor(np.sqrt(np.minimum(tile_max, float(h) * h))) + 1
+    return np.minimum(nb, h).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["inf_rows", "inf_cols"])
+@pytest.mark.parametrize("shape", [(1, 24, 130), (2, 40, 257)])
+def test_rowband_plain_on_inf_fields_matches_float64(shape, case):
+    """Fields that are +inf but for a few finite rows, and finite fields
+    with whole +inf columns: the plain version, which the card holds the
+    row-banded kernel to, against a float64 brute force (the JAX kernel
+    cannot be the oracle here: it casts sqrt(+inf) to int32 and leaves
+    +inf where the answer is finite). The radii equal their float64
+    definition, and restricting each tile to its radius changes nothing."""
+    c, h, w = shape
+    rng = np.random.default_rng(h + w)
+    if case == "inf_rows":
+        g2r = np.full(shape, np.inf, np.float32)
+        g2r[0, 5, :64] = 0.0
+        g2r[0, h - 7, 100:] = rng.integers(0, 50, w - 100)
+        g2r[1:, 3] = rng.integers(0, 500, w)
+    else:
+        g2r = rng.integers(0, 2000, shape).astype(np.float32)
+        g2r[:, :, :10] = np.inf
+        g2r[:, :, 128:141] = np.inf
+        g2r[:, :, w - 1] = np.inf
+    want = _rowband_brute(g2r)
+    got = squared_edt_rowband_plain(_t(g2r)).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    assert np.isfinite(got).any() and not np.isfinite(got).all()
+    if case == "inf_rows":     # a finite row reaches every row, columns
+        assert np.isfinite(got[0, :, :64]).all()    # 64-99 have none
+        assert np.isinf(got[0, :, 64:100]).all()
+    nb = rowband_radii_plain(_t(g2r)).numpy()
+    np.testing.assert_array_equal(nb, _radii_brute(g2r))
+    rows = np.arange(h)
+    tile0 = (rows // TILE_ROWS) * TILE_ROWS
+    nb_px = np.repeat(np.repeat(nb, TILE_ROWS, 1)[:, :h], TILE_COLS,
+                      2)[:, :, :w]
+    lo = np.maximum(tile0[None, :, None] - nb_px, 0)
+    hi = np.minimum(tile0[None, :, None] + TILE_ROWS - 1 + nb_px, h - 1)
+    inside = (rows[None, None, :, None] >= lo[:, :, None, :]) \
+        & (rows[None, None, :, None] <= hi[:, :, None, :])
+    off = ((rows[:, None] - rows[None, :]) ** 2.0)[None, :, :, None]
+    banded = np.where(inside, g2r[:, None].astype(np.float64) + off,
+                      np.inf).min(axis=2)
+    np.testing.assert_array_equal(banded, want)
+
+
 def test_rowband_wrapper_checks():
     with pytest.raises(ValueError):
         squared_edt_rowband(torch.zeros((4, 4)))
@@ -196,6 +269,93 @@ def test_segment_histogram_ignores_ids_out_of_range_and_checks():
     with pytest.raises(ValueError):
         segment_histogram(depth.to("meta"), ids.to("meta"), lo.to("meta"),
                           inv_w.to("meta"), 4)
+
+
+@pytest.mark.parametrize("brackets", [1, 2])
+def test_segment_histogram_brackets_match_pallas(brackets):
+    """The (R, num) form: each slice equals one call of the JAX package's
+    ``segment_histogram`` (interpret mode) with that bracket, on a frame
+    whose pixel count is no multiple of 8, with ids out of range; the
+    wrapper on CPU tensors is the plain version, with no launch."""
+    from leafgrasp_tpu.ops.pallas_median import segment_histogram as j_hist
+    rng = np.random.default_rng(3 + brackets)
+    h, w, num = 37, 71, 7
+    depth = rng.random((h, w)).astype(np.float32)
+    ids = rng.integers(-1, num + 1, (h, w)).astype(np.int32)
+    lo = (rng.random((brackets, num)) * 0.4).astype(np.float32)
+    inv_w = (NBINS / (0.1 + rng.random((brackets, num)))).astype(np.float32)
+    kernels.reset_launch_counts()
+    got = segment_histogram(_t(depth), _t(ids), _t(lo), _t(inv_w), num)
+    assert got.shape == (brackets, num, NBINS) and got.dtype == torch.float32
+    for r in range(brackets):
+        want = np.asarray(j_hist(depth, ids, lo[r], inv_w[r], num,
+                                 interpret=True))
+        keep = (ids >= 0) & (ids < num)
+        want_np = np.stack([np.bincount(np.clip(
+            (depth[keep & (ids == n)] - lo[r, n]) * inv_w[r, n], 0,
+            NBINS - 1).astype(np.int32), minlength=NBINS)
+            for n in range(num)])
+        np.testing.assert_array_equal(want, want_np)
+        np.testing.assert_array_equal(got[r].numpy(), want_np)
+        one = segment_histogram_plain(_t(depth), _t(ids), _t(lo[r]),
+                                      _t(inv_w[r]), num)
+        assert torch.equal(one, got[r])
+    # a contiguous view at an offset (the kernel's unaligned head)
+    flat_d, flat_i = _t(depth).reshape(-1), _t(ids).reshape(-1)
+    assert torch.equal(
+        segment_histogram(flat_d[3:], flat_i[3:], _t(lo), _t(inv_w), num),
+        segment_histogram_plain(flat_d[3:].clone(), flat_i[3:].clone(),
+                                _t(lo), _t(inv_w), num))
+    assert kernels.launch_counts()["segment_histogram"] == 0
+
+
+def test_segment_histogram_checks_bracket_shapes():
+    depth = torch.rand((6, 9))
+    ids = torch.zeros((6, 9), dtype=torch.int32)
+    ok = torch.zeros((2, 4))
+    bad = [(torch.zeros((3, 4)), torch.zeros((3, 4))),     # R past 2
+           (ok, torch.zeros((1, 4))),                      # R differs
+           (ok, torch.zeros(4)),
+           (torch.zeros((2, 5)), torch.zeros((2, 5))),     # not num
+           (torch.zeros((1, 2, 4)), torch.zeros((1, 2, 4))),
+           (ok.double(), ok.double())]
+    for lo, inv_w in bad:
+        with pytest.raises(ValueError):
+            segment_histogram(depth, ids, lo, inv_w, 4)
+    assert segment_histogram(depth, ids, ok, ok, 4).shape == (2, 4, NBINS)
+
+
+def test_masked_median_hist_takes_two_histograms(monkeypatch):
+    """One histogram of one bracket, then one of the two order
+    statistics' brackets together; the medians are those of three
+    one-bracket histograms, bit for bit."""
+    from leafgrasp_tpu_torch.ops import median
+    rng = np.random.default_rng(4)
+    depth = _t((rng.random((50, 80)) * 0.5 + 0.3).astype(np.float32))
+    ids = _t(rng.integers(0, 5, (50, 80)).astype(np.int32))
+    counts = torch.bincount(ids.reshape(-1).long(), minlength=5)
+    shapes = []
+
+    def spy(d, i, lo, inv_w, num):
+        shapes.append(tuple(lo.shape))
+        return segment_histogram(d, i, lo, inv_w, num)
+
+    monkeypatch.setattr(median, "segment_histogram", spy)
+    got = median.masked_median_hist(depth, ids, counts, 5)
+    assert shapes == [(5,), (2, 5)]
+    # the three-call construction of the JAX package, one bracket a call
+    lo = depth.min().expand(5)
+    width = torch.clamp(depth.max() - depth.min(), min=1e-12).expand(5)
+    hist1 = segment_histogram(depth, ids, lo, NBINS / width, 5)
+    mids = []
+    for k in (torch.clamp(counts - 1, min=0) // 2, counts // 2):
+        kf = k.to(torch.float32)
+        lo_k, w_k = median._refine(hist1, kf, lo, width)
+        hist2 = segment_histogram(depth, ids, lo_k.contiguous(),
+                                  NBINS / w_k, 5)
+        lo_k, w_k = median._refine(hist2, kf, lo_k, w_k)
+        mids.append(lo_k + 0.5 * w_k)
+    assert torch.equal(got, 0.5 * (mids[0] + mids[1]))
 
 
 def test_masked_median_hist_matches_pallas_and_numpy():

@@ -6,8 +6,9 @@ CPU dispatch and argument checks, and the build's flags. The kernels
 themselves are held against their plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 
-Tolerances: min-plus bit-exact (integer-valued f32, sums below 2^24); fused
-scoring 1e-5 absolute, valid mask equal; attention gate 1e-5 absolute.
+Tolerances: min-plus and every EDT bit-exact (integer-valued f32 below
+2^24, and past it the JAX package's own rounding); fused scoring 1e-5
+absolute, valid mask equal; attention gate 1e-5 absolute.
 """
 
 import numpy as np
@@ -26,7 +27,7 @@ from leafgrasp_tpu_torch.kernels.attention import (MODES,
                                                    attention_gate_plain,
                                                    fused_attention_gate)
 from leafgrasp_tpu_torch.kernels.minplus import (BAND_COLS, BAND_ROWS,
-                                                 MAX_WIDTH, max_g2,
+                                                 max_g2, minplus_form,
                                                  minplus_pass2,
                                                  minplus_pass2_plain)
 from leafgrasp_tpu_torch.kernels.scoring import (fused_score_maps,
@@ -181,99 +182,175 @@ def test_minplus_plain_matches_pallas_at_the_edge_of_its_range():
     assert (got[4 * h:] == max_g2(w)).all()
 
 
+def _jax_edt():
+    import importlib
+    return importlib.import_module("leafgrasp_tpu.ops.edt")
+
+
 def test_minplus_and_edt_raise_where_sums_could_pass_2_24():
-    """From shapes alone, with no value read. The width limit of a call
-    that states no bound is the CUDA route's alone: the plain version and
-    the CPU dispatch take a wider row. ``check_frame`` holds a frame to
-    (H + W)^2 + W^2 <= 2^24 whatever the device (the card runs the
-    expanded form below 2^24 - 2 W^2 and the direct form above it), and
-    every EDT entry point and every isolation mode of the frame path
-    reaches it."""
-    import dataclasses
-    from leafgrasp_tpu_torch.config import GraspScoringConfig
+    """A 4090 x 8 frame, whose sentinel (H + W)^2 alone passes 2^24, with
+    seeds and without: every EDT entry point returns the JAX package's
+    values bit for bit (none raises, on either device, since the
+    min-plus rounds as JAX does past 2^24), and so does the grasp scorer's
+    distance field in every isolation mode, its maps within 1e-5."""
+    import leafgrasp_tpu.config as jcfg
+    from leafgrasp_tpu.geometry.grasp_scorer import \
+        compute_grasp_scores as j_scores
     from leafgrasp_tpu_torch.geometry.grasp_scorer import (
         compute_grasp_scores)
-    from leafgrasp_tpu_torch.kernels.minplus import check_frame, minplus_form
     from leafgrasp_tpu_torch.ops import edt as tedt
-    assert 6 * MAX_WIDTH ** 2 < 2 ** 24 <= 6 * (MAX_WIDTH + 1) ** 2
-    wide = torch.zeros((1, MAX_WIDTH + 1))
-    q0 = torch.zeros(1, dtype=torch.int32)
-    for fn in (minplus_pass2, minplus_pass2_plain):
-        assert fn(wide, qcol=q0).shape == (1, 1)
-    check_frame(1080, 1440)                    # the production frame fits
-    check_frame(1080, 1920)
-    check_frame(2100, 1600)                    # exact in the direct form only
-    check_frame(1080, MAX_WIDTH + 1)
-    assert minplus_form(1440, (1080 + 1440) ** 2) == "expanded"
-    assert minplus_form(1920, (1080 + 1920) ** 2) == "expanded"
-    assert minplus_form(1600, (2100 + 1600) ** 2) == "direct"
-    assert (1080 + 1440) ** 2 < max_g2(1440)
-    assert (2100 + 1600) ** 2 > max_g2(1600)
-    for shape in ((3000, 1600), (3829, 1000)):
-        with pytest.raises(ValueError, match="2\\^24"):
-            check_frame(*shape)
-    h, w = 4090, 8                             # (H + W)^2 alone passes 2^24
-    with pytest.raises(ValueError, match="2\\^24"):
-        check_frame(h, w)
-    tall = torch.zeros((h, w), dtype=torch.bool)
+    jedt = _jax_edt()
+    h, w = 4090, 8
+    assert (h + w) ** 2 > 2 ** 24 and minplus_form(w, (h + w) ** 2) \
+        == "direct"
+    tall = np.zeros((h, w), bool)
     tall[5:60, 2:6] = True
-    g2 = torch.zeros((h, w))
-    calls = [lambda: tedt.squared_edt(tall),
-             lambda: tedt.squared_edt_full(tall),
-             lambda: tedt.edt_max_argmax(tall),
-             lambda: tedt.edt_max_argmax(tall, g2=g2),
-             lambda: tedt.squared_edt(None, g2=g2),
-             lambda: tedt.squared_edt_window(g2, 0, 0, 16, 4),
-             lambda: tedt.squared_edt_window_src(g2[None], 0, 0, 16, 4, 2),
-             lambda: tedt.edt_max_argmax_batch(g2[None])]
-    other = torch.zeros_like(tall)
+    for seeds in (tall, np.zeros((h, w), bool)):
+        g = np.asarray(jedt.nearest_seed_dist_1d(jnp.asarray(seeds), axis=0),
+                       np.float32)
+        g2 = g * g
+        ts, tg = _t(seeds), _t(g2)
+        pairs = [
+            (jedt.squared_edt(seeds), tedt.squared_edt(ts)),
+            (jedt.squared_edt_full(seeds), tedt.squared_edt_full(ts)),
+            (jedt.edt_max_argmax(seeds), tedt.edt_max_argmax(ts)),
+            (jedt.edt_max_argmax(seeds, g2=g2),
+             tedt.edt_max_argmax(ts, g2=tg)),
+            (jedt.squared_edt(None, g2=g2), tedt.squared_edt(None, g2=tg)),
+            (jedt.squared_edt_window(g2, 2000, 0, 16, 4),
+             tedt.squared_edt_window(tg, 2000, 0, 16, 4)),
+            (jedt.squared_edt_window_src(g2[None], 2000, 2, 16, 4, 1),
+             tedt.squared_edt_window_src(tg[None], 2000, 2, 16, 4, 1)),
+            (jedt.edt_max_argmax_batch(g2[None]),
+             tedt.edt_max_argmax_batch(tg[None]))]
+        for i, (want, got) in enumerate(pairs):
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            for a, b in zip(want, got):
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a),
+                                              err_msg=str(i))
+        if not seeds.any():         # the sentinel itself, past 2^24
+            assert float(pairs[0][1].max()) == float((h + w) ** 2)
+    other = np.zeros((h, w), bool)
     other[100:130, 1:7] = True
-    zero = torch.zeros((), dtype=torch.float32)
+    other[3000:3100, 0:3] = True
+    depth = (0.4 + 1e-4 * np.arange(h * w).reshape(h, w) % 0.3) \
+        .astype(np.float32)
+    cx, cy, f = np.float32(4.0), np.float32(2045.0), np.float32(583.0)
     for mode in ("union", "union_half", "reference_self"):
-        cfg = dataclasses.replace(GraspScoringConfig(),
-                                  isolation_context=mode)
-        calls.append(lambda cfg=cfg: compute_grasp_scores(
-            tall, tall | other, torch.ones((h, w)), zero, zero, zero + 1.0,
-            cfg))
-    for call in calls:
-        with pytest.raises(ValueError, match="2\\^24"):
-            call()
+        want = j_scores(tall, tall | other, depth, cx, cy, f,
+                        cfg=jcfg.GraspScoringConfig(isolation_context=mode))
+        got = compute_grasp_scores(
+            _t(tall), _t(tall | other), _t(depth), _t(cx), _t(cy), _t(f),
+            cfg=GraspScoringConfig(isolation_context=mode))
+        np.testing.assert_array_equal(got.distance_map.numpy(),
+                                      np.asarray(want.distance_map))
+        for name in got._fields:
+            a, b = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+            if name == "valid_region":
+                np.testing.assert_array_equal(b, a)
+            else:
+                np.testing.assert_allclose(b, a, rtol=0, atol=1e-5,
+                                           err_msg=f"{mode} {name}")
+
+
+def _large_frame_seeds(h, w, seeded):
+    """Six 40 x 40 seed blobs beside a 600-column band without seeds, or
+    no seed at all."""
+    seeds = np.zeros((h, w), bool)
+    if seeded:
+        rng = np.random.default_rng(h * 7 + w)
+        band0 = w // 2 - 300
+        cols = np.concatenate([np.arange(0, band0 - 40),
+                               np.arange(band0 + 600, w - 40)])
+        for r, c in zip(rng.integers(0, h - 40, 6), rng.choice(cols, 6)):
+            seeds[r:r + 40, c:c + 40] = True
+    return seeds
+
+
+@pytest.mark.parametrize("seeded", [True, False])
+@pytest.mark.parametrize("shape", [(2048, 2448), (2448, 2048), (3000, 1600),
+                                   (2160, 3840)])
+def test_edt_windows_match_jax_on_large_frames(shape, seeded):
+    """A 5 MP sensor frame (2048 x 2448, and on its side), 3000 x 1600 and
+    4K UHD (2160 x 3840), whose sentinel (H + W)^2 passes 2^24: eight rows
+    of the pass-1 field at mid-height through ``squared_edt_window`` (all
+    columns) and ``squared_edt_window_src`` (a source sub-range in the
+    seedless band, where every row holds no seed and the answer is the
+    sentinel, and one beside a blob), bit for bit the JAX package's."""
+    from leafgrasp_tpu_torch.ops import edt as tedt
+    jedt = _jax_edt()
+    h, w = shape
+    big = (h + w) ** 2
+    assert big > 2 ** 24 and minplus_form(w, big) == "direct"
+    seeds = _large_frame_seeds(h, w, seeded)
+    g = np.asarray(jedt.nearest_seed_dist_1d(jnp.asarray(seeds), axis=0),
+                   np.float32)
+    g2 = g * g
+    r0 = h // 2 - 4
+    want = np.asarray(jedt.squared_edt_window(g2, r0, 0, 8, w))
+    got = tedt.squared_edt_window(_t(g2), r0, 0, 8, w).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.max() == np.float32(big) if not seeded else got.max() < big
+    band_c0 = w // 2 - 32
+    for c0 in (band_c0, 50):
+        want = np.asarray(jedt.squared_edt_window_src(g2[None], r0, c0, 8,
+                                                      64, 100))
+        got = tedt.squared_edt_window_src(_t(g2)[None], r0, c0, 8, 64,
+                                          100).numpy()
+        np.testing.assert_array_equal(got, want)
+        if c0 == band_c0:
+            assert (got == np.float32(big)).all()
 
 
 @pytest.mark.parametrize("h,w,g2_max,form", [
-    (1080, 1440, None, "expanded"),            # no bound stated: W alone
-    (None, MAX_WIDTH, None, "expanded"),
-    (None, MAX_WIDTH + 1, None, None),
+    (1080, 1440, None, "direct"),              # no bound stated: direct
+    (None, 1672, None, "direct"),
+    (None, 1673, None, "direct"),
     (1080, 1440, "frame", "expanded"),
     (1080, 1920, "frame", "expanded"),         # 3000^2 + 2 * 1920^2 < 2^24
-    (2100, 1600, "frame", "direct"),           # 3700^2 + 1600^2 <= 2^24
-    (3000, 1600, "frame", None),
-    (None, MAX_WIDTH + 1, 0, "expanded"),      # a stated bound lifts W
+    (2100, 1600, "frame", "direct"),
+    (3000, 1600, "frame", "direct"),
+    (2048, 2448, "frame", "direct"),           # a 5 MP sensor frame
+    (2160, 3840, "frame", "direct"),           # 4K UHD
+    (4090, 8, "frame", "direct"),              # (H + W)^2 alone past 2^24
+    (None, 1673, 0, "expanded"),
     (None, 1600, max_g2(1600), "expanded"),    # the expanded form's edge
     (None, 1600, max_g2(1600) + 1, "direct"),
-    (None, 1600, 2 ** 24 - 1600 ** 2, "direct"),   # the direct form's edge
-    (None, 1600, 2 ** 24 - 1600 ** 2 + 1, None),
+    (None, 1600, 2 ** 24 - 1600 ** 2, "direct"),
+    (None, 1600, 2 ** 24 - 1600 ** 2 + 1, "direct"),
+    (None, 2896, 0, "expanded"),               # 2 W^2 <= 2^24
+    (None, 2897, 0, "direct"),
 ])
 def test_minplus_form_at_each_edge(h, w, g2_max, form):
-    """The one choice of the min-plus form, shared by ``check_frame`` and
-    the wrapper: pure Python, so it is held here at each edge. ``None``
-    as the form means it raises; "frame" states the frame's sentinel
-    (H + W)^2, as ``ops/edt.py`` does."""
-    from leafgrasp_tpu_torch.kernels.minplus import check_frame, minplus_form
+    """The one choice of the min-plus form: pure Python, so it is held
+    here at each edge. The expanded form where it is exact, the direct
+    form, which rounds as the plain version and JAX do, everywhere else;
+    nothing raises. "frame" states the frame's sentinel (H + W)^2, as
+    ``ops/edt.py`` does."""
     if g2_max == "frame":
         g2_max = (h + w) ** 2
-    if form is None:
-        with pytest.raises(ValueError, match="2\\^24"):
-            minplus_form(w, g2_max)
-    else:
-        assert minplus_form(w, g2_max) == form
-    if h is not None and g2_max is not None:
-        # check_frame raises exactly where the card has no exact form
-        if form is None:
-            with pytest.raises(ValueError, match="2\\^24"):
-                check_frame(h, w)
-        else:
-            check_frame(h, w)
+    assert minplus_form(w, g2_max) == form
+    if form == "expanded" and g2_max is not None:
+        assert g2_max + 2 * w * w <= 2 ** 24
+
+
+def test_minplus_plain_rounds_as_jax_past_4097_columns():
+    """Past W = 4097 the square (q - s)^2 itself rounds: the plain version
+    rounds it before the sum, as the JAX package's ``off = (q - s)^2``
+    does, so the two agree bit for bit on rows with a source at each end
+    and the sentinel between."""
+    jedt = _jax_edt()
+    w = 4700
+    g2 = np.full((2, w), np.float32((8 + w) ** 2))
+    g2[:, 0] = 0.0
+    g2[1, w - 1] = 3.0
+    want = np.asarray(jedt.squared_edt_window(g2, 0, 0, 2, w))
+    got = minplus_pass2_plain(_t(g2)).numpy()
+    np.testing.assert_array_equal(got, want)
+    last = np.float32(w - 1)
+    assert got[0, w - 1] == np.multiply(last, last)
+    assert float(got[0, w - 1]) != (w - 1) ** 2      # it rounded
 
 
 # ---- fused scoring -----------------------------------------------------------
