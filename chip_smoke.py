@@ -5,7 +5,8 @@
 
 Phases, each a hard failure (non-zero exit):
 
-1. build the six CUDA sources (seven kernels) from ``leafgrasp_tpu_torch/kernels/csrc``
+1. build the six CUDA sources (the seven TPU kernels' counterparts and
+   the attention gate's gradient) from ``leafgrasp_tpu_torch/kernels/csrc``
    into ``build/kernels/`` (one ``nvcc`` per source, all started
    together);
 2. hold each kernel against its plain PyTorch version on the card at the
@@ -68,7 +69,28 @@ Phases, each a hard failure (non-zero exit):
    scorer)))``: every measured frame must carry a VLA choice, publish a
    message and launch the flash kernel 32 times; then the two
    degradations on purpose (a backend that raises, a selector that
-   raises), and ``TinyVLAScorer`` on the card once.
+   raises), and ``TinyVLAScorer`` on the card once;
+7. training: (a) the attention gate's gradient kernel against its plain
+   version at the four architectures' training shapes (batch 16) in the
+   three gated modes, x as the CNN passes it and contiguous, dy
+   contiguous, channel-major and with stride 0 along HW (the average
+   pool's gradient): dx within 1e-5 absolute, each parameter gradient
+   within 1e-5 of its norm, two runs bit-equal; mode ``none`` passes dy
+   through; (b) the teacher (``collect_from_frames``) on six 1080 x 1440
+   frames of the bench families in ``reference_self`` with the collector
+   on the card, the teacher's kernels (min-plus, fused scoring) counted,
+   the first frame's teacher point, score (1e-5) and negative pools
+   against the CPU path; (c) one train step of the standard CNN (dropout
+   0, the same weights) on the card against the CPU: every parameter a
+   finite gradient within 3e-5 of its norm of the CPU's, the gate and
+   its gradient launched once; then ``Trainer(device=None).fit`` of the
+   standard CNN from ``init_like_flax_`` (seed 42) on the stored
+   1230-sample corpus for 20 epochs, with the counts set to 0 just
+   before (the gate's backward must launch once a step, its forward once
+   a step and once a validation batch) and the best validation loss
+   below the first epoch's; a checkpoint saved and reloaded through
+   ``GraspQualityPredictor`` (same logits, same norm stats); one step
+   profiled.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -151,8 +173,12 @@ FLASH_TOL = {"float32": {"abs": 2e-5, "rel": 0.0, "row": 0.0},
              "bfloat16": {"abs": 0.0, "rel": 2.0 ** -6, "row": 2.0 ** -6}}
 PEAK_BF16_OPS_PER_S = 989e12
 VLA_ONLY_KERNELS = ("flash_prefill",)    # not on the frame path
+TRAIN_ONLY_KERNELS = ("attention_gate_backward",)   # the trainer's only
+NOT_ON_FRAMES = VLA_ONLY_KERNELS + TRAIN_ONLY_KERNELS
 KERNEL_FUNCTIONS = ("minplus_pass2_kernel", "fused_score_maps_kernel",
-                    "fused_attention_gate_kernel", "rowband_kernel",
+                    "fused_attention_gate_kernel",
+                    "attention_gate_backward_kernel",
+                    "attention_gate_grad_reduce_kernel", "rowband_kernel",
                     "rowband_radius_kernel",
                     "segment_histogram_kernel", "flash_prefill_kernel",
                     "flash_prefill_f32_kernel")
@@ -199,12 +225,14 @@ def kernel_function(key: str):
     return None
 
 
-def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
-    """Mean device milliseconds of the CUDA kernel named ``kernel`` per
-    call of ``fn`` (the kernel alone, without its wrapper's other ops),
-    from ``torch.profiler``."""
+def kernel_ms(fn, kernel, iters: int = 20) -> float:
+    """Mean device milliseconds of the CUDA kernel named ``kernel`` (or
+    of the kernels of a tuple of names, summed) per call of ``fn`` (the
+    kernels alone, without their wrapper's other ops), from
+    ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     # now and then a trace comes back without the records of a kernel
@@ -215,11 +243,12 @@ def kernel_ms(fn, kernel: str, iters: int = 20) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        seen = {kernel_function(ev.key) for ev in prof.key_averages()}
         total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                    if kernel_function(ev.key) == kernel)
-        if total > 0:
+                    if kernel_function(ev.key) in names)
+        if total > 0 and seen.issuperset(names):
             return total / 1e3 / iters
-    raise RuntimeError(f"the profiler saw no {kernel}")
+    raise RuntimeError(f"the profiler saw no {names}")
 
 
 def bound(bytes_moved: float, ops: float, peak_ops=PEAK_F32_OPS_PER_S):
@@ -1226,7 +1255,7 @@ def run_service(torch, dev, cfg, model, model_cpu, scenes):
     if len(hist_msgs) != len(hist_at):
         raise RuntimeError("service hist_median: a frame published nothing")
     missing = [k for k, v in counts.items()
-               if v == 0 and k not in VLA_ONLY_KERNELS]
+               if v == 0 and k not in NOT_ON_FRAMES]
     if missing:
         raise RuntimeError(f"the service launched no {missing}")
     log(f"phase 5: the hist_median service published the default's "
@@ -1617,6 +1646,449 @@ def run_vla(torch, dev, cnn, scenes):
     return counts
 
 
+# ---------------------------------------------------------------- phase 7 --
+
+# (N, HW, C, R) of the gate's gradient: the four architectures at the
+# training batch (lightweight, standard, deep, wide; R = C / 16)
+GATE_TRAIN_SHAPES = {"lightweight": (16, 16, 128, 8),
+                     "standard": (16, 16, 256, 16),
+                     "deep": (16, 4, 256, 16), "wide": (16, 16, 512, 32)}
+# dx against the plain version's, absolute; each parameter gradient's
+# largest difference against 1e-5 of that gradient's L2 norm (the card
+# sums the products over N, HW and C in another order)
+GATE_DX_TOL = 1e-5
+GATE_PARAM_REL_TOL = 1e-5
+# one train step of the standard CNN (dropout 0, same weights and batch)
+# on the card against the CPU: each gradient's largest difference against
+# 3e-5 of its L2 norm. cuDNN's f32 convolutions (TF32 off) and the CPU's
+# sum the 16 x 32 x 32 positions of a weight's gradient in other orders,
+# and the batch statistics of six BatchNorm layers pass that on (read on
+# an H100: at most 3.0e-6)
+TRAIN_GRAD_REL_TOL = 3e-5
+PROFILE_STEPS = 20
+# logits of the reloaded checkpoint against the trained model's, absolute
+RELOAD_TOL = 1e-6
+TEACHER_SCORE_TOL = 1e-5
+TEACHER_FRAMES_PER_FAMILY = 2
+TEACHER_MODE = "reference_self"
+TEACHER_KERNELS = ("minplus_pass2", "fused_score_maps")
+TRAIN_CORPUS = os.path.join("artifacts", "grasp_cnn_hard", "training_data",
+                            "training_data.npz")
+JAX_META = os.path.join("artifacts", "grasp_cnn_hard",
+                        "best_model.meta.json")
+TRAIN_EPOCHS = 20
+TRAIN_SEED = 42
+TRAIN_OUT = os.path.join("build", "chip_smoke_train")
+
+
+def _gate_params(torch, dev, rng, c, r):
+    def t(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale)
+                               .astype(np.float32), device=dev)
+    return (t(c, 1, scale=c ** -0.5), t(1), t(c, r, scale=c ** -0.5), t(r),
+            t(r, c, scale=r ** -0.5), t(c))
+
+
+def _rel_err(got, want) -> float:
+    """Largest difference over the L2 norm of ``want`` (0 against 0 is
+    0, anything else against 0 is infinite)."""
+    err = (got - want).abs().max().item()
+    norm = want.norm().item()
+    if norm == 0.0:
+        return 0.0 if err == 0.0 else float("inf")
+    return err / norm
+
+
+def check_attention_backward(torch, dev):
+    """Phase 7a: the gate's gradient kernel against its plain version at
+    the four architectures' training shapes, in the three gated modes,
+    for x as the CNN passes it (the NCHW view) and contiguous, and for dy
+    contiguous, channel-major and with stride 0 along HW (the average
+    pool's gradient); twice, bit-equal; mode ``none`` passes dy through
+    with no launch."""
+    from leafgrasp_tpu_torch.kernels import LAUNCHES
+    from leafgrasp_tpu_torch.kernels.attention import (
+        attention_gate_backward, attention_gate_backward_plain,
+        attention_gate_plain, fused_attention_gate)
+    rng = np.random.default_rng(7)
+    errs = {"dx": 0.0, "params_rel": 0.0}
+    inputs = {}
+    for arch, (n, hw, c, r) in GATE_TRAIN_SHAPES.items():
+        base = torch.relu(torch.as_tensor(
+            rng.standard_normal((n, c, hw)).astype(np.float32), device=dev))
+        params = _gate_params(torch, dev, rng, c, r)
+        xs = {"nchw_view": base.transpose(1, 2),
+              "contiguous": base.transpose(1, 2).contiguous()}
+        g = torch.as_tensor(rng.standard_normal((n, hw, c))
+                            .astype(np.float32), device=dev)
+        pooled = torch.as_tensor(rng.standard_normal((n, 1, c))
+                                 .astype(np.float32), device=dev) / hw
+        dys = {"contiguous": g, "channel_major": g.transpose(1, 2)
+               .contiguous().transpose(1, 2),
+               "pool_stride0": pooled.expand(n, hw, c)}
+        if dys["pool_stride0"].stride()[1] != 0:
+            raise RuntimeError("the pooled dy is not stride 0 along HW")
+        for xl, x in xs.items():
+            for dyl, dy in dys.items():
+                for mode in ("spatial", "channel", "hybrid"):
+                    got = attention_gate_backward(dy, x, *params, mode)
+                    again = attention_gate_backward(dy, x, *params, mode)
+                    want = attention_gate_backward_plain(dy, x, *params,
+                                                         mode)
+                    torch.cuda.synchronize()
+                    key = f"{arch}/{xl}/{dyl}/{mode}"
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got, again)):
+                        raise RuntimeError(f"gate backward {key}: two runs "
+                                           f"differ")
+                    dx_err = (got[0] - want[0]).abs().max().item()
+                    rel = max(_rel_err(a, b)
+                              for a, b in zip(got[1:], want[1:]))
+                    errs["dx"] = max(errs["dx"], dx_err)
+                    errs["params_rel"] = max(errs["params_rel"], rel)
+                    if dx_err > GATE_DX_TOL or rel > GATE_PARAM_REL_TOL:
+                        raise RuntimeError(f"gate backward {key}: dx err "
+                                           f"{dx_err}, parameter rel err "
+                                           f"{rel}")
+        inputs[arch] = (xs["nchw_view"], dys["pool_stride0"], params)
+    # mode none: no gate, dy passes through, nothing launches
+    x, dy, params = inputs["standard"]
+    xg = x.detach().clone().requires_grad_()
+    before = dict(LAUNCHES)
+    (dx_none,) = torch.autograd.grad(
+        fused_attention_gate(xg, *params, "none"), xg, dy)
+    if not torch.equal(dx_none, dy) or dict(LAUNCHES) != before:
+        raise RuntimeError("gate backward, mode none: dx != dy or a launch")
+    log(f"phase 7a: gate backward matches its plain version at "
+        f"{sorted(GATE_TRAIN_SHAPES)} x 2 x layouts 3 dy forms x 3 modes, "
+        f"bit-equal run to run; max dx err {errs['dx']:.3e}, max parameter "
+        f"err / norm {errs['params_rel']:.3e}")
+
+    # times at the main path's shape and mode: standard, spatial, x the
+    # NCHW view, dy the pool's stride-0 gradient
+    def plain_grad():
+        xp = x.detach().requires_grad_()
+        ps = [p.detach().requires_grad_() for p in params]
+        return torch.autograd.grad(attention_gate_plain(xp, *ps, "spatial"),
+                                   [xp, *ps], dy, allow_unused=True)
+    modes_ms = {}
+    for mode in ("spatial", "channel", "hybrid"):
+        modes_ms[mode] = {
+            "ms": kernel_ms(lambda: attention_gate_backward(
+                dy, x, *params, mode), ("attention_gate_backward_kernel",
+                                        "attention_gate_grad_reduce_kernel")),
+            "wrapper_ms": cuda_ms(lambda: attention_gate_backward(
+                dy, x, *params, mode))}
+    plain_ms = cuda_ms(plain_grad)
+    n, hw, c, r = GATE_TRAIN_SHAPES["standard"]
+    # x read once, dy's N*C stored values once, the gate's parameters
+    # once; dx and the parameter gradients written once. Operations: the
+    # recomputed gate (3 an element), dz (3), dx (5), dws (2)
+    b_ms, b_by = bound(4 * (2 * n * hw * c + n * c + 2 * (c + 1)),
+                       13.0 * n * hw * c)
+    rec = {"name": "attention_gate_backward", "route": "cuda",
+           "source": "leafgrasp_tpu_torch/kernels/csrc/attention.cu",
+           "replaces": "XLA autodiff of "
+                       "leafgrasp_tpu/models/attention_pallas.py:26-39",
+           "tolerance": {"dx_abs": GATE_DX_TOL,
+                         "param_rel_norm": GATE_PARAM_REL_TOL},
+           "max_abs_err": errs["dx"], "max_param_err_rel": errs["params_rel"],
+           "ms": modes_ms["spatial"]["ms"],
+           "wrapper_ms": modes_ms["spatial"]["wrapper_ms"],
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, "modes_ms": modes_ms}
+    log(f"attention_gate_backward {json.dumps(rec)}")
+    return rec
+
+
+def run_teacher(torch, dev, scenes):
+    """Phase 7b: the teacher labels 1080 x 1440 frames of the bench
+    families on the card and feeds the collector; the first frame's
+    teacher point, score and negative pools against the CPU path."""
+    import tempfile
+    from leafgrasp_tpu_torch.config import (DEFAULT_CONFIG,
+                                            GraspScoringConfig)
+    from leafgrasp_tpu_torch.geometry.leaf_scorer import select_optimal_leaf
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.training import (GraspDataCollector,
+                                              collect_from_frames,
+                                              teacher_select, verify_dataset)
+    cfg = DEFAULT_CONFIG.replace(
+        grasp=GraspScoringConfig(isolation_context=TEACHER_MODE))
+    frames = [(np.roll(scenes[name][0], 3 * i, axis=1),
+               np.roll(scenes[name][1], 3 * i, axis=1))
+              for name, *_ in FAMILIES
+              for i in range(TEACHER_FRAMES_PER_FAMILY)]
+    work = tempfile.mkdtemp(dir="build")
+    coll = GraspDataCollector(os.path.join(work, "card"), resume=False,
+                              seed=0, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    used = collect_from_frames(frames, coll, CX, CY, F, cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    missing = [k for k in TEACHER_KERNELS if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"phase 7b: the teacher launched no {missing}")
+    report = verify_dataset(coll.dataset())
+    if used != len(frames) or not report["ok"]:
+        raise RuntimeError(f"phase 7b: {used} of {len(frames)} frames used, "
+                           f"dataset report {report['problems']}")
+    log(f"phase 7b: teacher on {len(frames)} {H}x{W} frames "
+        f"({TEACHER_MODE}) in {wall:.3f} s ({wall / len(frames) * 1e3:.1f} "
+        f"ms a frame with the collector); stats {json.dumps(coll.stats)}; "
+        f"launches {json.dumps(counts)}")
+
+    # the first frame on both devices
+    mask, depth = frames[0]
+    picks = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = torch.as_tensor(mask, device=d).to(torch.int32)
+        dep = torch.as_tensor(depth, device=d)
+        sel = select_optimal_leaf(m, dep, *(torch.tensor(np.float32(v),
+                                                         device=d)
+                                            for v in (CX, CY, F)),
+                                  cfg=cfg.leaf, frame=cfg.frame)
+        leaf = m == sel.best_leaf_id
+        point, total, _ = teacher_select(leaf, m > 0, dep, CX, CY, F, cfg,
+                                         device=d)
+        pools = GraspDataCollector(os.path.join(work, name), resume=False,
+                                   device=d).negative_pools(leaf)
+        picks[name] = (int(sel.best_leaf_id), point, total,
+                       [[(int(x), int(y)) for x, y in p] for p in pools])
+    card, cpu = picks["card"], picks["cpu"]
+    if card[:2] != cpu[:2] or abs(card[2] - cpu[2]) > TEACHER_SCORE_TOL \
+            or card[3] != cpu[3]:
+        raise RuntimeError(f"phase 7b: card (leaf, point, score) "
+                           f"{card[:3]} != cpu {cpu[:3]} or the pools differ")
+    log(f"phase 7b: first frame on card and CPU: leaf {card[0]}, teacher "
+        f"point {card[1]}, score {card[2]:.7f} / {cpu[2]:.7f}; pools "
+        f"(tip, stem, edge) of {[len(p) for p in card[3]]} points equal")
+    return counts
+
+
+def _corpus():
+    data = np.load(TRAIN_CORPUS)
+    return {k: data[k] for k in data.files}
+
+
+def check_train_step(torch, dev, dataset):
+    """Phase 7c, first: one train step of the standard CNN, dropout 0,
+    from the same weights and batch on the card and on the CPU; every
+    parameter must get a finite gradient that agrees with the CPU's."""
+    from leafgrasp_tpu_torch.config import ModelConfig, TrainConfig
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                      batchnorm_fed_biases,
+                                                      init_like_flax_)
+    from leafgrasp_tpu_torch.training.train import (bce_with_logits,
+                                                    normalize_dataset)
+    bs = TrainConfig().batch_size
+    dn, sn, _ = normalize_dataset(
+        torch.as_tensor(dataset["depth_patches"][:bs]),
+        torch.as_tensor(dataset["score_patches"][:bs]))
+    maskp = torch.as_tensor(dataset["mask_patches"][:bs])
+    feats = torch.cat([dn[..., None], maskp[..., None],
+                       sn.permute(0, 2, 3, 1)], dim=-1)
+    labels = torch.as_tensor(dataset["labels"][:bs].astype(np.float32))
+    cfg = ModelConfig(conv_dropout=0.0, fc_dropout=(0.0, 0.0, 0.0))
+    cpu = init_like_flax_(GraspPointCNN(cfg),
+                          torch.Generator().manual_seed(TRAIN_SEED))
+    card = copy.deepcopy(cpu).to(dev)
+    grads, counts = {}, None
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for name, model, d in (("card", card, dev),
+                           ("cpu", cpu, torch.device("cpu"))):
+        model.train()
+        loss = bce_with_logits(model(feats.to(d)), labels.to(d), 2.0)
+        loss.backward()
+        grads[name] = {k: p.grad for k, p in model.named_parameters()}
+        if counts is None:
+            torch.cuda.synchronize()
+            counts = launch_counts()
+    if counts["fused_attention_gate"] != 1 \
+            or counts["attention_gate_backward"] != 1:
+        raise RuntimeError(f"phase 7c: one step launched the gate "
+                           f"{counts['fused_attention_gate']} and its "
+                           f"backward {counts['attention_gate_backward']} "
+                           f"times, not once each")
+    errs = {}
+    bn_fed = batchnorm_fed_biases(cpu)
+    for k, g_cpu in grads["cpu"].items():
+        g = grads["card"][k]
+        if g is None or not torch.isfinite(g).all():
+            raise RuntimeError(f"phase 7c: parameter {k} has no finite "
+                               f"gradient on the card: {g}")
+        if k in bn_fed:
+            # its exact gradient is 0 (the batch mean cancels it); both
+            # devices give rounding noise, held against the layer's weight
+            ref = grads["cpu"][k[:-len("bias")] + "weight"]
+            errs[k] = (g.cpu() - g_cpu).abs().max().item() / ref.norm().item()
+        else:
+            if not g.abs().max().item() > 0:
+                raise RuntimeError(f"phase 7c: parameter {k} has a zero "
+                                   f"gradient on the card")
+            errs[k] = _rel_err(g.cpu(), g_cpu)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    if worst[0][1] > TRAIN_GRAD_REL_TOL:
+        raise RuntimeError(f"phase 7c: gradients differ from the CPU's: "
+                           f"{worst[:5]}")
+    log(f"phase 7c: one train step, every one of {len(grads['cpu'])} "
+        f"parameters (encoder, gate, dense, head) has a finite gradient on "
+        f"the card; largest differences from the CPU's, over the norm "
+        f"{json.dumps(dict(worst[:6]))}; gate forward and backward "
+        f"launched once each")
+
+
+def profile_train_step(torch, dev, dataset):
+    """Device busy time and launches of one train step (standard CNN,
+    batch 16, after warm-up steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    from leafgrasp_tpu_torch.config import ModelConfig, TrainConfig
+    from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                      init_like_flax_)
+    from leafgrasp_tpu_torch.training.train import (make_optimizer,
+                                                    make_train_step)
+    tcfg = TrainConfig()
+    bs = tcfg.batch_size
+    model = init_like_flax_(GraspPointCNN(ModelConfig()),
+                            torch.Generator().manual_seed(TRAIN_SEED)).to(dev)
+    step = make_train_step(model, make_optimizer(model, tcfg), tcfg)
+    feats = torch.randn((bs, 32, 32, 9), device=dev)
+    labels = (torch.arange(bs, device=dev) % 2).to(torch.float32)
+    ones = torch.ones(bs, device=dev)
+    for _ in range(5):
+        step(feats, labels, ones, tcfg.pos_weight)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        step(feats, labels, ones, tcfg.pos_weight)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(feats, labels, ones, tcfg.pos_weight)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: the optimizer's range annotation spans kernels too
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not ev.is_user_annotation:
+            rec = by_name.setdefault(ev.name, [0.0, 0])
+            rec[0] += ev.self_device_time_total / 1e3
+            rec[1] += 1
+    kernels = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                     reverse=True)
+    busy = sum(k[0] for k in kernels)
+    out = {"step_ms_unprofiled": step_ms, "wall_ms": wall_ms,
+           "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+           "kernel_launches": sum(k[1] for k in kernels),
+           "top": [{"ms": ms, "count": n, "name": name[:80]}
+                   for ms, n, name in kernels[:8]]}
+    log(f"phase 7c profile of one train step {json.dumps(out)}")
+    if not busy:
+        raise RuntimeError("phase 7c: the profiled step ran nothing on the "
+                           "card")
+    return out
+
+
+def run_training(torch, dev):
+    """Phase 7c: the trainer on the card (standard CNN from
+    ``init_like_flax_`` with seed 42, the stored corpus, the TrainConfig
+    defaults, 20 epochs), then a checkpoint reloaded through
+    ``GraspQualityPredictor``."""
+    from leafgrasp_tpu_torch.config import ModelConfig, TrainConfig
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.models.predictor import GraspQualityPredictor
+    from leafgrasp_tpu_torch.training import (Trainer, save_checkpoint)
+    from leafgrasp_tpu_torch.training.checkpoint import best_model_path
+    dataset = _corpus()
+    check_train_step(torch, dev, dataset)
+    tcfg = TrainConfig(seed=TRAIN_SEED)
+    with open(JAX_META) as f:
+        jax_meta = json.load(f)
+    jax_f1 = jax_meta["metrics"]["f1_score"]
+    epoch_end = []
+
+    def log_epoch(**kw):
+        torch.cuda.synchronize()
+        epoch_end.append(time.perf_counter())
+        log(f"phase 7c epoch {kw['epoch']}: train_loss "
+            f"{kw['train_loss']:.5f} val_loss {kw['val_loss']:.5f} val F1 "
+            f"{kw['f1_score']:.2f} (lr {kw['lr']:.2e}; the JAX package's "
+            f"checkpoint: F1 {jax_f1:.2f} at epoch {jax_meta['epoch']})")
+
+    trainer = Trainer(ModelConfig(), tcfg, device=None)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = trainer.fit(dataset, epochs=TRAIN_EPOCHS, log_fn=log_epoch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n = len(dataset["labels"])
+    n_train = int((1.0 - tcfg.val_fraction) * n)
+    steps = -(-n_train // tcfg.batch_size)
+    n_val_batches = -(-(n - n_train) // tcfg.batch_size)
+    epochs = len(res.history["val_loss"])
+    if counts["attention_gate_backward"] != steps * epochs \
+            or counts["fused_attention_gate"] \
+            != (steps + n_val_batches) * epochs:
+        raise RuntimeError(f"phase 7c: {epochs} epochs of {steps} steps "
+                           f"launched the gate backward "
+                           f"{counts['attention_gate_backward']} times and "
+                           f"its forward {counts['fused_attention_gate']}")
+    first_val = res.history["val_loss"][0]
+    if not res.best_val_loss < first_val:
+        raise RuntimeError(f"phase 7c: best val loss {res.best_val_loss} "
+                           f"not below the first epoch's {first_val}")
+    ep_s = [b - a for a, b in zip([t0] + epoch_end[:-1], epoch_end)]
+    med = statistics.median(ep_s)
+    perf = {"epochs": epochs, "steps_per_epoch": steps,
+            "fit_s": wall, "epoch_s": ep_s, "median_epoch_s": med,
+            "steps_per_s": steps / med,
+            "samples_per_s": steps * tcfg.batch_size / med,
+            "best_epoch": res.best_epoch, "best_val_loss": res.best_val_loss,
+            "first_val_loss": first_val,
+            "best_f1": res.metrics["f1_score"],
+            "best_f1_calibrated": res.metrics["calibrated"]["f1_score"],
+            "jax_checkpoint_f1": jax_f1, "jax_checkpoint_epoch":
+                jax_meta["epoch"]}
+    log(f"phase 7c: trained {json.dumps(perf)}; launches "
+        f"{json.dumps(counts)}")
+
+    path = save_checkpoint(best_model_path(TRAIN_OUT),
+                           res.model.state_dict(),
+                           optimizer_state=res.optimizer_state,
+                           norm_stats=res.norm_stats, metrics=res.metrics,
+                           history=res.history, epoch=res.best_epoch)
+    pred = GraspQualityPredictor(ModelConfig(), device=None).load(path)
+    feats = torch.randn((64, 32, 32, 9), generator=torch.Generator()
+                        .manual_seed(1)).to(dev)
+    with torch.no_grad():
+        want = res.model.eval()(feats)
+        got = pred.model(feats)
+    diff = (got - want).abs().max().item()
+    stats_ok = all(np.array_equal(pred.norm_stats[k], getattr(
+        res.norm_stats, k).cpu().numpy()) for k in res.norm_stats._fields)
+    if diff > RELOAD_TOL or not stats_ok:
+        raise RuntimeError(f"phase 7c: the reloaded checkpoint's logits "
+                           f"differ by {diff} or its norm stats differ")
+    log(f"phase 7c: checkpoint {path} reloaded through "
+        f"GraspQualityPredictor: logits within {diff:.1e}, norm stats equal")
+    perf["profile"] = profile_train_step(torch, dev, dataset)
+    return counts, perf
+
+
 def main() -> int:
     try:
         import torch
@@ -1673,7 +2145,7 @@ def main() -> int:
     for key, val in frame_ms.items():
         log(f"frame_ms {key} {json.dumps(val)}")
     missing = [k for k, v in counts.items()
-               if v == 0 and k not in VLA_ONLY_KERNELS]
+               if v == 0 and k not in NOT_ON_FRAMES]
     if missing:
         raise RuntimeError(f"the main path launched no {missing}")
     cross_check(results, cfgs, model_cpu, scenes)
@@ -1693,12 +2165,20 @@ def main() -> int:
         vla_counts = run_vla(torch, dev, model, scenes)
     log("phase 6: the VLA serve path ran at full width")
 
+    records.append(check_attention_backward(torch, dev))
+    teacher_counts = run_teacher(torch, dev, scenes)
+    train_counts, train_perf = run_training(torch, dev)
+    log(f"phase 7: the teacher labelled frames and the trainer trained the "
+        f"standard CNN on the card ({train_perf['epochs']} epochs, median "
+        f"{train_perf['median_epoch_s']:.3f} s an epoch)")
+
+    phases = {"frames": counts, "service": service_counts,
+              "vla_service": vla_counts, "teacher": teacher_counts,
+              "train": train_counts}
     for rec in records:
-        rec["launches_frames"] = counts[rec["name"]]
-        rec["launches_service"] = service_counts[rec["name"]]
-        rec["launches_vla_service"] = vla_counts[rec["name"]]
-        rec["launches"] = (counts[rec["name"]] + service_counts[rec["name"]]
-                           + vla_counts[rec["name"]])
+        for phase, cnt in phases.items():
+            rec[f"launches_{phase}"] = cnt[rec["name"]]
+        rec["launches"] = sum(cnt[rec["name"]] for cnt in phases.values())
         if rec["launches"] == 0:
             raise RuntimeError(f"no path launched {rec['name']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -24,20 +24,20 @@ import torch
 from leafgrasp_tpu_torch.config import GraspScoringConfig
 from leafgrasp_tpu_torch.kernels.scoring import fused_score_maps
 from leafgrasp_tpu_torch.ops.conv import gradient_magnitude
-from leafgrasp_tpu_torch.ops.edt import (directional_seed_dist_1d, edt_batch,
-                                        edt_max_argmax,
+from leafgrasp_tpu_torch.ops.edt import (directional_seed_dist_1d, edt,
+                                        edt_batch, edt_max_argmax,
                                         edt_max_argmax_batch, exact_sqrt,
                                         nearest_seed_dist_1d, squared_edt,
                                         squared_edt_window,
                                         squared_edt_window_src)
 from leafgrasp_tpu_torch.ops.morphology import (dilate,
                                                 dilated_vertical_dist_multi,
-                                                elliptical_kernel)
+                                                elliptical_kernel, erode)
 from leafgrasp_tpu_torch.ops.pca import mask_orientation, min_area_rect
 from leafgrasp_tpu_torch.utils.device import host_read
 
 __all__ = ["GraspScores", "SCORE_CHANNELS", "compute_grasp_scores",
-           "stem_penalty_map"]
+           "stem_penalty_map", "tip_penalty_map"]
 
 # Channel order consumed by the CNN (grasp_point_selector.py:95-99).
 SCORE_CHANNELS = ("sdf_score", "approach_score", "flatness_map",
@@ -59,6 +59,21 @@ class GraspScores(NamedTuple):
     def stacked_channels(self) -> torch.Tensor:
         """(7, H, W) stack in CNN channel order."""
         return torch.stack([getattr(self, name) for name in SCORE_CHANNELS])
+
+
+def tip_penalty_map(leaf_mask: torch.Tensor,
+                    kernel_size: int = 15) -> torch.Tensor:
+    """Tip-proximity penalty of the data-collection (teacher) selector
+    (grasp_point_selector_bkp / grasp_point_selector.py:703-716; JAX
+    ``tip_penalty_map``): 1 at the dilated tip bands, falling with the
+    distance from them."""
+    m = leaf_mask.to(torch.bool)
+    k = elliptical_kernel(kernel_size)
+    tips = m & ~erode(m, k)
+    tip_area = dilate(tips, k) & m
+    dist_from_tips = edt(tip_area)
+    penalty = 1.0 - dist_from_tips / (dist_from_tips.max() + 1e-6)
+    return penalty * m.to(torch.float32)
 
 
 def stem_penalty_map(leaf_mask: torch.Tensor,

@@ -47,6 +47,7 @@ FILE_FLAGS = {"flash_prefill.cu": []}
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures of the exported launchers (each returns a cudaError_t).
 _SIGNATURES = {
@@ -60,6 +61,10 @@ _SIGNATURES = {
     # x, ws, bs, w1, b1, w2, b2, N, HW, C, R, spatial, channel, cmajor,
     # vec, out, stream
     "fused_attention_gate": [_VP] * 7 + [_I] * 8 + [_VP, _VP],
+    # dy, its strides (3), x, its strides (3), ws, bs, w1, b1, w2, b2, N,
+    # HW, C, R, spatial, channel, dx, its strides (3), part, grads, stream
+    "attention_gate_backward": [_VP] + [_L] * 3 + [_VP] + [_L] * 3
+    + [_VP] * 6 + [_I] * 6 + [_VP] + [_L] * 3 + [_VP] * 3,
     # g2r, C, H, W, nb4 scratch, nb, out, stream
     "squared_edt_rowband": [_VP, _I, _I, _I, _VP, _VP, _VP, _VP],
     # depth, ids, lo, inv_w, n, num, r, blocks, out, stream

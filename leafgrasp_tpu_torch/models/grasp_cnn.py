@@ -20,6 +20,7 @@ from leafgrasp_tpu_torch.config import ModelConfig
 from leafgrasp_tpu_torch.kernels.attention import fused_attention_gate
 
 __all__ = ["GraspPointCNN", "AttentionGate", "ARCHITECTURES", "init_random_",
+           "init_like_flax_", "batchnorm_fed_biases",
            "ml_scores_from_logits"]
 
 # The 4 encoder architectures swept by the reference
@@ -31,17 +32,52 @@ ARCHITECTURES = {
     "wide": (128, 256, 512),
 }
 
-# Flax's BatchNorm epsilon
+# Flax's BatchNorm epsilon and momentum (ra = 0.99 ra + 0.01 stat)
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.99
+
+
+class _FlaxBatchNorm:
+    """Train-mode statistics of ``flax.linen.BatchNorm``: the batch mean
+    and the biased variance ``E[x^2] - E[x]^2`` (clipped at 0) normalize
+    the batch and update the running averages with Flax's momentum. Eval
+    mode is torch's, on the running statistics."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            for avg, stat in ((self.running_mean, mean),
+                              (self.running_var, var)):
+                avg.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM)
+                                           * stat.detach())
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    def __init__(self, features: int):
+        super().__init__(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    def __init__(self, features: int):
+        super().__init__(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
 
 class EncoderBlock(nn.Module):
     def __init__(self, in_ch: int, filters: int, dropout: float):
         super().__init__()
         self.conv0 = nn.Conv2d(in_ch, filters, 3, padding=1)
-        self.bn0 = nn.BatchNorm2d(filters, eps=BN_EPS)
+        self.bn0 = BatchNorm2d(filters)
         self.conv1 = nn.Conv2d(filters, filters, 3, padding=1)
-        self.bn1 = nn.BatchNorm2d(filters, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(filters)
         self.pool = nn.MaxPool2d(2, 2)
         self.drop = nn.Dropout(dropout)
 
@@ -109,7 +145,7 @@ class GraspPointCNN(nn.Module):
         dense, bns, drops = [], [], []
         for width, drop in zip(widths, cfg.fc_dropout):
             dense.append(nn.Linear(ch, width))
-            bns.append(nn.BatchNorm1d(width, eps=BN_EPS))
+            bns.append(BatchNorm1d(width))
             drops.append(nn.Dropout(drop))
             ch = width
         self.dense = nn.ModuleList(dense)
@@ -152,6 +188,59 @@ def init_random_(model: GraspPointCNN, seed: int = 0) -> GraspPointCNN:
             else:
                 val = rng.uniform(0.8, 1.2, shape)
             t.copy_(torch.as_tensor(val, dtype=t.dtype))
+    return model
+
+
+def batchnorm_fed_biases(model: GraspPointCNN) -> tuple:
+    """Names of the biases that feed a BatchNorm (every convolution's and
+    every dense layer's but the head's). In train mode the batch mean
+    cancels them: their exact gradient is 0, and a computed one is
+    rounding noise."""
+    return tuple(f"{name}.bias" for name, mod in model.named_modules()
+                 if isinstance(mod, (nn.Conv2d, nn.Linear))
+                 and name != "head")
+
+
+# Flax's variance_scaling(..., "truncated_normal"): a normal cut at two
+# standard deviations, widened so that the cut one has the asked variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def _trunc_normal_(t: torch.Tensor, scale: float, fan: int,
+                   generator: torch.Generator) -> None:
+    std = float(np.sqrt(scale / fan)) / _TRUNC_STD
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+@torch.no_grad()
+def init_like_flax_(model: GraspPointCNN,
+                    generator: torch.Generator) -> GraspPointCNN:
+    """Initial weights with the Flax model's schemes
+    (leafgrasp_tpu/models/grasp_cnn.py:37-46): convolutions truncated
+    normal, variance 2 / fan-out (kh kw out); dense layers 2 / fan-in;
+    the attention gate's kernels 1 / fan-in (LeCun, their first axis);
+    zero biases; BatchNorm scale 1, bias 0, mean 0, variance 1. Draws
+    from ``generator`` (a CPU generator gives the same weights for any
+    device the model is moved to afterwards)."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            o, _, kh, kw = mod.weight.shape
+            _trunc_normal_(mod.weight, 2.0, kh * kw * o, generator)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Linear):
+            _trunc_normal_(mod.weight, 2.0, mod.weight.shape[1], generator)
+            mod.bias.zero_()
+        elif isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            mod.reset_running_stats()
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, AttentionGate):
+            for name, p in mod.named_parameters(recurse=False):
+                if name.endswith("kernel"):
+                    _trunc_normal_(p, 1.0, p.shape[0], generator)
+                else:
+                    p.zero_()
     return model
 
 

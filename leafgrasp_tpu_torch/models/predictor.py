@@ -4,9 +4,10 @@ ml_grasp_optimizer/model.py:130-162): concatenates patch channels and
 returns a scalar quality score. Batched by construction.
 
 Weights are a ``state_dict`` of the port's GraspPointCNN: seeded, given,
-or loaded from a ``torch.save`` file. A Flax checkpoint goes through
-``models/convert.flax_to_torch_grasp_cnn`` first; reading an orbax
-directory directly is not ported.
+or loaded from a ``torch.save`` file, such as the port's training
+checkpoint (``training/checkpoint.py``). A JAX (orbax) checkpoint goes
+through ``tools/grasp_cnn_orbax_to_torch.py`` first; the port never reads
+orbax.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ class GraspQualityPredictor:
     def __init__(self, cfg: ModelConfig = ModelConfig(), state_dict=None,
                  seed: int = 0, device=None):
         self.device = resolve_device(device)
+        self.norm_stats = None
         self.model = GraspPointCNN(cfg)
         if state_dict is None:
             init_random_(self.model, seed=seed)
@@ -35,11 +37,18 @@ class GraspQualityPredictor:
         self.model.to(self.device).eval()
 
     def load(self, checkpoint_path: str):
-        """Load a ``state_dict`` saved with ``torch.save`` (either the
-        bare dict or ``{"state_dict": ...}``)."""
+        """Load a ``state_dict`` saved with ``torch.save``: the bare dict,
+        or a dict holding it under ``"state_dict"``, as the port's
+        training checkpoint does; that checkpoint's normalization stats
+        become ``self.norm_stats`` (numpy arrays; the ``norm_stats`` of
+        ``make_frame_fn``), else it is None."""
         restored = torch.load(checkpoint_path, map_location=self.device,
                               weights_only=True)
+        self.norm_stats = None
         if "state_dict" in restored:
+            if "norm_stats" in restored:
+                self.norm_stats = {k: v.cpu().numpy() for k, v in
+                                   restored["norm_stats"].items()}
             restored = restored["state_dict"]
         self.model.load_state_dict(restored)
         self.model.eval()

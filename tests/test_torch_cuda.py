@@ -527,3 +527,109 @@ def test_flash_route_raises_on_card_rather_than_take_another_route(cuda):
             model(ids)
         model.set_prefill_attn("chunked")
         assert torch.isfinite(model(ids)[0]).all()
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 256, 16), (16, 4, 256, 16),
+                                   (5, 9, 48, 3), (3, 64, 1024, 64)])
+@pytest.mark.parametrize("dy_form", ["contiguous", "pool_stride0"])
+def test_gate_backward_kernel_matches_plain_on_card(cuda, shape, dy_form):
+    """The gate's gradient kernel against its plain version: dx within
+    1e-5 absolute; each parameter gradient within 1e-5 of its L2 norm of
+    the float64 gradient plus twice the plain f32 version's own distance
+    from it (a sum over N and HW whose terms cancel has a small norm and
+    a rounding error set by its terms); the same bits on a second run
+    (the sum over N is in a fixed order); x the NCHW view, dy contiguous
+    or with stride 0 along HW (the average pool's gradient); one count a
+    call."""
+    from leafgrasp_tpu_torch.kernels.attention import (
+        attention_gate_backward, attention_gate_backward_plain)
+    n, hw, c, r = shape
+    rng = np.random.default_rng(4)
+
+    def t(*sh, s=1.0):
+        return torch.as_tensor((rng.normal(size=sh) * s)
+                               .astype(np.float32), device=cuda)
+
+    x = torch.relu(t(n, c, hw)).transpose(1, 2)
+    params = (t(c, 1, s=c ** -0.5), t(1), t(c, r, s=c ** -0.5), t(r),
+              t(r, c, s=r ** -0.5), t(c))
+    dy = t(n, hw, c) if dy_form == "contiguous" \
+        else (t(n, 1, c) / hw).expand(n, hw, c)
+    kernels.reset_launch_counts()
+    for mode in ("spatial", "channel", "hybrid"):
+        got = attention_gate_backward(dy, x, *params, mode)
+        again = attention_gate_backward(dy, x, *params, mode)
+        want = attention_gate_backward_plain(dy, x, *params, mode)
+        exact = attention_gate_backward_plain(
+            dy.double(), x.double(), *(p.double() for p in params), mode)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), mode
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5, mode
+        assert got[0].stride() == x.stride()
+        for g, w, e in zip(got[1:], want[1:], exact[1:]):
+            assert g.shape == w.shape
+            err = float((g.double() - e).abs().max())
+            err_plain = float((w.double() - e).abs().max())
+            assert err <= 2.0 * err_plain + 1e-5 * float(e.norm()), mode
+    assert kernels.launch_counts()["attention_gate_backward"] == 6
+
+
+def test_cnn_train_step_gradients_on_card_match_cpu(cuda):
+    """One train step of the standard CNN (dropout 0, the same weights
+    and batch): every parameter gets a finite gradient on the card
+    through the gate's autograd Function, as close to the float64
+    gradient (the CPU's, in double precision) as the CPU's f32 gradient
+    is, within a factor 2 and 3e-5 of its L2 norm (cuDNN's f32
+    convolutions, TF32 off, and the CPU sum in other orders; with random
+    data and labels a leaf's f32 gradient sits up to ~2e-4 of its norm
+    from float64); the biases that feed a train-mode BatchNorm (exact
+    gradient 0) are held against the same layer's weight gradient."""
+    from leafgrasp_tpu_torch.config import ModelConfig
+    from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                      batchnorm_fed_biases,
+                                                      init_like_flax_)
+    from leafgrasp_tpu_torch.training.train import bce_with_logits
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = ModelConfig(conv_dropout=0.0, fc_dropout=(0.0, 0.0, 0.0))
+        cpu = init_like_flax_(GraspPointCNN(cfg),
+                              torch.Generator().manual_seed(42))
+        card = GraspPointCNN(cfg)
+        card.load_state_dict(cpu.state_dict())
+        card.to(cuda)
+        cpu64 = GraspPointCNN(cfg)
+        cpu64.load_state_dict(cpu.state_dict())
+        cpu64.double()
+        rng = np.random.default_rng(6)
+        x = torch.as_tensor(rng.normal(size=(16, 32, 32, 9)))
+        y = torch.as_tensor((rng.random(16) > 0.5).astype(np.float64))
+        kernels.reset_launch_counts()
+        for model, dev, dt in ((card, cuda, torch.float32),
+                               (cpu, torch.device("cpu"), torch.float32),
+                               (cpu64, torch.device("cpu"), torch.float64)):
+            model.train()
+            bce_with_logits(model(x.to(dev, dt)), y.to(dev, dt),
+                            2.0).backward()
+            if model is card:
+                counts = kernels.launch_counts()
+        assert counts["fused_attention_gate"] == 1
+        assert counts["attention_gate_backward"] == 1
+        cpu_grads = dict(cpu.named_parameters())
+        exact = dict(cpu64.named_parameters())
+        for k, p in card.named_parameters():
+            g, g_cpu, e = p.grad, cpu_grads[k].grad, exact[k].grad
+            assert g is not None and bool(torch.isfinite(g).all()), k
+            if k in batchnorm_fed_biases(card):
+                ref = exact[k[:-len("bias")] + "weight"].grad
+                assert float((g.cpu() - g_cpu).abs().max()) \
+                    <= 3e-5 * float(ref.norm()), k
+                continue
+            assert float(g.abs().max()) > 0, k
+            err = float((g.cpu().double() - e).abs().max())
+            err_cpu = float((g_cpu.double() - e).abs().max())
+            assert err <= 2.0 * err_cpu + 3e-5 * float(e.norm()), k
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
