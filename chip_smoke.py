@@ -5,7 +5,7 @@
 
 Phases, each a hard failure (non-zero exit):
 
-1. build the six CUDA sources (the seven TPU kernels' counterparts and
+1. build the seven CUDA sources (the nine TPU kernels' counterparts and
    the attention gate's gradient) from ``leafgrasp_tpu_torch/kernels/csrc``
    into ``build/kernels/`` (one ``nvcc`` per source, all started
    together);
@@ -90,7 +90,30 @@ Phases, each a hard failure (non-zero exit):
    a step and once a validation batch) and the best validation loss
    below the first epoch's; a checkpoint saved and reloaded through
    ``GraspQualityPredictor`` (same logits, same norm stats); one step
-   profiled.
+   profiled;
+8. VLA training: (a) the flash prefill's backward kernels
+   (``flash_prefill_bwd_dq``, ``flash_prefill_bwd_dkv``) against the
+   plain backward on the forward kernel's output and log-sum-exp, at the
+   training shape (2, 642, 32 over 8, 128) in f32 and bf16, at t = 128
+   and 200, head size 64, one to four query heads a K/V head, pads
+   inside and across a tile and a pad-only row, K/V as views of a longer
+   cache holding NaN, and the serving shape (5, 2400, 32 over 8, 128) in
+   bf16: each gradient within 1e-5 of its norm, pad rows and rows beyond
+   t exactly zero, two runs bit-equal; their times beside the bound, the
+   plain version and ``scaled_dot_product_attention``'s backward;
+   (b) ``LlavaLoRATrainer`` on ``LlavaTorch`` at the
+   LLaVA-1.6-Mistral-7B widths (single tile, 576 image tokens; bf16 base
+   from seed 0, rank-8 f32 adapters, lr 5e-5, batch 2, ``max_len`` 768,
+   the JAX test's byte tokenizer: t = 642) on 20 synthetic examples:
+   the first step's adapter gradients on the flash route against the
+   chunked route (``lora_a``'s exactly 0 on both), one epoch of 10
+   steps with the counts set to 0 just before (32 launches of the
+   forward and of each backward kernel a step), the frozen base
+   bit-equal after it and every adapter finite, the adapter saved and
+   reloaded (equal logits), one step profiled, five steps on one batch
+   (after the first, the loss falls at every step and ends below the
+   first); (c) one step with the adapters in bf16 (the bf16
+   forward with its log-sum-exp and the bf16 backward).
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -173,15 +196,32 @@ FLASH_TOL = {"float32": {"abs": 2e-5, "rel": 0.0, "row": 0.0},
              "bfloat16": {"abs": 0.0, "rel": 2.0 ** -6, "row": 2.0 ** -6}}
 PEAK_BF16_OPS_PER_S = 989e12
 VLA_ONLY_KERNELS = ("flash_prefill",)    # not on the frame path
-TRAIN_ONLY_KERNELS = ("attention_gate_backward",)   # the trainer's only
+TRAIN_ONLY_KERNELS = ("attention_gate_backward", "flash_prefill_bwd_dq",
+                      "flash_prefill_bwd_dkv")        # the trainers' only
 NOT_ON_FRAMES = VLA_ONLY_KERNELS + TRAIN_ONLY_KERNELS
-KERNEL_FUNCTIONS = ("minplus_pass2_kernel", "fused_score_maps_kernel",
-                    "fused_attention_gate_kernel",
-                    "attention_gate_backward_kernel",
-                    "attention_gate_grad_reduce_kernel", "rowband_kernel",
-                    "rowband_radius_kernel",
-                    "segment_histogram_kernel", "flash_prefill_kernel",
-                    "flash_prefill_f32_kernel")
+# each CUDA kernel function of the port -> the launch count of the
+# wrapper that launches it, once for each count
+KERNEL_FUNCTIONS = {
+    "minplus_pass2_kernel": "minplus_pass2",
+    "fused_score_maps_kernel": "fused_score_maps",
+    "fused_attention_gate_kernel": "fused_attention_gate",
+    "attention_gate_backward_kernel": "attention_gate_backward",
+    "attention_gate_grad_reduce_kernel": "attention_gate_backward",
+    "rowband_kernel": "squared_edt_rowband",
+    "rowband_radius_kernel": "squared_edt_rowband",
+    "segment_histogram_kernel": "segment_histogram",
+    "flash_prefill_kernel": "flash_prefill",
+    "flash_prefill_f32_kernel": "flash_prefill",
+    "flash_prefill_bwd_dq_kernel": "flash_prefill_bwd_dq",
+    "flash_prefill_bwd_dkv_kernel": "flash_prefill_bwd_dkv"}
+# Late in this script a profile loses the records of the first kernels
+# it runs (NVIDIA H100 80GB HBM3, 700.00 W: 0 of 10 launches and then
+# 4 of the next kernel's, 3 of 10, 15 of 20, 0 of 3), never the last, so
+# every profile starts with LEAD_IN_LAUNCHES launches of torch's spin
+# kernel (LEAD_IN_CYCLES clock cycles each), which no reading counts
+LEAD_IN_KERNEL = "spin_kernel"
+LEAD_IN_LAUNCHES = 32
+LEAD_IN_CYCLES = 1_000_000
 # The bf16 flash prefill before its redesign (mma.sync m16n8k16, cp.async,
 # 64-row blocks), at the serving shape, as this script's previous
 # version timed it in one run on one card with this version (0.441 and
@@ -225,30 +265,61 @@ def kernel_function(key: str):
     return None
 
 
+def lead_in(torch) -> None:
+    """Open a profiled region: run the spin kernel LEAD_IN_LAUNCHES
+    times and wait for the card, so that a profile that loses its first
+    records loses these."""
+    for _ in range(LEAD_IN_LAUNCHES):
+        torch.cuda._sleep(LEAD_IN_CYCLES)
+    torch.cuda.synchronize()
+
+
+def is_lead_in(name: str) -> bool:
+    return LEAD_IN_KERNEL in name
+
+
 def kernel_ms(fn, kernel, iters: int = 20) -> float:
     """Mean device milliseconds of the CUDA kernel named ``kernel`` (or
     of the kernels of a tuple of names, summed) per call of ``fn`` (the
     kernels alone, without their wrapper's other ops), from
-    ``torch.profiler``."""
+    ``torch.profiler``: each kernel's mean over the launches the profile
+    recorded, times its launches a call, which its wrapper's launch
+    count gives."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from leafgrasp_tpu_torch.kernels import launch_counts
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    before = launch_counts()
     fn()
     torch.cuda.synchronize()
-    # now and then a trace comes back without the records of a kernel
-    # that ran (seen once in some eighty profiles on an H100): profile
-    # again before giving up
-    for _ in range(3):
+    after = launch_counts()
+    per_call = {name: after[KERNEL_FUNCTIONS[name]]
+                - before[KERNEL_FUNCTIONS[name]] for name in names}
+    if not all(per_call.values()):
+        raise RuntimeError(f"a call launched {per_call}")
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        seen = {kernel_function(ev.key) for ev in prof.key_averages()}
-        total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                    if kernel_function(ev.key) in names)
-        if total > 0 and seen.issuperset(names):
-            return total / 1e3 / iters
-    raise RuntimeError(f"the profiler saw no {names}")
+        rec = {name: [0.0, 0] for name in (*names, LEAD_IN_KERNEL)}
+        for ev in prof.key_averages():
+            name = LEAD_IN_KERNEL if is_lead_in(ev.key) \
+                else kernel_function(ev.key)
+            if name in rec:
+                rec[name][0] += ev.self_device_time_total
+                rec[name][1] += ev.count
+        seen = {name: n for name, (_, n) in rec.items()}
+        if any(seen[name] != per_call[name] * iters for name in names) \
+                or seen[LEAD_IN_KERNEL] != LEAD_IN_LAUNCHES:
+            log(f"kernel_ms: the profiler recorded {seen} launches of "
+                f"{LEAD_IN_LAUNCHES} of the lead-in and {iters} calls of "
+                f"{per_call}")
+        if all(seen[name] for name in names):
+            return sum(rec[name][0] / rec[name][1] * per_call[name]
+                       for name in names) / 1e3
+    raise RuntimeError(f"the profiler recorded no launch of {names}")
 
 
 def bound(bytes_moved: float, ops: float, peak_ops=PEAK_F32_OPS_PER_S):
@@ -1113,13 +1184,15 @@ def profile_frames(torch, fns, model, scenes):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
             t0 = time.perf_counter()
             fns[mode](mask, depth, CX, CY, F, model)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = []
         for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and not is_lead_in(ev.key):
                 kernels.append((ev.self_device_time_total / 1e3, ev.count,
                                 ev.key))
         kernels.sort(reverse=True)
@@ -1417,14 +1490,15 @@ def run_vla(torch, dev, cnn, scenes):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
             t0 = time.perf_counter()
             scorer.score(rgb, cands, instruction)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
                        for ev in prof.key_averages()
-                       if ev.device_type == torch.autograd.DeviceType.CUDA),
-                      reverse=True)
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and not is_lead_in(ev.key)), reverse=True)
         busy = sum(r[0] for r in rows)
         prof_out[name] = {
             "wall_ms": wall, "device_busy_ms": busy,
@@ -1972,6 +2046,7 @@ def profile_train_step(torch, dev, dataset):
     step_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         t0 = time.perf_counter()
         step(feats, labels, ones, tcfg.pos_weight)
         torch.cuda.synchronize()
@@ -1980,7 +2055,7 @@ def profile_train_step(torch, dev, dataset):
     by_name = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA \
-                and not ev.is_user_annotation:
+                and not ev.is_user_annotation and not is_lead_in(ev.name):
             rec = by_name.setdefault(ev.name, [0.0, 0])
             rec[0] += ev.self_device_time_total / 1e3
             rec[1] += 1
@@ -2089,6 +2164,527 @@ def run_training(torch, dev):
     return counts, perf
 
 
+# ---------------------------------------------------------------- phase 8 --
+
+# (b, t, heads, kv_heads, hd) and left pads of the flash prefill's
+# backward against its plain version: the training shape (the stub
+# tokenizer's 642 tokens, no pad: the trainer pads on the right), a tile,
+# no multiple of one, head size 64, one to four query heads a K/V head,
+# pads inside and across a 64-row tile and a row of pad only; K/V read
+# through the strides of a longer cache that holds NaN beyond t
+FLASH_BWD_SHAPES = {"train": ((2, 642, 32, 8, 128), (0, 0)),
+                    "t128": ((2, 128, 8, 2, 128), (0, 64)),
+                    "t200_rep1": ((3, 200, 8, 8, 128), (0, 37, 200)),
+                    "hd64_rep4": ((2, 200, 8, 2, 64), (5, 130)),
+                    "rep2": ((2, 333, 8, 4, 128), (70, 0))}
+FLASH_BWD_SERVING = ((5, 2400, 32, 8, 128), (0, 0, 0, 0, 0))
+# each gradient's largest difference from the plain backward's over its L2
+# norm: both take the same inputs, output and log-sum-exp and compute in
+# f32 (bf16 inputs widened), in other orders of the sums
+FLASH_BWD_REL_TOL = 1e-5
+# each time of phase 8a is the median of this many profiles
+FLASH_BWD_TIME_REPEATS = 3
+# phase 8b: LlavaLoRATrainer at the LLaVA-1.6-Mistral-7B widths (single
+# tile), the reference's peft settings, the trainer's own defaults
+TRAIN_MAX_LEN = 768
+TRAIN_BATCH = 2
+TRAIN_LR = 5e-5
+TRAIN_SCENES = 4
+TRAIN_CANDIDATES = 5
+# five more steps on one batch: after Adam's first step the loss must fall
+# at every step and end below the first. At the trainer's rate the batch
+# read 2.16, 3.51, 2.00, 1.34, 0.93 (H100): the first step moves every one
+# of the 10.5 M lora_b elements by about the rate at once. At lr 1e-3 it
+# read 2.16, 19.6, 11.5, 26.8, 17.2 and did not fall (ROADMAP C)
+OVERFIT_STEPS = 5
+OVERFIT_LR = TRAIN_LR
+# the first step's adapter gradients, flash route against chunked: the
+# largest difference over each leaf's L2 norm. The routes differ by more
+# than the kernels' sums: the first layer's input is bf16 (the embedding
+# and its norm are bf16; the f32 adapters promote everything after their
+# first product), and the chunked route rounds that layer's probabilities
+# to the input's type before the second product, as the JAX module does,
+# while the flash route's kernel takes q, k, v in the promoted f32 and
+# never rounds them. Read 1.29e-4 at most over the 224 lora_b leaves in
+# three runs on an H100; the limit is about 8 times that
+TRAIN_ROUTE_REL_TOL = 1e-3
+# logits of the reloaded adapter against the trained model's, absolute
+ADAPTER_RELOAD_TOL = 0.0
+
+
+class ByteStubTok:
+    """The JAX package's test tokenizer for the LLaVA trainer
+    (tests/test_llava_jax.py): a BOS id, then each byte of the text
+    folded into the vocabulary, at most 60; ``decode`` a fixed decimal."""
+
+    def encode(self, text):
+        return [1] + [b % 90 + 2 for b in text.encode()][:60]
+
+    def decode(self, ids):
+        return "0.5"
+
+
+def _flash_bwd_case(torch, dev, dtype, shape, pads, rng):
+    b, t, heads, kvh, hd = shape
+
+    def t_(*s):
+        return torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                               device=dev).to(dtype)
+
+    q = t_(b, t, heads, hd)
+    ck, cv = t_(b, t + 10, kvh, hd), t_(b, t + 10, kvh, hd)
+    ck[:, t:] = float("nan")
+    cv[:, t:] = float("nan")
+    pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+    return q, ck, cv, pad, t_(b, t, heads, hd)
+
+
+def _flash_bwd_bounds(shape, pads, dtype_bytes, peak):
+    """(bytes, operations, bound ms, bound_by) of dQ and of dK/dV: each
+    input read once and each output written once; per visible (query,
+    key) pair and head, 2 hd operations for each product (dQ: S, dP, dS K;
+    dK/dV: S, P^T dO, dP, dS^T Q)."""
+    b, t, heads, kvh, hd = shape
+    pairs = sum((t - p) * (t - p + 1) / 2 for p in pads) * heads
+    qo = b * t * heads * hd
+    kv = b * t * kvh * hd
+    rows = b * heads * t * 4.0
+    dq_bytes = dtype_bytes * (3 * qo + 2 * kv) + 2 * rows + 4.0 * qo
+    dkv_bytes = dtype_bytes * (2 * qo + 2 * kv) + 2 * rows + 8.0 * kv
+    out = {}
+    for name, n_prod, moved in (("dq", 3, dq_bytes), ("dkv", 4, dkv_bytes)):
+        ops = n_prod * 2.0 * hd * pairs
+        ms, by = bound(moved, ops, peak)
+        out[name] = (moved, ops, ms, by)
+    return out
+
+
+def check_flash_backward(torch, dev):
+    """Phase 8a: K7-dq and K7-dkv against the plain backward at the
+    training shape in f32 and bf16, the shapes of FLASH_BWD_SHAPES and the
+    serving shape in bf16 (the plain version chunked); the forward's
+    log-sum-exp against the plain one; two runs bit-equal; then times."""
+    import torch.nn.functional as F
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        flash_prefill, flash_prefill_backward, flash_prefill_backward_plain,
+        flash_prefill_plain)
+    rng = np.random.default_rng(8)
+    errs, lse_errs, abs_err = {}, {}, 0.0
+    cases = [(n, s, p, dt) for n, (s, p) in FLASH_BWD_SHAPES.items()
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append(("serving", *FLASH_BWD_SERVING, torch.bfloat16))
+    kept = {}
+    for name, shape, pads, dtype in cases:
+        q, k, v, pad, dout = _flash_bwd_case(torch, dev, dtype, shape, pads,
+                                             rng)
+        t = shape[1]
+        out, lse = flash_prefill(q, k, v, pad, return_lse=True)
+        _, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
+                                           return_lse=True)
+        real = torch.isfinite(lse_plain)
+        if not torch.equal(real, torch.isfinite(lse)):
+            raise RuntimeError(f"phase 8a {name}: lse is finite elsewhere "
+                               f"than the plain version's")
+        got = flash_prefill_backward(q, k, v, pad, out, lse, dout)
+        again = flash_prefill_backward(q, k, v, pad, out, lse, dout)
+        want = flash_prefill_backward_plain(q, k, v, pad, out, lse, dout,
+                                            chunk=256)
+        torch.cuda.synchronize()
+        key = f"{name}/{str(dtype).split('.')[1]}"
+        lse_errs[key] = (lse[real] - lse_plain[real]).abs().max().item()
+        rel = {}
+        for gname, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.equal(g, g2):
+                raise RuntimeError(f"phase 8a {key} {gname}: two runs "
+                                   f"differ")
+            zero = not g[:, t:].any() and all(
+                not g[i, :p].any() for i, p in enumerate(pads))
+            if not (zero and bool(torch.isfinite(g).all())):
+                raise RuntimeError(f"phase 8a {key} {gname}: pad rows or "
+                                   f"rows beyond t not zero, or not finite")
+            rel[gname] = _rel_err(g, w)
+            abs_err = max(abs_err, (g - w).abs().max().item())
+        errs[key] = rel
+        log(f"phase 8a flash backward {key} {shape} pads {pads}: err / norm "
+            f"{json.dumps(rel)}, lse err {lse_errs[key]:.2e}, bit-equal run "
+            f"to run, pad rows zero")
+        if max(rel.values()) > FLASH_BWD_REL_TOL or lse_errs[key] > 1e-5:
+            raise RuntimeError(f"phase 8a {key}: err / norm {rel}, lse err "
+                               f"{lse_errs[key]}")
+        if name in ("train", "serving"):
+            kept[key] = (q, k, v, pad, dout, out, lse)
+        del got, again, want
+
+    def times(key, iters):
+        q, k, v, pad, dout, out, lse = kept[key]
+        shape = tuple(q.shape[:3]) + (k.shape[2], q.shape[3])
+        pads = pad.tolist()
+        peak = PEAK_F32_OPS_PER_S if q.dtype == torch.float32 \
+            else PEAK_BF16_OPS_PER_S
+        bounds = _flash_bwd_bounds(shape, pads, q.element_size(), peak)
+
+        def run():
+            return flash_prefill_backward(q, k, v, pad, out, lse, dout)
+        rep = shape[2] // shape[3]
+        ql = q.transpose(1, 2).detach().requires_grad_()
+        kl = k[:, :shape[1]].repeat_interleave(rep, dim=2).transpose(1, 2) \
+            .detach().requires_grad_()
+        vl = v[:, :shape[1]].repeat_interleave(rep, dim=2).transpose(1, 2) \
+            .detach().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        dl = dout.transpose(1, 2)
+        res = {"shape": list(shape), "dtype": str(q.dtype).split(".")[1],
+               "wrapper_ms": cuda_ms(run, iters=iters, warmup=1),
+               "plain_ms": cuda_ms(lambda: flash_prefill_backward_plain(
+                   q, k, v, pad, out, lse, dout, chunk=256), iters=1,
+                   warmup=1),
+               "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                   lib_out, (ql, kl, vl), dl, retain_graph=True),
+                   iters=iters, warmup=1)}
+        fwd = "flash_prefill_f32_kernel" if q.dtype == torch.float32 \
+            else "flash_prefill_kernel"
+        def median_ms(fn, kernel):
+            reps = [kernel_ms(fn, kernel, iters=iters)
+                    for _ in range(FLASH_BWD_TIME_REPEATS)]
+            return statistics.median(reps), reps
+        res["forward_lse_ms"], _ = median_ms(
+            lambda: flash_prefill(q, k, v, pad, return_lse=True), fwd)
+        res["forward_ms"], _ = median_ms(
+            lambda: flash_prefill(q, k, v, pad), fwd)
+        for name in ("dq", "dkv"):
+            moved, ops, b_ms, b_by = bounds[name]
+            ms, reps = median_ms(run, f"flash_prefill_bwd_{name}_kernel")
+            res[name] = {"ms": ms, "ms_repeats": reps,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "bytes": moved, "operations": ops,
+                         "tflops": ops / ms / 1e9}
+        log(f"phase 8a flash backward times {key} {json.dumps(res)}")
+        return res
+
+    t_f32 = times("train/float32", 10)
+    t_bf16 = times("train/bfloat16", 10)
+    t_serv = times("serving/bfloat16", 3)
+    records = []
+    fwd_train = {"f32_ms": t_f32["forward_ms"],
+                 "f32_lse_ms": t_f32["forward_lse_ms"],
+                 "bf16_ms": t_bf16["forward_ms"],
+                 "bf16_lse_ms": t_bf16["forward_lse_ms"],
+                 "shape": t_f32["shape"]}
+    log(f"phase 8a flash forward at the training shape, without and with "
+        f"the log-sum-exp {json.dumps(fwd_train)}")
+    for name, line in (("dkv", 941), ("dq", 1287)):
+        rec = {"name": f"flash_prefill_bwd_{name}", "route": "cuda",
+               "source": "leafgrasp_tpu_torch/kernels/csrc/"
+                         "flash_prefill_bwd.cu",
+               "replaces": f"jax/experimental/pallas/ops/tpu/"
+                           f"flash_attention.py:{line} (via "
+                           f"leafgrasp_tpu/vla/llava_jax.py:314)",
+               "tolerance_rel_norm": FLASH_BWD_REL_TOL,
+               "max_err_rel_norm": max(max(r.values())
+                                       for r in errs.values()),
+               "max_abs_err": abs_err,
+               "shape": t_f32["shape"], "dtype": "float32",
+               "ms": t_f32[name]["ms"], "wrapper_ms": t_f32["wrapper_ms"],
+               "plain_ms": t_f32["plain_ms"],
+               "bound_ms": t_f32[name]["bound_ms"],
+               "bound_by": t_f32[name]["bound_by"],
+               "library_ms": t_f32["library_ms"],
+               "bf16_train": {"ms": t_bf16[name]["ms"],
+                              "bound_ms": t_bf16[name]["bound_ms"],
+                              "plain_ms": t_bf16["plain_ms"],
+                              "library_ms": t_bf16["library_ms"]},
+               "bf16_serving": {"shape": t_serv["shape"],
+                                "ms": t_serv[name]["ms"],
+                                "bound_ms": t_serv[name]["bound_ms"],
+                                "plain_ms": t_serv["plain_ms"],
+                                "library_ms": t_serv["library_ms"]}}
+        records.append(rec)
+    kept.clear()
+    return records, fwd_train
+
+
+def build_llava_lora(torch, dev):
+    """LlavaTorch at the LLaVA-1.6-Mistral-7B widths, single tile
+    (CLIP-L/14 at 336: 576 image tokens), base in bf16 drawn on the card
+    from seed 0 (``init_random_``), adapters of rank 8 on the seven
+    projections of every layer in f32 with Flax's initialization
+    (``lora_a`` normal(1 / r), ``lora_b`` 0), the flash prefill."""
+    from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                     LlavaTorchConfig,
+                                                     init_random_)
+    from leafgrasp_tpu_torch.vla.lora import LoRADense
+    cfg = LlavaTorchConfig(dtype="bfloat16", prefill_attn_impl="flash",
+                           lora_rank=8, lora_alpha=32.0, lora_dropout=0.1)
+    model = LlavaTorch(cfg, device=dev, param_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    init_random_(model, gen, std=0.02)
+    for m in model.modules():
+        if isinstance(m, LoRADense) and m.rank > 0:
+            m.lora_a = torch.nn.Parameter(torch.empty(
+                m.lora_a.shape, device=dev).normal_(
+                0.0, 1.0 / cfg.lora_rank, generator=gen))
+            m.lora_b = torch.nn.Parameter(torch.zeros(m.lora_b.shape,
+                                                      device=dev))
+    torch.cuda.synchronize()
+    return model
+
+
+def _adapter_grads(torch, model, trainer, batch):
+    from leafgrasp_tpu_torch.vla.trainer import set_trainable
+    set_trainable(model, full=False)
+    model.zero_grad(set_to_none=True)
+    model.train()
+    loss = trainer.loss(*batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def profile_llava_step(torch, model, trainer, batch):
+    """Device busy time and launches of one LoRA step at full width."""
+    from torch.profiler import ProfilerActivity, profile
+    from leafgrasp_tpu_torch.vla.trainer import make_adamw, set_trainable
+    opt = make_adamw(set_trainable(model, full=False), 0.0)
+    model.train()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        trainer.loss(*batch).backward()
+        opt.step()
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    lead = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not ev.is_user_annotation:
+            if is_lead_in(ev.name):
+                lead += 1
+                continue
+            rec = by_name.setdefault(ev.name, [0.0, 0])
+            rec[0] += ev.self_device_time_total / 1e3
+            rec[1] += 1
+    kernels = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                     reverse=True)
+    busy = sum(k[0] for k in kernels)
+    flash = {}
+    for name, (ms, n) in by_name.items():
+        fn = kernel_function(name)
+        if fn is not None and fn.startswith("flash_prefill"):
+            tot = flash.setdefault(fn, [0.0, 0])
+            tot[0] += ms
+            tot[1] += n
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "flash_ms_per_launch": {fn: ms / n
+                                   for fn, (ms, n) in flash.items()},
+           "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+           "kernel_launches": sum(k[1] for k in kernels),
+           "lead_in_recorded": lead,
+           "top": [{"ms": ms, "count": n, "name": name[:90]}
+                   for ms, n, name in kernels[:10]]}
+    log(f"phase 8b profile of one LoRA step {json.dumps(out)}")
+    if not busy:
+        raise RuntimeError("phase 8b: the profiled step ran nothing on the "
+                           "card")
+    model.eval()
+    return out
+
+
+def run_llava_training(torch, dev):
+    """Phase 8b and 8c: ``LlavaLoRATrainer`` at full width on the card."""
+    import tempfile
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.vla.llava_trainer import LlavaLoRATrainer
+    from leafgrasp_tpu_torch.vla.lora import is_lora_key
+    from leafgrasp_tpu_torch.vla.trainer import make_synthetic_vla_dataset
+    t0 = time.perf_counter()
+    model = build_llava_lora(torch, dev)
+    cfg = model.cfg
+    layers = cfg.layers
+    n_lora = sum(p.numel() for n, p in model.named_parameters()
+                 if is_lora_key(n))
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"phase 8b: LlavaTorch {n_all / 1e9:.3f} G parameters (bf16 base, "
+        f"{n_lora / 1e6:.2f} M f32 adapter parameters, rank "
+        f"{cfg.lora_rank}), {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated, built in {time.perf_counter() - t0:.1f} s")
+    tok = ByteStubTok()
+    trainer = LlavaLoRATrainer(model, tok, learning_rate=TRAIN_LR,
+                               max_len=TRAIN_MAX_LEN, device=None)
+    samples = make_synthetic_vla_dataset(
+        TRAIN_SCENES, seed=0, num_candidates=TRAIN_CANDIDATES,
+        image_size=cfg.image_size)
+    examples = trainer.examples(samples)
+    pad_to = min(TRAIN_MAX_LEN, max(len(e[0]) for e in examples) + 1)
+    order = np.arange(len(examples))
+    np.random.default_rng(trainer.seed).shuffle(order)
+    first = trainer._pad_batch([examples[i] for i in order[:TRAIN_BATCH]],
+                               pad_to)
+    t = first[0].shape[1] - 1
+
+    # the first step's gradients on both routes
+    reset_launch_counts()
+    loss_f, g_flash = _adapter_grads(torch, model, trainer, first)
+    flash_counts = launch_counts()
+    model.set_prefill_attn("chunked")
+    loss_c, g_chunk = _adapter_grads(torch, model, trainer, first)
+    model.set_prefill_attn("flash")
+    if launch_counts() != flash_counts:
+        raise RuntimeError("phase 8b: the chunked route launched the flash "
+                           "kernels")
+    for name in ("flash_prefill", "flash_prefill_bwd_dq",
+                 "flash_prefill_bwd_dkv"):
+        if flash_counts[name] != layers:
+            raise RuntimeError(f"phase 8b: one flash step launched {name} "
+                               f"{flash_counts[name]} times, not {layers}")
+    if set(g_flash) != set(g_chunk) or len(g_flash) != 2 * 7 * layers:
+        raise RuntimeError(f"phase 8b: {len(g_flash)} adapter gradients on "
+                           f"the flash route, {len(g_chunk)} on chunked")
+    worst, zero_a = {}, 0
+    for name, g in g_flash.items():
+        w = g_chunk[name]
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"phase 8b: {name} has no finite gradient")
+        if name.endswith(".lora_a"):          # lora_b = 0: exactly zero
+            if g.any() or w.any():
+                raise RuntimeError(f"phase 8b: {name}'s gradient is not 0")
+            zero_a += 1
+            continue
+        worst[name] = _rel_err(g, w)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])
+    log(f"phase 8b: step 1 at t = {t}: loss flash {loss_f:.6f} chunked "
+        f"{loss_c:.6f}; every adapter gradient finite, lora_a's exactly 0 "
+        f"on both routes ({zero_a}); lora_b's largest difference / norm "
+        f"{json.dumps(dict(top[:4]))}")
+    if top[0][1] > TRAIN_ROUTE_REL_TOL or abs(loss_f - loss_c) > 1e-3:
+        raise RuntimeError(f"phase 8b: the routes' gradients differ: "
+                           f"{top[:4]}, losses {loss_f} {loss_c}")
+    del g_flash, g_chunk
+
+    # the epoch, counts set to 0 just before
+    base = {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters() if not is_lora_key(n)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = trainer.fine_tune(samples, epochs=1, batch_size=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = len(examples) // TRAIN_BATCH
+    for name in ("flash_prefill", "flash_prefill_bwd_dq",
+                 "flash_prefill_bwd_dkv"):
+        if counts[name] != layers * steps:
+            raise RuntimeError(f"phase 8b: {steps} steps launched {name} "
+                               f"{counts[name]} times, not {layers} a step")
+    changed = [n for n, p in model.named_parameters()
+               if not is_lora_key(n) and not torch.equal(p.detach().cpu(),
+                                                         base[n])]
+    bad = [n for n, p in model.named_parameters()
+           if is_lora_key(n) and not bool(torch.isfinite(p).all())]
+    if changed or bad:
+        raise RuntimeError(f"phase 8b: frozen leaves changed {changed[:4]}, "
+                           f"adapters not finite {bad[:4]}")
+    del base
+    step_s = wall / steps
+    perf = {"steps": steps, "batch": TRAIN_BATCH, "tokens_per_row": t,
+            "epoch_s": wall, "step_s": step_s,
+            "tokens_per_s": TRAIN_BATCH * t / step_s,
+            "peak_memory_gib": peak, "loss_history": fit["loss_history"]}
+    log(f"phase 8b: one epoch of {steps} steps {json.dumps(perf)}; the frozen "
+        f"base bit-equal, every adapter finite; launches "
+        f"{json.dumps(counts)}")
+
+    # the adapter saved and reloaded
+    work = tempfile.mkdtemp(dir="build")
+    path = os.path.join(work, "adapter.npz")
+    trainer.save_adapter(path)
+    ids = first[0][:, :-1]
+    with torch.no_grad():
+        want = model(ids, pixel_values=first[2])[0]
+        for n, p in model.named_parameters():
+            if is_lora_key(n):
+                p.zero_()
+        trainer.load_adapter(path)
+        got = model(ids, pixel_values=first[2])[0]
+    diff = (got - want).abs().max().item()
+    if diff > ADAPTER_RELOAD_TOL:
+        raise RuntimeError(f"phase 8b: logits after reloading the adapter "
+                           f"differ by {diff}")
+    log(f"phase 8b: adapter {path} saved and reloaded: logits equal "
+        f"(largest difference {diff})")
+    del want, got
+
+    perf["profile"] = profile_llava_step(torch, model, trainer, first)
+
+    # five steps on one batch: from the second on the loss falls
+    few = LlavaLoRATrainer(model, tok, learning_rate=OVERFIT_LR,
+                           max_len=TRAIN_MAX_LEN, device=None)
+    one = [dict(samples[0], candidates=samples[0]["candidates"][:2],
+                ranking=[0, 1])]
+    fit5 = few.fine_tune(one, epochs=OVERFIT_STEPS, batch_size=2)
+    hist = fit5["loss_history"]
+    log(f"phase 8b: {OVERFIT_STEPS} steps on one batch at lr {OVERFIT_LR}: "
+        f"loss {hist}")
+    if not (hist[-1] < hist[0]
+            and all(b < a for a, b in zip(hist[1:], hist[2:]))):
+        raise RuntimeError(f"phase 8b: the loss did not fall: {hist}")
+    perf["overfit_loss"] = hist
+
+    # 8c: the model as phase 6 holds it, adapters in bf16 too
+    for m in model.modules():
+        if getattr(m, "rank", 0) > 0:
+            m.lora_a = torch.nn.Parameter(m.lora_a.detach().bfloat16())
+            m.lora_b = torch.nn.Parameter(m.lora_b.detach().bfloat16())
+    bf = LlavaLoRATrainer(model, tok, learning_rate=TRAIN_LR,
+                          max_len=TRAIN_MAX_LEN, device=None)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fit_bf = bf.fine_tune(one, epochs=1, batch_size=2)
+    torch.cuda.synchronize()
+    counts_bf = launch_counts()
+    ok = np.isfinite(fit_bf["final_loss"]) and all(
+        bool(torch.isfinite(p).all()) for n, p in model.named_parameters()
+        if is_lora_key(n))
+    if not ok or any(counts_bf[k] != layers for k in (
+            "flash_prefill", "flash_prefill_bwd_dq",
+            "flash_prefill_bwd_dkv")):
+        raise RuntimeError(f"phase 8c: bf16 step loss {fit_bf}, launches "
+                           f"{counts_bf}")
+    log(f"phase 8c: one step with bf16 adapters: loss "
+        f"{fit_bf['final_loss']:.5f}, launches {json.dumps(counts_bf)}")
+    del model, trainer, few, bf
+    return counts, counts_bf, perf
+
+
+def run_phase_8(torch, dev):
+    """Phase 8: the flash prefill's backward kernels, then the LLaVA LoRA
+    trainer at full width."""
+    records, fwd_train = check_flash_backward(torch, dev)
+    log("phase 8a: the flash prefill's backward kernels match their plain "
+        "version")
+    counts, counts_bf16, perf = run_llava_training(torch, dev)
+    # each kernel's time a launch inside the profiled LoRA step
+    per_launch = perf["profile"]["flash_ms_per_launch"]
+    for rec in records:
+        rec["in_step_ms"] = per_launch[f"{rec['name']}_kernel"]
+    fwd_train["in_step_f32_lse_ms"] = per_launch["flash_prefill_f32_kernel"]
+    return records, fwd_train, counts, counts_bf16, perf
+
+
 def main() -> int:
     try:
         import torch
@@ -2121,7 +2717,6 @@ def main() -> int:
     load_library(verbose=True)
     log(f"phase 1: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-
     scenes = {name: make_leaf_scene(H, W, num_leaves=n, seed=seed,
                                     margin=margin)
               for name, n, seed, margin in FAMILIES}
@@ -2172,9 +2767,19 @@ def main() -> int:
         f"standard CNN on the card ({train_perf['epochs']} epochs, median "
         f"{train_perf['median_epoch_s']:.3f} s an epoch)")
 
+    train_records, fwd_train, vla_train_counts, vla_bf16_counts, \
+        vla_perf = run_phase_8(torch, dev)
+    records.extend(train_records)
+    next(r for r in records
+         if r["name"] == "flash_prefill")["training_shape"] = fwd_train
+    log(f"phase 8: the LLaVA LoRA trainer trained at full width on the card "
+        f"({vla_perf['step_s']:.3f} s a step, "
+        f"{vla_perf['tokens_per_s']:.0f} tokens/s)")
+
     phases = {"frames": counts, "service": service_counts,
               "vla_service": vla_counts, "teacher": teacher_counts,
-              "train": train_counts}
+              "train": train_counts, "vla_train": vla_train_counts,
+              "vla_train_bf16": vla_bf16_counts}
     for rec in records:
         for phase, cnt in phases.items():
             rec[f"launches_{phase}"] = cnt[rec["name"]]

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""VLA hybrid-selection demo on the PyTorch port: the serving half of
+"""VLA hybrid-selection demo on the PyTorch port: the counterpart of
 examples/run_vla_demo.py.
 
 Runs the three scorer backends (stub, heuristic, TinyVLA) on synthetic
 candidates through ``HybridGraspSelector`` and shows the confidence
-ladder and the two degradations. The LoRA fine-tune half of the JAX demo
-waits for the trainer's port.
+ladder and the two degradations; then LoRA fine-tunes a small TinyVLA
+(``VLATrainer``: real forward and backward passes), evaluates it and
+saves its adapter in the JAX package's ``.npz`` format.
 
     python examples/run_vla_demo_torch.py              # on the GPU
     python examples/run_vla_demo_torch.py --device cpu
@@ -48,6 +49,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device; default CUDA (raises without it)")
+    ap.add_argument("--out", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "build", "vla_demo_torch"),
+        help="directory of the fine-tuned adapter")
     args = ap.parse_args(argv)
 
     from leafgrasp_tpu_torch.vla import (HybridGraspSelector, VLAProcessor,
@@ -76,6 +81,21 @@ def main(argv=None):
     print(f"{'failing backend':18s} -> leaf@({best['x']},{best['y']}) "
           f"strategy={best['strategy']} (uniform 0.5 scores)")
     picks["failing backend"] = best
+
+    from leafgrasp_tpu_torch.vla import (VLAModelConfig, VLATrainer,
+                                         make_synthetic_vla_dataset)
+    print("\nLoRA fine-tune (real forward/backward):")
+    cfg = VLAModelConfig(dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                         mlp_hidden=128, vision_tokens=4,
+                         vision_patch=32, lora_rank=8, max_seq=600)
+    trainer = VLATrainer(cfg=cfg, learning_rate=1e-3, device=args.device)
+    train = make_synthetic_vla_dataset(8, seed=1)
+    trainer.fine_tune(train, epochs=2, log_fn=lambda **kw: print(
+        f"  epoch {kw['epoch']} loss {kw['loss']:.4f}"))
+    print("eval:", trainer.evaluate(make_synthetic_vla_dataset(4, seed=2)))
+    path = os.path.join(args.out, "adapter.npz")
+    trainer.save_adapter(path)
+    print(f"adapter saved to {path}")
     return picks
 
 

@@ -13,8 +13,9 @@ accurate forms. Flags differ by file: ``attention.cu``, ``histogram.cu``,
 ``minplus.cu``, ``rowband.cu`` and ``scoring.cu`` get ``-fmad=false``,
 which keeps ``a*b + c`` as two rounded operations, as their plain
 PyTorch versions compute them (the EDT kernels are bit-exact);
-``flash_prefill.cu`` is built without it, so its f32 accumulation may
-fuse multiply-adds as a matrix product on the card does. Headers
+``flash_prefill.cu`` and ``flash_prefill_bwd.cu`` are built without it,
+so their f32 accumulation may fuse multiply-adds as a matrix product on
+the card does. Headers
 (``csrc/*.cuh``: ``hopper.cuh`` holds the inline PTX for mbarriers, TMA
 and ``wgmma``) are part of the hash. The library links against the CUDA
 runtime and ``libdl`` only: the one ``libcuda`` function the kernels
@@ -42,7 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 # flags of one source, by file name; every other file gets the default
 DEFAULT_FILE_FLAGS = ["-fmad=false"]
-FILE_FLAGS = {"flash_prefill.cu": []}
+FILE_FLAGS = {"flash_prefill.cu": [], "flash_prefill_bwd.cu": []}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,8 +71,14 @@ _SIGNATURES = {
     # depth, ids, lo, inv_w, n, num, r, blocks, out, stream
     "segment_histogram": [_VP] * 4 + [_I] * 4 + [_VP, _VP],
     # q, k, v, pad, out, b, t, heads, kv_heads, hd, is_bf16,
-    # strides (12 int64), scale, stream
-    "flash_prefill": [_VP] * 5 + [_I] * 6 + [_VP, _F, _VP],
+    # strides (12 int64), scale, lse (or null), stream
+    "flash_prefill": [_VP] * 5 + [_I] * 6 + [_VP, _F, _VP, _VP],
+    # q, k, v, o, dout, pad, lse, dsum, dq, b, t, heads, kv_heads, hd,
+    # is_bf16, strides (18 int64), scale, stream
+    "flash_prefill_bwd_dq": [_VP] * 9 + [_I] * 6 + [_VP, _F, _VP],
+    # q, k, v, dout, pad, lse, dsum, dk, dv, b, t, heads, kv_heads, hd,
+    # is_bf16, strides (18 int64), scale, stream
+    "flash_prefill_bwd_dkv": [_VP] * 9 + [_I] * 6 + [_VP, _F, _VP],
 }
 
 _LOCK = threading.Lock()

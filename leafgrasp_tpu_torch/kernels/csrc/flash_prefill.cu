@@ -73,6 +73,13 @@
 // tensor-core form); it exists to hold the masking and the softmax
 // against the plain version to about 1e-5.
 //
+// Both instantiations can also write the row log-sum-exp of the scaled
+// scores, lse[b, h, i] (natural log, f32; -inf on pad rows), which the
+// backward (flash_prefill_bwd.cu) recomputes the probabilities from. It is
+// converted once in the epilogue from the same maxima and sums that
+// normalise the output. The bf16 kernel takes it as a template flag, so
+// the serving instantiation (no lse) is the code it was.
+//
 // This file is built with fused multiply-adds allowed (the other kernels
 // are not); there is no --use_fast_math.
 
@@ -136,14 +143,21 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* src,
   }
 }
 
+// natural-log log-sum-exp of a row from its maximum m2 (log2 units) and
+// the sum l of exp2(score - m2); -inf for a pad row or a row with no key
+__device__ __forceinline__ float lse_of(float m2, float l, bool real) {
+  return (real && l > 0.0f) ? (m2 + log2f(l)) * 0.6931471805599453f
+                            : -INFINITY;
+}
+
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_prefill_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const int* __restrict__ pad, float* __restrict__ out,
-                         int t, int rep, Strides qs, Strides ks, Strides vs,
-                         Strides os, float scale) {
+                         float* __restrict__ lse, int t, int rep, Strides qs,
+                         Strides ks, Strides vs, Strides os, float scale) {
   constexpr int LD = HD + ROW_PAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -161,9 +175,14 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
   const float* kb = k + b * ks.b + (h / rep) * ks.h;
   const float* vb = v + b * vs.b + (h / rep) * vs.h;
   float* ob = out + b * os.b + h * os.h;
+  float* lb = lse == nullptr ? nullptr
+                             : lse + ((long long)b * gridDim.y + h) * t;
 
   const int row_hi = min(q0 + BM, t);         // rows of this block: < row_hi
   if (row_hi <= p) {                          // pad rows only: zeros
+    if (lb != nullptr)
+      for (int r = q0 + threadIdx.x; r < row_hi; r += NTHREADS)
+        lb[r] = -INFINITY;
     for (int idx = threadIdx.x; idx < (row_hi - q0) * (HD / 2);
          idx += NTHREADS) {
       const int r = idx / (HD / 2), c = idx % (HD / 2);
@@ -321,6 +340,10 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
   const float inv_a = (row_a >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
   const float inv_b = (row_b >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
+  if (lb != nullptr && tq == 0) {             // maxima in log2 units here
+    if (row_a < t) lb[row_a] = lse_of(m_a, l_a, row_a >= p);
+    if (row_b < t) lb[row_b] = lse_of(m_b, l_b, row_b >= p);
+  }
 #pragma unroll
   for (int d = 0; d < HD / 8; ++d) {
     const int col = d * 8 + 2 * tq;
@@ -335,9 +358,9 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
 
 template <int HD>
 int launch_f32(const float* q, const float* k, const float* v,
-               const int* pad, float* out, int b, int t, int heads, int rep,
-               Strides qs, Strides ks, Strides vs, Strides os, float scale,
-               cudaStream_t stream) {
+               const int* pad, float* out, float* lse, int b, int t,
+               int heads, int rep, Strides qs, Strides ks, Strides vs,
+               Strides os, float scale, cudaStream_t stream) {
   constexpr int LD = HD + ROW_PAD;
   const size_t smem = ((size_t)(BM + 4 * BN) * LD     // Q, 2 x (K, V)
                        + (size_t)NWARPS * 16 * PS_LD) * sizeof(float);
@@ -346,8 +369,8 @@ int launch_f32(const float* q, const float* k, const float* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + BM - 1) / BM, heads, b);
-  kernel<<<grid, NTHREADS, smem, stream>>>(q, k, v, pad, out, t, rep, qs, ks,
-                                           vs, os, scale);
+  kernel<<<grid, NTHREADS, smem, stream>>>(q, k, v, pad, out, lse, t, rep,
+                                           qs, ks, vs, os, scale);
   return (int)cudaGetLastError();
 }
 
@@ -522,14 +545,15 @@ __device__ __forceinline__ Work decode_work(int idx, int n_mt, int b_n,
   return w;
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const int* __restrict__ pad, bf16* __restrict__ out,
-                     int b_n, int t, int heads, int rep, Strides os,
-                     float scale2, int n_mt, int n_work) {
+                     float* __restrict__ lse, int b_n, int t, int heads,
+                     int rep, Strides os, float scale2, int n_mt,
+                     int n_work) {
   using L = WgLayout<HD>;
   constexpr int NO = HD / 2;                  // output accumulators a thread
   extern __shared__ unsigned char smem_raw[];
@@ -604,6 +628,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int idx = blockIdx.x; idx < n_work; idx += gridDim.x) {
       const Work w = decode_work(idx, n_mt, b_n, heads, t, pad);
       bf16* ob = out + w.b * os.b + w.h * os.h;
+      float* lb = LSE ? lse + ((long long)w.b * heads + w.h) * t : nullptr;
       if (w.empty) {                          // pad rows only: zeros
         const int ctid = threadIdx.x;         // 0 .. 255
         for (int i = ctid; i < (w.row_hi - w.q0) * (HD / 8);
@@ -612,6 +637,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
           *reinterpret_cast<uint4*>(ob + (long long)(w.q0 + r) * os.t
                                     + 8 * c) = make_uint4(0, 0, 0, 0);
         }
+        if constexpr (LSE)
+          for (int r = w.q0 + ctid; r < w.row_hi; r += WG_CONSUMERS * 128)
+            lb[r] = -INFINITY;
         continue;
       }
       const int p = w.p;
@@ -706,6 +734,12 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
       const float inv_a = (row_a >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
       const float inv_b = (row_b >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
+      if constexpr (LSE) {                    // maxima in raw score units
+        if (tq == 0) {
+          if (row_a < t) lb[row_a] = lse_of(st.m_a * scale2, l_a, row_a >= p);
+          if (row_b < t) lb[row_b] = lse_of(st.m_b * scale2, l_b, row_b >= p);
+        }
+      }
 #pragma unroll
       for (int n = 0; n < NO / 4; ++n) {
         const int col = n * 8 + 2 * tq;
@@ -766,14 +800,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int tokens,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool LSE>
 int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
-                void* out, int b, int t, int heads, int kv_heads, Strides qs,
-                Strides ks, Strides vs, Strides os, float scale,
+                void* out, float* lse, int b, int t, int heads, int kv_heads,
+                Strides qs, Strides ks, Strides vs, Strides os, float scale,
                 cudaStream_t stream) {
   using L = WgLayout<HD>;
   static int sm_count = 0;
-  auto kernel = flash_prefill_kernel<HD>;
+  auto kernel = flash_prefill_kernel<HD, LSE>;
   if (sm_count == 0) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -798,8 +832,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
   if (n_work > INT32_MAX) return (int)cudaErrorInvalidValue;
   const int grid = (int)(n_work < sm_count ? n_work : sm_count);
   kernel<<<grid, WG_THREADS, L::BYTES, stream>>>(
-      mq, mk, mv, pad, static_cast<bf16*>(out), b, t, heads, heads / kv_heads,
-      os, scale * 1.4426950408889634f, n_mt, (int)n_work);
+      mq, mk, mv, pad, static_cast<bf16*>(out), lse, b, t, heads,
+      heads / kv_heads, os, scale * 1.4426950408889634f, n_mt, (int)n_work);
   return (int)cudaGetLastError();
 }
 
@@ -809,12 +843,13 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
 // t rows are read. strides: twelve element strides, (batch, token, head)
 // of q, k, v, out; the last dimension is contiguous and every row starts
 // on a 16-byte boundary. is_bf16: 1 for bf16 in and out, 0 for f32. hd is
-// 64 or 128 (the sizes instantiated).
+// 64 or 128 (the sizes instantiated). lse: null, or (b, heads, t) f32
+// contiguous for the row log-sum-exp.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const int* pad, void* out, int b, int t,
                              int heads, int kv_heads, int hd, int is_bf16,
                              const long long* strides, float scale,
-                             cudaStream_t stream) {
+                             float* lse, cudaStream_t stream) {
   if (b <= 0 || t <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || (hd != 64 && hd != 128))
     return (int)cudaErrorInvalidValue;
@@ -824,19 +859,26 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
   if (is_bf16) {
+    if (lse != nullptr) {
+      if (hd == 64)
+        return launch_bf16<64, true>(q, k, v, pad, out, lse, b, t, heads,
+                                     kv_heads, qs, ks, vs, os, scale, stream);
+      return launch_bf16<128, true>(q, k, v, pad, out, lse, b, t, heads,
+                                    kv_heads, qs, ks, vs, os, scale, stream);
+    }
     if (hd == 64)
-      return launch_bf16<64>(q, k, v, pad, out, b, t, heads, kv_heads, qs,
-                             ks, vs, os, scale, stream);
-    return launch_bf16<128>(q, k, v, pad, out, b, t, heads, kv_heads, qs, ks,
-                            vs, os, scale, stream);
+      return launch_bf16<64, false>(q, k, v, pad, out, nullptr, b, t, heads,
+                                    kv_heads, qs, ks, vs, os, scale, stream);
+    return launch_bf16<128, false>(q, k, v, pad, out, nullptr, b, t, heads,
+                                   kv_heads, qs, ks, vs, os, scale, stream);
   }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   if (hd == 64)
-    return launch_f32<64>(qf, kf, vf, pad, of, b, t, heads, rep, qs, ks, vs,
-                          os, scale, stream);
-  return launch_f32<128>(qf, kf, vf, pad, of, b, t, heads, rep, qs, ks, vs,
-                         os, scale, stream);
+    return launch_f32<64>(qf, kf, vf, pad, of, lse, b, t, heads, rep, qs, ks,
+                          vs, os, scale, stream);
+  return launch_f32<128>(qf, kf, vf, pad, of, lse, b, t, heads, rep, qs, ks,
+                         vs, os, scale, stream);
 }

@@ -6,7 +6,7 @@ returns a scalar quality score. Batched by construction.
 Weights are a ``state_dict`` of the port's GraspPointCNN: seeded, given,
 or loaded from a ``torch.save`` file, such as the port's training
 checkpoint (``training/checkpoint.py``). A JAX (orbax) checkpoint goes
-through ``tools/grasp_cnn_orbax_to_torch.py`` first; the port never reads
+through ``tools/grasp_cnn_from_orbax.py`` first; the port never reads
 orbax.
 """
 

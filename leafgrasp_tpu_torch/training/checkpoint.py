@@ -4,7 +4,7 @@ the model's ``state_dict``, the optimizer's state, the normalization
 stats needed at serve time and the epoch, in one ``torch.save`` file,
 plus the same side-car ``<path>.meta.json`` for host-readable metrics
 and history. The port's own format: it never reads or writes orbax
-(``tools/grasp_cnn_orbax_to_torch.py`` converts a JAX checkpoint).
+(``tools/grasp_cnn_from_orbax.py`` converts a JAX checkpoint).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """VLA subsystem of the port: hybrid re-ranking of grasp candidates with
-a vision-language model, for serving.
+a vision-language model, for serving and LoRA training
+(``vla/trainer.py``, ``vla/llava_trainer.py``, ``vla/experiments.py``).
 
 Exports the same public names as ``leafgrasp_tpu.vla`` for what is
 ported, with "torch" where the JAX package says "jax". What is not
-ported yet (training, quantized serving, the checkpoint reader) raises
-an ``ImportError`` that names it.
+ported yet (quantized serving, the checkpoint reader) raises an
+``ImportError`` that names it.
 """
 
 from leafgrasp_tpu_torch.vla.hybrid import (HybridGraspSelector,
@@ -17,6 +18,9 @@ from leafgrasp_tpu_torch.vla.processor import (VLAProcessor, StubScorer,
                                                HeuristicScorer,
                                                TinyVLAScorer, build_prompt,
                                                parse_score)
+from leafgrasp_tpu_torch.vla.trainer import (VLATrainer,
+                                             make_synthetic_vla_dataset,
+                                             spearman_correlation)
 from leafgrasp_tpu_torch.vla.lm import (TinyVLA, VLAModelConfig,
                                         ByteTokenizer, greedy_generate,
                                         init_vla)
@@ -33,7 +37,9 @@ __all__ = [
     "HybridGraspSelector", "HybridSelector", "confidence_weights",
     "selection_strategy", "ConfidenceManager", "calculate_confidence",
     "VLAProcessor", "StubScorer", "HeuristicScorer", "TinyVLAScorer",
-    "build_prompt", "parse_score", "TinyVLA", "VLAModelConfig",
+    "build_prompt", "parse_score", "VLATrainer",
+    "make_synthetic_vla_dataset", "spearman_correlation", "TinyVLA",
+    "VLAModelConfig",
     "ByteTokenizer", "greedy_generate", "init_vla", "LlavaTorch",
     "LlavaTorchConfig", "config_from_hf", "convert_hf_llava_state_dict",
     "greedy_generate_llava", "LlavaTorchScorer", "load_llava_from_hf",
@@ -42,9 +48,6 @@ __all__ = [
 
 # public names of leafgrasp_tpu.vla that wait for a later slice
 _LATER = {
-    "VLATrainer": "VLA training (vla/trainer.py)",
-    "make_synthetic_vla_dataset": "VLA training (vla/trainer.py)",
-    "spearman_correlation": "VLA training (vla/trainer.py)",
     "SentencePieceTokenizer": "the checkpoint reader (vla/checkpoint_io.py)",
     "load_llava_checkpoint": "the checkpoint reader (vla/checkpoint_io.py)",
     "read_safetensors": "the checkpoint reader (vla/checkpoint_io.py)",

@@ -8,6 +8,12 @@ transposes: Dense kernels (in, out) -> (out, in), convolution kernels
 ``weight``; embeddings, RMSNorm weights, ``lora_a`` / ``lora_b`` and
 ``image_newline`` go as they are. Reads no files itself and imports
 neither JAX nor Flax.
+
+The other way, ``torch_to_flax_tiny_vla`` and ``torch_to_flax_llava_adapter``
+give the flat ``"a/b/c"`` keys and orientation of the JAX package's
+``.npz`` files (``flax.traverse_util.flatten_dict`` joined by ``/``):
+what the JAX trainers' ``save_adapter`` and ``run_vla_sweep``'s
+``pretrained_base.npz`` hold, so that either package loads the other's.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import numpy as np
 import torch
 
 __all__ = ["unflatten_tree", "flax_to_torch_tiny_vla",
-           "flax_to_torch_llava"]
+           "flax_to_torch_llava", "torch_to_flax_tiny_vla",
+           "torch_to_flax_llava_adapter"]
 
 
 def _t(a) -> torch.Tensor:
@@ -146,4 +153,63 @@ def flax_to_torch_llava(variables) -> Dict[str, torch.Tensor]:
                     _dense(out, f"{dst}.{part}", pnode)
         else:
             raise KeyError(f"unknown LlavaJax subtree {name!r}")
+    return out
+
+
+# ------------------------------------------------------ the other way --
+
+def _np(x) -> np.ndarray:
+    return x.detach().to("cpu").numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _leaf_to_flax(parts: list, value) -> tuple:
+    """The last part of a ``state_dict`` key and its value -> the Flax
+    leaf name and array: a Linear's ``weight`` is the transposed
+    ``kernel``, a convolution's (out, in, kh, kw) becomes (kh, kw, in,
+    out); norm scales, biases and adapters go as they are."""
+    leaf, a = parts[-1], _np(value)
+    if leaf == "weight":
+        return "kernel", (np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4
+                          else a.T)
+    return leaf, a
+
+
+def torch_to_flax_tiny_vla(state: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, np.ndarray]:
+    """``TinyVLA.state_dict()`` entries (a full model, a pretrained base
+    or an adapter) -> the flat Flax keys of its variables' params."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        if key == "tok_emb.weight":
+            out["tok_emb/embedding"] = _np(value)
+            continue
+        if parts[0] == "vision":
+            if parts[1] == "convs":             # vision.convs.i.leaf
+                path = ["vision", f"Conv_{parts[2]}"]
+            else:                               # vision.proj.leaf
+                path = ["vision", "Dense_0"]
+        elif parts[0] == "layers":              # layers.i.sub[.proj...]
+            path = [f"layer_{parts[1]}", *parts[2:-1]]
+        elif parts[0] in ("final_norm", "lm_head"):
+            path = parts[:-1]
+        else:
+            raise KeyError(f"unknown TinyVLA entry {key!r}")
+        leaf, a = _leaf_to_flax(parts, value)
+        out["/".join(path + [leaf])] = a
+    return out
+
+
+def torch_to_flax_llava_adapter(state: Mapping[str, torch.Tensor]
+                                ) -> Dict[str, np.ndarray]:
+    """The adapter leaves of a ``LlavaTorch.state_dict()`` -> the flat
+    Flax keys of ``LlavaJax`` (``layer_i/self_attn/q_proj/lora_a``,
+    ``layer_i/gate_proj/lora_b``, ...); anything else raises."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        if parts[0] != "layers" or parts[-1] not in ("lora_a", "lora_b"):
+            raise KeyError(f"not an adapter leaf of LlavaTorch: {key!r}")
+        out["/".join([f"layer_{parts[1]}", *parts[2:]])] = _np(value)
     return out

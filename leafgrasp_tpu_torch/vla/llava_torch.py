@@ -1,6 +1,7 @@
 """LLaVA architecture in PyTorch: CLIP vision tower, multimodal
 projector, Mistral decoder with grouped-query attention, RoPE and
-RMSNorm. Port of leafgrasp_tpu/vla/llava_jax.py for serving.
+RMSNorm. Port of leafgrasp_tpu/vla/llava_jax.py, for serving and for
+LoRA training (``vla/llava_trainer.py``).
 
 Types follow the JAX module operation by operation, so that a bf16 run
 rounds where the JAX run rounds: a layer with a compute type casts its
@@ -13,7 +14,8 @@ have no compute type and work in the promoted type of input and weight.
 
 The prompt pass of a long batched prompt has three routes, chosen as the
 JAX module chooses: ``"flash"`` (the CUDA kernel of
-``kernels/flash_prefill``; the plain version for CPU tensors), the dense
+``kernels/flash_prefill``, with its backward kernels when autograd
+records; the plain versions for CPU tensors), the dense
 grouped einsum, and the same einsum over chunks of query rows. Caches
 are ``(b, total, kv_heads, hd)`` tensors written in place; the cache
 cursor is a Python int. Pixel values are ``(B, H, W, 3)`` at every
@@ -268,9 +270,11 @@ def _proj(in_features: int, features: int, cfg: LlavaTorchConfig, **fk):
     """Language-model projection: a plain bias-free linear layer, or
     LoRADense (frozen weight under ``base``) when a rank is configured."""
     if cfg.lora_rank > 0:
+        # no dropout in training mode either: LlavaJax never passes
+        # ``train`` to its LoRADense layers
         return LoRADense(in_features, features, rank=cfg.lora_rank,
                          alpha=cfg.lora_alpha, dropout=cfg.lora_dropout,
-                         use_bias=False, **fk)
+                         use_bias=False, dropout_in_training=False, **fk)
     return _Dense(in_features, features, cfg.torch_dtype, **fk)
 
 
@@ -374,9 +378,12 @@ class _MistralAttention(nn.Module):
             # K/V go in as the cache holds them: kv_heads heads, the row
             # stride of the whole cache, the first t rows read. On the
             # card the wrapper raises for a head size or type its kernel
-            # lacks; nothing here gives way to another route for it
-            out = _fp.flash_prefill(q.to(kernel_dt), k.to(kernel_dt),
-                                    v.to(kernel_dt), pad)
+            # lacks; nothing here gives way to another route for it. A
+            # pass that autograd records goes through the kernels'
+            # autograd Function, and the gradient through the casts
+            out = _fp.flash_prefill_trainable(q.to(kernel_dt),
+                                              k.to(kernel_dt),
+                                              v.to(kernel_dt), pad)
         elif tc is None or t <= tc or not head1_prefill_mask:
             # chunking assumes a head-dim-1 mask; a per-head mask takes
             # the exact unchunked path

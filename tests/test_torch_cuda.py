@@ -633,3 +633,168 @@ def test_cnn_train_step_gradients_on_card_match_cpu(cuda):
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# ---- the flash prefill's backward ----------------------------------------------
+
+# each gradient's largest difference from the plain backward's, over the
+# gradient's L2 norm: both take the same inputs, output and log-sum-exp,
+# widen bf16 to f32 and compute in f32, in other orders of the sums
+FLASH_BWD_REL_TOL = 1e-5
+
+
+def _flash_bwd_inputs(cuda, dtype, shape, pads, seed=5, extra=10):
+    """q, K/V as views of a longer cache whose rows beyond t hold NaN,
+    the pads, and the output's gradient (pad rows carry one too)."""
+    b, t, heads, kvh, hd = shape
+    rng = np.random.default_rng(seed)
+
+    def t_(*s):
+        return torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                               device=cuda).to(dtype)
+
+    q = t_(b, t, heads, hd)
+    cache_k, cache_v = t_(b, t + extra, kvh, hd), t_(b, t + extra, kvh, hd)
+    cache_k[:, t:] = float("nan")
+    cache_v[:, t:] = float("nan")
+    pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+    dout = t_(b, t, heads, hd)
+    return q, cache_k[:, :t + extra], cache_v[:, :t + extra], pad, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pads", [
+    ((2, 128, 4, 2, 64), (0, 64)),
+    ((2, 200, 4, 4, 64), (0, 37)),
+    ((3, 129, 4, 1, 128), (128, 0, 70)),
+    ((2, 642, 32, 8, 128), (0, 5)),
+    ((2, 100, 8, 2, 128), (0, 100)),
+])
+def test_flash_prefill_backward_kernels_match_plain_on_card(cuda, dtype,
+                                                            shape, pads):
+    """The two backward kernels (through ``flash_prefill_backward``)
+    against the plain backward on the kernel forward's output and
+    log-sum-exp: rep 1, 2 and 4, head sizes 64 and 128, t a multiple of a
+    tile and not, pads inside and across a tile and a row of pad only,
+    K/V as views of a longer cache holding NaN beyond t. Each gradient
+    within 1e-5 of its norm, dQ of pad rows, dK/dV of pad keys and of the
+    rows beyond t exactly zero, everything finite, the same bits twice,
+    one launch of each kernel a call; the forward's log-sum-exp equals
+    the plain version's to 1e-5 and is -inf on pad rows."""
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        flash_prefill_backward, flash_prefill_backward_plain)
+    q, k, v, pad, dout = _flash_bwd_inputs(cuda, dtype, shape, pads)
+    t = shape[1]
+    out, lse = flash_prefill(q, k, v, pad, return_lse=True)
+    _, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
+                                       return_lse=True)
+    real = torch.isfinite(lse_plain)
+    assert torch.equal(real, torch.isfinite(lse))
+    assert float((lse[real] - lse_plain[real]).abs().max()) <= 1e-5
+    kernels.reset_launch_counts()
+    got = flash_prefill_backward(q, k, v, pad, out, lse, dout)
+    again = flash_prefill_backward(q, k, v, pad, out, lse, dout)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_prefill_bwd_dq"] == 2
+    assert counts["flash_prefill_bwd_dkv"] == 2
+    want = flash_prefill_backward_plain(q, k, v, pad, out, lse, dout,
+                                        chunk=256)
+    for name, g, g2, w, x in zip("qkv", got, again, want, (q, k, v)):
+        assert g.dtype == torch.float32 and g.shape == x.shape, name
+        assert torch.equal(g, g2), name
+        assert bool(torch.isfinite(g).all()), name
+        assert not g[:, t:].any(), name
+        for i, p in enumerate(pads):
+            assert not g[i, :p].any(), (name, i)
+        err = float((g - w).abs().max())
+        assert err <= FLASH_BWD_REL_TOL * float(w.norm()), (name, err)
+
+
+def test_flash_prefill_backward_raises_on_card_for_what_it_lacks(cuda):
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        flash_prefill_backward, flash_prefill_trainable)
+    pad = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for dtype, hd in ((torch.float16, 64), (torch.float32, 32)):
+        q = torch.zeros((1, 130, 2, hd), device=cuda, dtype=dtype)
+        lse = torch.zeros((1, 2, 130), device=cuda)
+        with pytest.raises(ValueError):
+            flash_prefill_backward(q, q, q, pad, q, lse, q)
+        with pytest.raises(ValueError):
+            flash_prefill_trainable(q.requires_grad_(), q, q, pad)
+
+
+def test_flash_prefill_trainable_serves_as_before_and_trains(cuda):
+    """Without a gradient to record it is the serving launch (one
+    forward, no log-sum-exp, no backward launch); with one, the
+    gradients equal ``flash_prefill_backward``'s in the inputs' types."""
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        flash_prefill_backward, flash_prefill_trainable)
+    q, k, v, pad, dout = _flash_bwd_inputs(cuda, torch.bfloat16,
+                                           (2, 130, 4, 2, 64), (0, 3))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        served = flash_prefill_trainable(q, k, v, pad)
+    assert torch.equal(served, flash_prefill(q, k, v, pad))
+    counts = kernels.launch_counts()
+    assert counts["flash_prefill"] == 2
+    assert counts["flash_prefill_bwd_dq"] == counts["flash_prefill_bwd_dkv"] \
+        == 0
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = flash_prefill_trainable(qg, kg, vg, pad)
+    assert torch.equal(out, served)
+    out.backward(dout)
+    out2, lse = flash_prefill(q, k, v, pad, return_lse=True)
+    want = flash_prefill_backward(q, k, v, pad, out2, lse, dout)
+    for g, w in zip((qg.grad, kg.grad, vg.grad), want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+def test_flash_route_gradients_on_card_equal_the_chunked_routes(cuda):
+    """The fault the backward closes: on the card the flash route of a
+    LoRA model carries gradients. One loss, two routes, the same f32
+    weights: every parameter, each q/k/v adapter among them, gets a
+    finite gradient within 1e-5 of its norm of the chunked route's (the
+    routes sum in other orders), and the adapters' are not zero. (With
+    bf16 weights the chunked route rounds the first layer's
+    probabilities to bf16, the layer input's type, and the flash route
+    does not; ``chip_smoke.py`` phase 8 holds the routes at that
+    config.)"""
+    from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                     LlavaTorchConfig,
+                                                     init_random_)
+    cfg = LlavaTorchConfig(
+        vis_hidden=32, vis_intermediate=64, vis_layers=1, vis_heads=2,
+        image_size=28, patch_size=14, vocab_size=128, hidden=128,
+        intermediate=192, layers=2, heads=2, kv_heads=1,
+        image_token_index=100, lora_rank=4, lora_alpha=8.0,
+        prefill_attn_impl="flash")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = init_random_(LlavaTorch(cfg, device=cuda), gen)
+    ids = torch.randint(0, 100, (2, 150), generator=gen, device=cuda)
+    grads = {}
+    for route in ("flash", "chunked"):
+        model.set_prefill_attn(route, chunk=64)
+        model.zero_grad(set_to_none=True)
+        kernels.reset_launch_counts()
+        logits, _ = model(ids)
+        torch.log_softmax(logits.float(), -1)[..., 7].mean().backward()
+        counts = kernels.launch_counts()
+        flash = route == "flash"
+        assert counts["flash_prefill"] == (2 if flash else 0)
+        assert counts["flash_prefill_bwd_dq"] == (2 if flash else 0)
+        assert counts["flash_prefill_bwd_dkv"] == (2 if flash else 0)
+        grads[route] = {n: p.grad.clone() for n, p in model.named_parameters()
+                        if p.grad is not None}
+    assert set(grads["flash"]) == set(grads["chunked"])
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        assert f"layers.0.self_attn.{proj}.lora_b" in grads["flash"]
+    for name, g in grads["flash"].items():
+        w = grads["chunked"][name]
+        assert bool(torch.isfinite(g).all()), name
+        if name.endswith((".lora_a", ".lora_b")):
+            assert float(g.abs().max()) > 0, name
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.norm()), (name, err)

@@ -487,18 +487,19 @@ def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     names = sorted(p.name for p in build._sources())
-    assert names == ["attention.cu", "flash_prefill.cu", "histogram.cu",
-                     "minplus.cu", "rowband.cu", "scoring.cu"]
+    assert names == ["attention.cu", "flash_prefill.cu",
+                     "flash_prefill_bwd.cu", "histogram.cu", "minplus.cu",
+                     "rowband.cu", "scoring.cu"]
     # the one header (inline PTX for mbarriers, TMA, wgmma) is hashed too
     assert [p.name for p in build.CSRC_DIR.glob("*.cuh")] == ["hopper.cuh"]
     flash = (build.CSRC_DIR / "flash_prefill.cu").read_text()
     assert '#include "hopper.cuh"' in flash and "mma.sync" not in flash
     assert "wgmma.mma_async" in (build.CSRC_DIR / "hopper.cuh").read_text()
     # the bit-exact kernels keep separate multiply and add; the flash
-    # prefill alone may fuse them
+    # prefill and its backward alone may fuse them
     for p in build._sources():
         assert ("-fmad=false" in build._file_flags(p)) == \
-            (p.name != "flash_prefill.cu")
+            (p.name not in ("flash_prefill.cu", "flash_prefill_bwd.cu"))
     for p in build._sources():
         text = p.read_text()
         assert "extern \"C\" int " in text and "Replaces" in text

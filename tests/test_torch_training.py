@@ -498,12 +498,12 @@ def test_checkpoint_roundtrip_and_predictor(tmp_path):
 
 
 def test_orbax_checkpoint_converts_to_the_port(tmp_path):
-    """tools/grasp_cnn_orbax_to_torch.py on the stored JAX checkpoint:
+    """tools/grasp_cnn_from_orbax.py on the stored JAX checkpoint:
     the port's logits against the JAX model's on 32 patches of the stored
     corpus, normalized with the checkpoint's own stats (1e-5 absolute)."""
     sys.path.insert(0, str(ROOT / "tools"))
     try:
-        import grasp_cnn_orbax_to_torch as tool
+        import grasp_cnn_from_orbax as tool
     finally:
         sys.path.remove(str(ROOT / "tools"))
     src = ROOT / "artifacts" / "grasp_cnn_hard" / "best_model"

@@ -4,7 +4,7 @@
 port's checkpoint format (``leafgrasp_tpu_torch/training/checkpoint.py``:
 one ``torch.save`` file and its ``.meta.json``).
 
-    python tools/grasp_cnn_orbax_to_torch.py \\
+    python tools/grasp_cnn_from_orbax.py \\
         artifacts/grasp_cnn_hard/best_model build/grasp_cnn_hard/best_model
 
 This is the one place where the JAX package's ``load_checkpoint`` meets
