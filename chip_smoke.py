@@ -94,13 +94,18 @@ Phases, each a hard failure (non-zero exit):
 8. VLA training: (a) the flash prefill's backward kernels
    (``flash_prefill_bwd_dq``, ``flash_prefill_bwd_dkv``) against the
    plain backward on the forward kernel's output and log-sum-exp, at the
-   training shape (2, 642, 32 over 8, 128) in f32 and bf16, at t = 128
-   and 200, head size 64, one to four query heads a K/V head, pads
-   inside and across a tile and a pad-only row, K/V as views of a longer
-   cache holding NaN, and the serving shape (5, 2400, 32 over 8, 128) in
-   bf16: each gradient within 1e-5 of its norm, pad rows and rows beyond
-   t exactly zero, two runs bit-equal; their times beside the bound, the
-   plain version and ``scaled_dot_product_attention``'s backward;
+   training shape (2, 642, 32 over 8, 128) in f32 and bf16, at t = 128,
+   200 and 257, head size 64, one to four query heads a K/V head, pads
+   inside and across a tile and a pad-only row, q and k at 8 times unit
+   scale, K/V as views of a longer cache holding NaN, and the serving
+   shape (5, 2400, 32 over 8, 128) in bf16: each gradient within 1e-5 of
+   its norm, pad rows and rows beyond t exactly zero, two runs
+   bit-equal (the kernels' registers and spills are in the build's log,
+   which phase 1 prints); their times beside the bound (the formulas'
+   products at the tensor cores' bf16 rate, and beside it the bf16
+   products the split issues at that rate), the plain version and
+   ``scaled_dot_product_attention``'s backward, and SDPA's forward at
+   the training shape;
    (b) ``LlavaLoRATrainer`` on ``LlavaTorch`` at the
    LLaVA-1.6-Mistral-7B widths (single tile, 576 image tokens; bf16 base
    from seed 0, rank-8 f32 adapters, lr 5e-5, batch 2, ``max_len`` 768,
@@ -2166,18 +2171,39 @@ def run_training(torch, dev):
 
 # ---------------------------------------------------------------- phase 8 --
 
-# (b, t, heads, kv_heads, hd) and left pads of the flash prefill's
-# backward against its plain version: the training shape (the stub
-# tokenizer's 642 tokens, no pad: the trainer pads on the right), a tile,
-# no multiple of one, head size 64, one to four query heads a K/V head,
-# pads inside and across a 64-row tile and a row of pad only; K/V read
-# through the strides of a longer cache that holds NaN beyond t
-FLASH_BWD_SHAPES = {"train": ((2, 642, 32, 8, 128), (0, 0)),
-                    "t128": ((2, 128, 8, 2, 128), (0, 64)),
-                    "t200_rep1": ((3, 200, 8, 8, 128), (0, 37, 200)),
-                    "hd64_rep4": ((2, 200, 8, 2, 64), (5, 130)),
-                    "rep2": ((2, 333, 8, 4, 128), (70, 0))}
-FLASH_BWD_SERVING = ((5, 2400, 32, 8, 128), (0, 0, 0, 0, 0))
+# (b, t, heads, kv_heads, hd), left pads, the scale of q and k, and the
+# slack of the forward's log-sum-exp of the flash prefill's backward
+# against its plain version: the training shape (the stub tokenizer's 642
+# tokens, no pad: the trainer pads on the right), a tile, no multiple of
+# one, head size 64, one to four query heads a K/V head, pads inside and
+# across a 64-row tile and a row of pad only, and q and k at 8 times unit
+# scale (|S / sqrt(hd)| in the tens: an error of the split products in S
+# enters the exponent); K/V read through the strides of a longer cache
+# that holds NaN beyond t.
+# The log-sum-exp is held to FLASH_LSE_TOL plus that many f32 ulps of the
+# row's largest sum_d |q_d k_d| scale: kernel and plain version sum S
+# over hd in f32 in other orders, and at 8 times unit scale those terms
+# sum to some 500, where an ulp is 3.1e-5 to 6.1e-5 (t257_x8 read 3.05e-5
+# in f32 and 1.07e-4 in bf16 on an H100); every other case takes no slack
+FLASH_BWD_SHAPES = {"train": ((2, 642, 32, 8, 128), (0, 0), 1.0, 0),
+                    "t128": ((2, 128, 8, 2, 128), (0, 64), 1.0, 0),
+                    "t200_rep1": ((3, 200, 8, 8, 128), (0, 37, 200), 1.0, 0),
+                    "hd64_rep4": ((2, 200, 8, 2, 64), (5, 130), 1.0, 0),
+                    "rep2": ((2, 333, 8, 4, 128), (70, 0), 1.0, 0),
+                    "t257_x8": ((2, 257, 8, 2, 128), (0, 100), 8.0, 4)}
+FLASH_LSE_TOL = 1e-5
+FLASH_BWD_SERVING = ((5, 2400, 32, 8, 128), (0, 0, 0, 0, 0), 1.0, 0)
+# the products of the formulas a visible (query, key) pair and head, of
+# 2 hd operations each: S, dP and dQ = dS K; S, dP, dV = P^T dO and
+# dK = dS^T Q. The bound counts these at the bf16 tensor cores' rate
+FLASH_BWD_PRODUCTS = {"dq": 3, "dkv": 4}
+# the bf16 products the kernels issue for them: f32 inputs take S = Q K^T
+# in three bf16 planes (six plane products) and the other products in two
+# (three); bf16 inputs take S and dP as they are and split P and dS in two
+# planes (two products each). Only ``issued_bound_ms`` counts these
+FLASH_BWD_PLANE_PRODUCTS = {
+    "float32": {"dq": 6 + 3 + 3, "dkv": 6 + 3 + 3 + 3},
+    "bfloat16": {"dq": 1 + 1 + 2, "dkv": 1 + 1 + 2 + 2}}
 # each gradient's largest difference from the plain backward's over its L2
 # norm: both take the same inputs, output and log-sum-exp and compute in
 # f32 (bf16 inputs widened), in other orders of the sums
@@ -2224,27 +2250,41 @@ class ByteStubTok:
         return "0.5"
 
 
-def _flash_bwd_case(torch, dev, dtype, shape, pads, rng):
+def _flash_bwd_case(torch, dev, dtype, shape, pads, rng, qk_mul=1.0):
     b, t, heads, kvh, hd = shape
 
-    def t_(*s):
-        return torch.as_tensor(rng.standard_normal(s).astype(np.float32),
-                               device=dev).to(dtype)
+    def t_(*s, mul=1.0):
+        return torch.as_tensor((rng.standard_normal(s) * mul)
+                               .astype(np.float32), device=dev).to(dtype)
 
-    q = t_(b, t, heads, hd)
-    ck, cv = t_(b, t + 10, kvh, hd), t_(b, t + 10, kvh, hd)
+    q = t_(b, t, heads, hd, mul=qk_mul)
+    ck, cv = t_(b, t + 10, kvh, hd, mul=qk_mul), t_(b, t + 10, kvh, hd)
     ck[:, t:] = float("nan")
     cv[:, t:] = float("nan")
     pad = torch.tensor(pads, dtype=torch.int32, device=dev)
     return q, ck, cv, pad, t_(b, t, heads, hd)
 
 
-def _flash_bwd_bounds(shape, pads, dtype_bytes, peak):
-    """(bytes, operations, bound ms, bound_by) of dQ and of dK/dV: each
-    input read once and each output written once; per visible (query,
-    key) pair and head, 2 hd operations for each product (dQ: S, dP, dS K;
-    dK/dV: S, P^T dO, dP, dS^T Q)."""
+def _score_terms(torch, q, k, t):
+    """(b, heads, t): the largest over a row's keys of sum_d |q_d k_d|
+    times the scale, the size of what an f32 sum of S scale adds up."""
+    rep = q.shape[2] // k.shape[2]
+    kk = k[:, :t].float().abs().repeat_interleave(rep, dim=2)
+    terms = torch.einsum("bihd,bjhd->bhij", q.float().abs(), kk)
+    return terms.amax(-1) * q.shape[3] ** -0.5
+
+
+def _flash_bwd_bounds(shape, pads, dtype):
+    """{"dq" or "dkv": (bytes, operations, bound ms, bound_by, issued
+    operations, issued bound ms)}: each input read once and each output
+    written once; per visible (query, key) pair and head, 2 hd operations
+    for each product of the formulas (FLASH_BWD_PRODUCTS), at the tensor
+    cores' bf16 rate, for f32 and bf16 inputs alike. The issued bound
+    counts the bf16 products the split issues instead
+    (FLASH_BWD_PLANE_PRODUCTS) at the same rate."""
     b, t, heads, kvh, hd = shape
+    name = str(dtype).split(".")[1]
+    dtype_bytes = 4 if name == "float32" else 2
     pairs = sum((t - p) * (t - p + 1) / 2 for p in pads) * heads
     qo = b * t * heads * hd
     kv = b * t * kvh * hd
@@ -2252,10 +2292,12 @@ def _flash_bwd_bounds(shape, pads, dtype_bytes, peak):
     dq_bytes = dtype_bytes * (3 * qo + 2 * kv) + 2 * rows + 4.0 * qo
     dkv_bytes = dtype_bytes * (2 * qo + 2 * kv) + 2 * rows + 8.0 * kv
     out = {}
-    for name, n_prod, moved in (("dq", 3, dq_bytes), ("dkv", 4, dkv_bytes)):
-        ops = n_prod * 2.0 * hd * pairs
-        ms, by = bound(moved, ops, peak)
-        out[name] = (moved, ops, ms, by)
+    for kind, moved in (("dq", dq_bytes), ("dkv", dkv_bytes)):
+        ops = FLASH_BWD_PRODUCTS[kind] * 2.0 * hd * pairs
+        issued = FLASH_BWD_PLANE_PRODUCTS[name][kind] * 2.0 * hd * pairs
+        ms, by = bound(moved, ops, PEAK_BF16_OPS_PER_S)
+        issued_ms, _ = bound(moved, issued, PEAK_BF16_OPS_PER_S)
+        out[kind] = (moved, ops, ms, by, issued, issued_ms)
     return out
 
 
@@ -2270,13 +2312,13 @@ def check_flash_backward(torch, dev):
         flash_prefill_plain)
     rng = np.random.default_rng(8)
     errs, lse_errs, abs_err = {}, {}, 0.0
-    cases = [(n, s, p, dt) for n, (s, p) in FLASH_BWD_SHAPES.items()
+    cases = [(n, *case, dt) for n, case in FLASH_BWD_SHAPES.items()
              for dt in (torch.float32, torch.bfloat16)]
     cases.append(("serving", *FLASH_BWD_SERVING, torch.bfloat16))
     kept = {}
-    for name, shape, pads, dtype in cases:
+    for name, shape, pads, qk_mul, ulps, dtype in cases:
         q, k, v, pad, dout = _flash_bwd_case(torch, dev, dtype, shape, pads,
-                                             rng)
+                                             rng, qk_mul)
         t = shape[1]
         out, lse = flash_prefill(q, k, v, pad, return_lse=True)
         _, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
@@ -2291,7 +2333,12 @@ def check_flash_backward(torch, dev):
                                             chunk=256)
         torch.cuda.synchronize()
         key = f"{name}/{str(dtype).split('.')[1]}"
-        lse_errs[key] = (lse[real] - lse_plain[real]).abs().max().item()
+        lse_err = (lse[real] - lse_plain[real]).abs()
+        ulp = 2.0 ** -23 * _score_terms(torch, q, k, t)[real]
+        lse_ok = bool((lse_err <= FLASH_LSE_TOL + ulps * ulp).all())
+        # the reading: the error beyond FLASH_LSE_TOL in those ulps
+        lse_ulps = ((lse_err - FLASH_LSE_TOL).clamp(min=0) / ulp).max().item()
+        lse_errs[key] = lse_err.max().item()
         rel = {}
         for gname, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
             if not torch.equal(g, g2):
@@ -2305,12 +2352,14 @@ def check_flash_backward(torch, dev):
             rel[gname] = _rel_err(g, w)
             abs_err = max(abs_err, (g - w).abs().max().item())
         errs[key] = rel
-        log(f"phase 8a flash backward {key} {shape} pads {pads}: err / norm "
-            f"{json.dumps(rel)}, lse err {lse_errs[key]:.2e}, bit-equal run "
-            f"to run, pad rows zero")
-        if max(rel.values()) > FLASH_BWD_REL_TOL or lse_errs[key] > 1e-5:
+        log(f"phase 8a flash backward {key} {shape} pads {pads} q, k x "
+            f"{qk_mul}: err / norm {json.dumps(rel)}, lse err "
+            f"{lse_errs[key]:.2e} ({lse_ulps:.2f} ulps of the row's terms "
+            f"beyond {FLASH_LSE_TOL}, slack {ulps}), bit-equal run to run, "
+            f"pad rows zero")
+        if max(rel.values()) > FLASH_BWD_REL_TOL or not lse_ok:
             raise RuntimeError(f"phase 8a {key}: err / norm {rel}, lse err "
-                               f"{lse_errs[key]}")
+                               f"{lse_errs[key]} ({lse_ulps} ulps)")
         if name in ("train", "serving"):
             kept[key] = (q, k, v, pad, dout, out, lse)
         del got, again, want
@@ -2319,9 +2368,7 @@ def check_flash_backward(torch, dev):
         q, k, v, pad, dout, out, lse = kept[key]
         shape = tuple(q.shape[:3]) + (k.shape[2], q.shape[3])
         pads = pad.tolist()
-        peak = PEAK_F32_OPS_PER_S if q.dtype == torch.float32 \
-            else PEAK_BF16_OPS_PER_S
-        bounds = _flash_bwd_bounds(shape, pads, q.element_size(), peak)
+        bounds = _flash_bwd_bounds(shape, pads, q.dtype)
 
         def run():
             return flash_prefill_backward(q, k, v, pad, out, lse, dout)
@@ -2332,6 +2379,9 @@ def check_flash_backward(torch, dev):
         vl = v[:, :shape[1]].repeat_interleave(rep, dim=2).transpose(1, 2) \
             .detach().requires_grad_()
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        with torch.no_grad():
+            lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True), iters=iters, warmup=1)
         dl = dout.transpose(1, 2)
         res = {"shape": list(shape), "dtype": str(q.dtype).split(".")[1],
                "wrapper_ms": cuda_ms(run, iters=iters, warmup=1),
@@ -2340,7 +2390,8 @@ def check_flash_backward(torch, dev):
                    warmup=1),
                "library_ms": cuda_ms(lambda: torch.autograd.grad(
                    lib_out, (ql, kl, vl), dl, retain_graph=True),
-                   iters=iters, warmup=1)}
+                   iters=iters, warmup=1),
+               "library_forward_ms": lib_fwd_ms}
         fwd = "flash_prefill_f32_kernel" if q.dtype == torch.float32 \
             else "flash_prefill_kernel"
         def median_ms(fn, kernel):
@@ -2352,12 +2403,14 @@ def check_flash_backward(torch, dev):
         res["forward_ms"], _ = median_ms(
             lambda: flash_prefill(q, k, v, pad), fwd)
         for name in ("dq", "dkv"):
-            moved, ops, b_ms, b_by = bounds[name]
+            moved, ops, b_ms, b_by, issued, issued_ms = bounds[name]
             ms, reps = median_ms(run, f"flash_prefill_bwd_{name}_kernel")
             res[name] = {"ms": ms, "ms_repeats": reps,
                          "bound_ms": b_ms, "bound_by": b_by,
+                         "issued_bound_ms": issued_ms,
                          "bytes": moved, "operations": ops,
-                         "tflops": ops / ms / 1e9}
+                         "issued_operations": issued,
+                         "issued_tflops": issued / ms / 1e9}
         log(f"phase 8a flash backward times {key} {json.dumps(res)}")
         return res
 
@@ -2367,11 +2420,14 @@ def check_flash_backward(torch, dev):
     records = []
     fwd_train = {"f32_ms": t_f32["forward_ms"],
                  "f32_lse_ms": t_f32["forward_lse_ms"],
+                 "f32_library_ms": t_f32["library_forward_ms"],
                  "bf16_ms": t_bf16["forward_ms"],
                  "bf16_lse_ms": t_bf16["forward_lse_ms"],
+                 "bf16_library_ms": t_bf16["library_forward_ms"],
                  "shape": t_f32["shape"]}
     log(f"phase 8a flash forward at the training shape, without and with "
-        f"the log-sum-exp {json.dumps(fwd_train)}")
+        f"the log-sum-exp, and SDPA's forward (causal, K/V repeated) "
+        f"{json.dumps(fwd_train)}")
     for name, line in (("dkv", 941), ("dq", 1287)):
         rec = {"name": f"flash_prefill_bwd_{name}", "route": "cuda",
                "source": "leafgrasp_tpu_torch/kernels/csrc/"
@@ -2388,14 +2444,22 @@ def check_flash_backward(torch, dev):
                "plain_ms": t_f32["plain_ms"],
                "bound_ms": t_f32[name]["bound_ms"],
                "bound_by": t_f32[name]["bound_by"],
+               "bound_rate": "989 TFLOP/s (bf16 tensor cores) over the "
+                             "formulas' products; issued_bound_ms over "
+                             "the split's bf16 plane products",
+               "issued_bound_ms": t_f32[name]["issued_bound_ms"],
                "library_ms": t_f32["library_ms"],
                "bf16_train": {"ms": t_bf16[name]["ms"],
                               "bound_ms": t_bf16[name]["bound_ms"],
+                              "issued_bound_ms":
+                                  t_bf16[name]["issued_bound_ms"],
                               "plain_ms": t_bf16["plain_ms"],
                               "library_ms": t_bf16["library_ms"]},
                "bf16_serving": {"shape": t_serv["shape"],
                                 "ms": t_serv[name]["ms"],
                                 "bound_ms": t_serv[name]["bound_ms"],
+                                "issued_bound_ms":
+                                    t_serv[name]["issued_bound_ms"],
                                 "plain_ms": t_serv["plain_ms"],
                                 "library_ms": t_serv["library_ms"]}}
         records.append(rec)

@@ -86,7 +86,6 @@
 #include <cuda.h>              // CUtensorMap and its enums: types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -757,47 +756,14 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// cuTensorMapEncodeTiled lives in libcuda and this library links against
-// the runtime only: take it from the libcuda.so.1 that the process has
-// loaded already.
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiledFn>(
-        dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
 // rank-4 map of a (batch, token, head, hd) bf16 tensor read as boxes of
-// `rows` tokens x 64 columns of one head; `tokens` bounds the token
-// dimension, so rows beyond it are zero-filled and never read
+// `rows` tokens x 64 columns of one head in the 128-byte swizzle; `tokens`
+// bounds the token dimension, so rows beyond it are zero-filled
 bool make_map(CUtensorMap* map, const void* ptr, int hd, int tokens,
               int n_heads, int b, Strides s, int rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t row_bytes = (cuuint64_t)hd * sizeof(bf16);
-  auto stride = [&](int size, long long elems) {      // of a size-1 dim: any
-    return size > 1 ? (cuuint64_t)elems * sizeof(bf16) : row_bytes;
-  };
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)tokens,
-                              (cuuint64_t)n_heads, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {stride(tokens, s.t), stride(n_heads, s.h),
-                                 stride(b, s.b)};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16),
+                     ptr, hd, tokens, n_heads, b, s.b, s.t, s.h, 64, rows,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int HD, bool LSE>

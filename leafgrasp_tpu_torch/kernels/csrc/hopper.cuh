@@ -1,7 +1,8 @@
 // Hopper building blocks as inline PTX, for the kernels of this directory
-// that use the asynchronous units of sm_90a: mbarriers, tiled TMA loads,
-// and warpgroup matrix multiply-accumulate (wgmma) on bf16 with f32
-// accumulators. Nothing here is a kernel; see flash_prefill.cu.
+// that use the asynchronous units of sm_90a: mbarriers, tiled TMA loads
+// (and the host side that encodes their tensor maps), and warpgroup
+// matrix multiply-accumulate (wgmma) on bf16 with f32 accumulators.
+// Nothing here is a kernel; see flash_prefill.cu and flash_prefill_bwd.cu.
 //
 // Shared-memory operand tiles are rows of 128 bytes (64 bf16) in the
 // 128-byte swizzle, eight rows (1024 bytes) a swizzle atom, as a TMA load
@@ -11,6 +12,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -42,10 +44,12 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                "r"(bytes)
                : "memory");
 }
-// spins until the phase of the given parity has completed
+// spins until the phase of the given parity has completed; a phase that
+// never completes (a wrong parity or byte count) ends the kernel with an
+// error after 2^24 tries, instead of a card that spins for ever
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
+  for (uint32_t i = 0;; ++i) {
+    uint32_t done;
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -53,7 +57,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-  } while (!done);
+    if (done) return;
+    if (i == (1u << 24)) __trap();
+  }
 }
 
 // ---- TMA --------------------------------------------------------------------
@@ -70,6 +76,59 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// orders this thread's earlier shared-memory accesses of the generic proxy
+// (ordinary loads and stores) before later accesses of the asynchronous
+// proxy (wgmma operand reads, TMA writes); a barrier then publishes them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled lives in libcuda and the kernel library links
+// against the runtime only: take it from the libcuda.so.1 that the
+// process has loaded already.
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiledFn>(
+        dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// rank-4 map of a (batch, token, head, hd) tensor of `elem` bytes an
+// element (strides sb, st, sh in elements) read as boxes of `rows` tokens
+// x `cols` elements of one head; `tokens` bounds the token dimension, so
+// rows beyond it are zero-filled and never read
+inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type,
+                        int elem, const void* ptr, int hd, int tokens,
+                        int n_heads, int b, long long sb, long long st,
+                        long long sh, int cols, int rows,
+                        CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row_bytes = (cuuint64_t)hd * elem;
+  auto stride = [&](int size, long long elems) {      // of a size-1 dim: any
+    return size > 1 ? (cuuint64_t)elems * elem : row_bytes;
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)tokens,
+                              (cuuint64_t)n_heads, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {stride(tokens, st), stride(n_heads, sh),
+                                 stride(b, sb)};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---- wgmma ------------------------------------------------------------------
@@ -111,7 +170,8 @@ template <int REGS> __device__ __forceinline__ void reg_dealloc() {
 }
 
 // D (64 x N, f32, registers) = or += A (64 x 16) . B (16 x N), bf16.
-// _ss: A and B through shared-memory descriptors, both K-major.
+// _ss: A and B through shared-memory descriptors, both K-major (N = 128,
+// 64 or 32).
 // _rs: A from registers (the m16n8k16 A fragment of each warp's 16 rows),
 // B MN-major (transpose bit set). accumulate == 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64],
@@ -142,6 +202,43 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t adesc,
+                                             uint64_t bdesc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t adesc,
+                                             uint64_t bdesc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(adesc), "l"(bdesc), "r"(accumulate));
 }
 

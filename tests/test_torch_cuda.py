@@ -643,18 +643,21 @@ def test_cnn_train_step_gradients_on_card_match_cpu(cuda):
 FLASH_BWD_REL_TOL = 1e-5
 
 
-def _flash_bwd_inputs(cuda, dtype, shape, pads, seed=5, extra=10):
+def _flash_bwd_inputs(cuda, dtype, shape, pads, seed=5, extra=10,
+                      qk_mul=1.0):
     """q, K/V as views of a longer cache whose rows beyond t hold NaN,
-    the pads, and the output's gradient (pad rows carry one too)."""
+    the pads, and the output's gradient (pad rows carry one too); q and
+    k drawn at ``qk_mul`` times unit scale."""
     b, t, heads, kvh, hd = shape
     rng = np.random.default_rng(seed)
 
-    def t_(*s):
-        return torch.as_tensor(rng.standard_normal(s).astype(np.float32),
-                               device=cuda).to(dtype)
+    def t_(*s, mul=1.0):
+        return torch.as_tensor((rng.standard_normal(s) * mul)
+                               .astype(np.float32), device=cuda).to(dtype)
 
-    q = t_(b, t, heads, hd)
-    cache_k, cache_v = t_(b, t + extra, kvh, hd), t_(b, t + extra, kvh, hd)
+    q = t_(b, t, heads, hd, mul=qk_mul)
+    cache_k = t_(b, t + extra, kvh, hd, mul=qk_mul)
+    cache_v = t_(b, t + extra, kvh, hd)
     cache_k[:, t:] = float("nan")
     cache_v[:, t:] = float("nan")
     pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
@@ -669,28 +672,75 @@ def _flash_bwd_inputs(cuda, dtype, shape, pads, seed=5, extra=10):
     ((3, 129, 4, 1, 128), (128, 0, 70)),
     ((2, 642, 32, 8, 128), (0, 5)),
     ((2, 100, 8, 2, 128), (0, 100)),
+    ((2, 257, 8, 2, 128), (0, 100)),
+    ((2, 65, 8, 2, 64), (0, 33)),
+    ((1, 97, 4, 4, 128), (40,)),
+    ((1, 130, 8, 1, 64), (3,)),
 ])
 def test_flash_prefill_backward_kernels_match_plain_on_card(cuda, dtype,
                                                             shape, pads):
     """The two backward kernels (through ``flash_prefill_backward``)
     against the plain backward on the kernel forward's output and
-    log-sum-exp: rep 1, 2 and 4, head sizes 64 and 128, t a multiple of a
-    tile and not, pads inside and across a tile and a row of pad only,
-    K/V as views of a longer cache holding NaN beyond t. Each gradient
-    within 1e-5 of its norm, dQ of pad rows, dK/dV of pad keys and of the
-    rows beyond t exactly zero, everything finite, the same bits twice,
-    one launch of each kernel a call; the forward's log-sum-exp equals
-    the plain version's to 1e-5 and is -inf on pad rows."""
+    log-sum-exp: rep 1, 2, 4 and 8 (the dK/dV kernel gives a key tile's
+    query heads to a cluster of one, two or four blocks, two heads each
+    at rep 8), head sizes 64 and 128, t a multiple of a
+    tile and not (one row past the 64-row fixed tiles and the 32- and
+    64-row stream tiles: 65, 97, 129, 257), pads inside and across a tile
+    and a row of pad only, K/V as views of a longer cache holding NaN
+    beyond t. Each gradient within 1e-5 of its norm, dQ of pad rows, dK/dV
+    of pad keys and of the rows beyond t exactly zero, everything finite,
+    the same bits twice, one launch of each kernel a call; the forward's
+    log-sum-exp equals the plain version's to 1e-5 and is -inf on pad
+    rows."""
+    _check_flash_backward(cuda, dtype, shape, pads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pads", [
+    ((2, 128, 4, 2, 64), (0, 64)),
+    ((2, 257, 8, 2, 128), (0, 100)),
+])
+def test_flash_prefill_backward_kernels_hold_large_scores_on_card(
+        cuda, dtype, shape, pads):
+    """As above with q and k at 8 times unit scale (|S / sqrt(hd)| in the
+    tens, a softmax close to one-hot): an error of the split products in
+    S enters the exponent absolutely, so this is where too few bf16
+    planes would show (tests/test_torch_flash_split.py emulates it).
+    The forward's log-sum-exp comes from S, which kernel and plain
+    version sum over hd in f32 in other orders: here the terms |q_d k_d|
+    sum to some 500 after the scale, so it is held to 1e-5 plus four f32
+    ulps of that sum, the row's largest over its keys, where the other
+    cases hold it to 1e-5 alone (an ulp at 512 is 6.1e-5; read on an
+    H100: (2, 128, 4 over 2, 64) 3.1e-5 in f32 and 6.1e-5 in bf16,
+    (2, 257, 8 over 2, 128) 3.1e-5 and 1.2e-4)."""
+    _check_flash_backward(cuda, dtype, shape, pads, qk_mul=8.0,
+                          lse_ulps=4)
+
+
+def _score_terms(q, k, t):
+    """(b, heads, t): the largest over a row's keys of sum_d |q_d k_d|
+    times the scale, the size of what an f32 sum of S scale adds up."""
+    rep = q.shape[2] // k.shape[2]
+    kk = k[:, :t].float().abs().repeat_interleave(rep, dim=2)
+    terms = torch.einsum("bihd,bjhd->bhij", q.float().abs(), kk)
+    return terms.amax(-1) * q.shape[3] ** -0.5
+
+
+def _check_flash_backward(cuda, dtype, shape, pads, qk_mul=1.0,
+                          lse_ulps=0):
     from leafgrasp_tpu_torch.kernels.flash_prefill import (
         flash_prefill_backward, flash_prefill_backward_plain)
-    q, k, v, pad, dout = _flash_bwd_inputs(cuda, dtype, shape, pads)
+    q, k, v, pad, dout = _flash_bwd_inputs(cuda, dtype, shape, pads,
+                                           qk_mul=qk_mul)
     t = shape[1]
     out, lse = flash_prefill(q, k, v, pad, return_lse=True)
     _, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
                                        return_lse=True)
     real = torch.isfinite(lse_plain)
     assert torch.equal(real, torch.isfinite(lse))
-    assert float((lse[real] - lse_plain[real]).abs().max()) <= 1e-5
+    lse_err = (lse[real] - lse_plain[real]).abs()
+    lse_tol = 1e-5 + lse_ulps * 2.0 ** -23 * _score_terms(q, k, t)[real]
+    assert bool((lse_err <= lse_tol).all()), float(lse_err.max())
     kernels.reset_launch_counts()
     got = flash_prefill_backward(q, k, v, pad, out, lse, dout)
     again = flash_prefill_backward(q, k, v, pad, out, lse, dout)
