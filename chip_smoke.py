@@ -71,12 +71,14 @@ Phases, each a hard failure (non-zero exit):
    degradations on purpose (a backend that raises, a selector that
    raises), and ``TinyVLAScorer`` on the card once;
 7. training: (a) the attention gate's gradient kernel against its plain
-   version at the four architectures' training shapes (batch 16) in the
-   three gated modes, x as the CNN passes it and contiguous, dy
+   version at the four architectures' training shapes (batch 16), at N
+   of 1, 17 and 33 and at the kernel's limits (HW 64, C 1024, R 64) in
+   the three gated modes, x as the CNN passes it and contiguous, dy
    contiguous, channel-major and with stride 0 along HW (the average
    pool's gradient): dx within 1e-5 absolute, each parameter gradient
    within 1e-5 of its norm, two runs bit-equal; mode ``none`` passes dy
-   through; (b) the teacher (``collect_from_frames``) on six 1080 x 1440
+   through; one call runs one kernel on the card (a profile), timed as
+   the median of five profiles beside an empty launch and K2's forward; (b) the teacher (``collect_from_frames``) on six 1080 x 1440
    frames of the bench families in ``reference_self`` with the collector
    on the card, the teacher's kernels (min-plus, fused scoring) counted,
    the first frame's teacher point, score (1e-5) and negative pools
@@ -104,8 +106,14 @@ Phases, each a hard failure (non-zero exit):
    which phase 1 prints); their times beside the bound (the formulas'
    products at the tensor cores' bf16 rate, and beside it the bf16
    products the split issues at that rate), the plain version and
-   ``scaled_dot_product_attention``'s backward, and SDPA's forward at
-   the training shape;
+   ``scaled_dot_product_attention``'s backward; the f32 forward (K7-f32)
+   at every f32 case and at the training shape and head size 64 with
+   q, k x 8, with and without the log-sum-exp: its output within 2e-5 of
+   the plain version's (at q, k x 8 plus what four f32 ulps of the row's
+   score terms move it by), bit-equal twice, timed at the training shape
+   with and without the log-sum-exp beside its bounds (bytes; the
+   split's 11 bf16 products), the plain version and SDPA's f32 forward
+   (the ``f32`` record inside ``flash_prefill``'s);
    (b) ``LlavaLoRATrainer`` on ``LlavaTorch`` at the
    LLaVA-1.6-Mistral-7B widths (single tile, 576 image tokens; bf16 base
    from seed 0, rank-8 f32 adapters, lr 5e-5, batch 2, ``max_len`` 768,
@@ -211,7 +219,6 @@ KERNEL_FUNCTIONS = {
     "fused_score_maps_kernel": "fused_score_maps",
     "fused_attention_gate_kernel": "fused_attention_gate",
     "attention_gate_backward_kernel": "attention_gate_backward",
-    "attention_gate_grad_reduce_kernel": "attention_gate_backward",
     "rowband_kernel": "squared_edt_rowband",
     "rowband_radius_kernel": "squared_edt_rowband",
     "segment_histogram_kernel": "segment_histogram",
@@ -325,6 +332,47 @@ def kernel_ms(fn, kernel, iters: int = 20) -> float:
             return sum(rec[name][0] / rec[name][1] * per_call[name]
                        for name in names) / 1e3
     raise RuntimeError(f"the profiler recorded no launch of {names}")
+
+
+def device_kernels(fn) -> list:
+    """The names of the kernels, memsets and copies one call of ``fn``
+    ran on the card, in order, from a profile (the lead-in left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in sorted(prof.events(),
+                                     key=lambda e: e.time_range.start)
+            if ev.device_type == DeviceType.CUDA and not is_lead_in(ev.name)]
+
+
+def launch_floor_ms(torch, dev, iters: int = 20):
+    """(median, readings) of the device ms of an empty launch: a fill of
+    one f32 element, each profile's kernels over its launches."""
+    from torch.profiler import ProfilerActivity, profile
+    z = torch.empty((1,), device=dev)
+    reps = []
+    for _ in range(5):
+        z.fill_(0.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
+            for _ in range(iters):
+                z.fill_(0.0)
+            torch.cuda.synchronize()
+        got = [(ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if not is_lead_in(ev.key) and ev.self_device_time_total > 0]
+        if got:
+            reps.append(sum(t for t, _ in got) / sum(n for _, n in got) / 1e3)
+    if not reps:
+        raise RuntimeError("the profiler recorded no fill kernel")
+    return statistics.median(reps), reps
 
 
 def bound(bytes_moved: float, ops: float, peak_ops=PEAK_F32_OPS_PER_S):
@@ -1732,11 +1780,18 @@ def run_vla(torch, dev, cnn, scenes):
 GATE_TRAIN_SHAPES = {"lightweight": (16, 16, 128, 8),
                      "standard": (16, 16, 256, 16),
                      "deep": (16, 4, 256, 16), "wide": (16, 16, 512, 32)}
+# N of one, past one cluster of blocks (the kernel's cluster holds up to
+# 16) and the kernel's limits (HW 64, C 1024, R 64), checked beside them
+GATE_EXTRA_SHAPES = {"n1": (1, 16, 256, 16), "n17": (17, 16, 256, 16),
+                     "n33": (33, 16, 128, 8), "limits": (17, 64, 1024, 64)}
 # dx against the plain version's, absolute; each parameter gradient's
 # largest difference against 1e-5 of that gradient's L2 norm (the card
 # sums the products over N, HW and C in another order)
 GATE_DX_TOL = 1e-5
 GATE_PARAM_REL_TOL = 1e-5
+# each time of phase 7a is the median of this many profiles (single
+# profiles of the gate's gradient read 0.0105-0.0153 ms in PR 7-9)
+GATE_TIME_REPEATS = 5
 # one train step of the standard CNN (dropout 0, same weights and batch)
 # on the card against the CPU: each gradient's largest difference against
 # 3e-5 of its L2 norm. cuDNN's f32 convolutions (TF32 off) and the CPU's
@@ -1792,7 +1847,8 @@ def check_attention_backward(torch, dev):
     rng = np.random.default_rng(7)
     errs = {"dx": 0.0, "params_rel": 0.0}
     inputs = {}
-    for arch, (n, hw, c, r) in GATE_TRAIN_SHAPES.items():
+    for arch, (n, hw, c, r) in {**GATE_TRAIN_SHAPES,
+                                **GATE_EXTRA_SHAPES}.items():
         base = torch.relu(torch.as_tensor(
             rng.standard_normal((n, c, hw)).astype(np.float32), device=dev))
         params = _gate_params(torch, dev, rng, c, r)
@@ -1839,9 +1895,10 @@ def check_attention_backward(torch, dev):
     if not torch.equal(dx_none, dy) or dict(LAUNCHES) != before:
         raise RuntimeError("gate backward, mode none: dx != dy or a launch")
     log(f"phase 7a: gate backward matches its plain version at "
-        f"{sorted(GATE_TRAIN_SHAPES)} x 2 x layouts 3 dy forms x 3 modes, "
-        f"bit-equal run to run; max dx err {errs['dx']:.3e}, max parameter "
-        f"err / norm {errs['params_rel']:.3e}")
+        f"{sorted(GATE_TRAIN_SHAPES)} and {sorted(GATE_EXTRA_SHAPES)} x 2 "
+        f"x layouts 3 dy forms x 3 modes, bit-equal run to run; max dx "
+        f"err {errs['dx']:.3e}, max parameter err / norm "
+        f"{errs['params_rel']:.3e}")
 
     # times at the main path's shape and mode: standard, spatial, x the
     # NCHW view, dy the pool's stride-0 gradient
@@ -1850,14 +1907,36 @@ def check_attention_backward(torch, dev):
         ps = [p.detach().requires_grad_() for p in params]
         return torch.autograd.grad(attention_gate_plain(xp, *ps, "spatial"),
                                    [xp, *ps], dy, allow_unused=True)
+    def median_ms(fn, kernel):
+        reps = [kernel_ms(fn, kernel) for _ in range(GATE_TIME_REPEATS)]
+        return statistics.median(reps), reps
+
     modes_ms = {}
     for mode in ("spatial", "channel", "hybrid"):
+        ms, reps = median_ms(lambda: attention_gate_backward(
+            dy, x, *params, mode), "attention_gate_backward_kernel")
         modes_ms[mode] = {
-            "ms": kernel_ms(lambda: attention_gate_backward(
-                dy, x, *params, mode), ("attention_gate_backward_kernel",
-                                        "attention_gate_grad_reduce_kernel")),
+            "ms": ms, "ms_repeats": reps,
             "wrapper_ms": cuda_ms(lambda: attention_gate_backward(
                 dy, x, *params, mode))}
+    # one launch a call: a profile of one call holds one kernel and no
+    # memset or copy
+    ran = device_kernels(lambda: attention_gate_backward(dy, x, *params,
+                                                         "spatial"))
+    if [kernel_function(k) for k in ran] != \
+            ["attention_gate_backward_kernel"]:
+        raise RuntimeError(f"phase 7a: one call of the gate's gradient ran "
+                           f"{ran} on the card")
+    # the floors beside it: an empty launch (a one-element fill) and K2's
+    # forward at the same shape (one read of x, one write)
+    with torch.no_grad():
+        fwd_ms, fwd_reps = median_ms(
+            lambda: fused_attention_gate(x, *params, "spatial"),
+            "fused_attention_gate_kernel")
+    floor = launch_floor_ms(torch, dev)
+    log(f"phase 7a: one call of the gate's gradient ran {ran}; floors at "
+        f"the same shape: an empty launch {floor[0]} ms {floor[1]}, K2's "
+        f"forward {fwd_ms} ms {fwd_reps}")
     plain_ms = cuda_ms(plain_grad)
     n, hw, c, r = GATE_TRAIN_SHAPES["standard"]
     # x read once, dy's N*C stored values once, the gate's parameters
@@ -1873,9 +1952,12 @@ def check_attention_backward(torch, dev):
                          "param_rel_norm": GATE_PARAM_REL_TOL},
            "max_abs_err": errs["dx"], "max_param_err_rel": errs["params_rel"],
            "ms": modes_ms["spatial"]["ms"],
+           "ms_repeats": modes_ms["spatial"]["ms_repeats"],
            "wrapper_ms": modes_ms["spatial"]["wrapper_ms"],
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None, "modes_ms": modes_ms}
+           "library_ms": None, "modes_ms": modes_ms,
+           "kernels_a_call": len(ran), "empty_launch_ms": floor[0],
+           "forward_ms": fwd_ms}
     log(f"attention_gate_backward {json.dumps(rec)}")
     return rec
 
@@ -2193,6 +2275,21 @@ FLASH_BWD_SHAPES = {"train": ((2, 642, 32, 8, 128), (0, 0), 1.0, 0),
                     "t257_x8": ((2, 257, 8, 2, 128), (0, 100), 8.0, 4)}
 FLASH_LSE_TOL = 1e-5
 FLASH_BWD_SERVING = ((5, 2400, 32, 8, 128), (0, 0, 0, 0, 0), 1.0, 0)
+# The f32 forward's output against the plain version (phase 8a, beside
+# phase 2's shapes): FLASH_TOL["float32"], and at q, k x 8 also what
+# that many f32 ulps of the row's score terms in S move an output by
+# (score_slack): kernel and plain version sum S over hd in f32 in other
+# orders, which between two near-equal top scores moves an output by up
+# to 1e-4, as far as the plain f32 version is from float64 there
+# (tests/test_torch_flash_split.py). Forward-only cases at q, k x 8 beside
+# t257_x8: the training shape and head size 64
+FLASH_FWD_SLACK_ULPS = 4
+FLASH_FWD_X8 = {"train_x8": ((2, 642, 32, 8, 128), (0, 5)),
+                "hd64_x8": ((2, 128, 4, 2, 64), (0, 64))}
+# the bf16 products the f32 forward issues a visible (query, key) pair
+# and head: S = Q K^T over three planes of each (six), O += P V with P in
+# two planes and V in three (five); the formulas' two
+FLASH_FWD_PLANE_PRODUCTS = 6 + 5
 # the products of the formulas a visible (query, key) pair and head, of
 # 2 hd operations each: S, dP and dQ = dS K; S, dP, dV = P^T dO and
 # dK = dS^T Q. The bound counts these at the bf16 tensor cores' rate
@@ -2274,6 +2371,46 @@ def _score_terms(torch, q, k, t):
     return terms.amax(-1) * q.shape[3] ** -0.5
 
 
+def _score_slack(torch, q, k, v, pad, ulps, chunk=128):
+    """(b, t, heads, hd): how far ``ulps`` f32 ulps of each row's score
+    terms (``_score_terms``) in S scale move an output: a change d_j of
+    S_j scale moves O_i by sum_j P_ij d_j (v_j - O_i), so by at most
+    max |d| sum_j P_ij |v_j - O_i|, which is 0 for a one-hot row."""
+    b, t, heads, hd = q.shape
+    rep = heads // k.shape[2]
+    kf = k[:, :t].float().repeat_interleave(rep, 2)
+    vf = v[:, :t].float().repeat_interleave(rep, 2)
+    key = torch.arange(t, device=q.device)
+    spread = torch.zeros((b, t, heads, hd), device=q.device)
+    for lo in range(0, t, chunk):
+        hi = min(t, lo + chunk)
+        s = torch.einsum("bihd,bjhd->bhij", q[:, lo:hi].float(), kf) \
+            / hd ** 0.5
+        vis = (key[None, None, :] <= key[lo:hi][None, :, None]) \
+            & (key[None, None, :] >= pad.to(torch.int64)[:, None, None])
+        s = s.masked_fill(~vis[:, None], float("-inf"))
+        p = torch.nan_to_num(torch.softmax(s, -1))      # pad rows: 0
+        o = torch.einsum("bhij,bjhd->bihd", p, vf)
+        for h in range(heads):
+            dev = (vf[:, None, :, h] - o[:, :, None, h]).abs()
+            spread[:, lo:hi, h] = torch.einsum("bij,bijd->bid", p[:, h], dev)
+    return ulps * 2.0 ** -23 \
+        * _score_terms(torch, q, k, t).transpose(1, 2)[..., None] * spread
+
+
+def _f32_forward_err(torch, q, k, v, pad, out, want, ulps):
+    """(largest |out - want| on real rows, largest amount by which it
+    exceeds FLASH_TOL["float32"] plus the slack of ``ulps``: <= 0
+    passes)."""
+    t = q.shape[1]
+    real = (torch.arange(t, device=q.device)[None, :]
+            >= pad.to(torch.int64)[:, None])[:, :, None, None]
+    diff = (out - want).abs() * real
+    slack = _score_slack(torch, q, k, v, pad, ulps) if ulps else 0.0
+    over = (diff - FLASH_TOL["float32"]["abs"] - slack).max().item()
+    return diff.max().item(), over
+
+
 def _flash_bwd_bounds(shape, pads, dtype):
     """{"dq" or "dkv": (bytes, operations, bound ms, bound_by, issued
     operations, issued bound ms)}: each input read once and each output
@@ -2301,6 +2438,80 @@ def _flash_bwd_bounds(shape, pads, dtype):
     return out
 
 
+def check_f32_forward(torch, name, q, k, v, pad, out, want, ulps):
+    """The f32 forward's output (``out``, launched with the log-sum-exp)
+    and a launch without it against the plain version's ``want``: both
+    within FLASH_TOL["float32"] plus the slack of ``ulps`` on real rows,
+    pad rows exactly 0; two launches without it bit-equal. Returns the
+    largest error and excess."""
+    from leafgrasp_tpu_torch.kernels.flash_prefill import flash_prefill
+    plain_out = flash_prefill(q, k, v, pad)
+    again = flash_prefill(q, k, v, pad)
+    torch.cuda.synchronize()
+    if not torch.equal(plain_out, again):
+        raise RuntimeError(f"phase 8a {name}: two f32 forwards differ")
+    res = {}
+    for label, got in (("lse", out), ("no_lse", plain_out)):
+        err, over = _f32_forward_err(torch, q, k, v, pad, got, want, ulps)
+        zero = all(not got[i, :p].any() for i, p in enumerate(pad.tolist()))
+        if not (over <= 0.0 and zero and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"phase 8a {name} f32 forward {label}: err "
+                               f"{err}, over the limit by {over}, pad rows "
+                               f"zero {zero}")
+        res[label] = (err, over)
+    log(f"phase 8a f32 forward {name} {tuple(q.shape)} over "
+        f"{k.shape[2]} K/V heads: max abs err with / without the lse "
+        f"{res['lse'][0]:.3e} / {res['no_lse'][0]:.3e}, over the limit by "
+        f"{res['lse'][1]:.3e} / {res['no_lse'][1]:.3e} (slack {ulps} ulps; "
+        f"<= 0 passes), outputs bit-equal {torch.equal(out, plain_out)}")
+    return {"err": max(e for e, _ in res.values()),
+            "over": max(o for _, o in res.values()), "ulps": ulps}
+
+
+def _flash_fwd_bound(shape, elem: int):
+    """(bytes, operations, bound ms, bound_by) of the training forward
+    with its log-sum-exp, no pad: q, k, v read once, the output and the
+    log-sum-exp written once; the two products of 2 hd operations a
+    visible (query, key) pair and head at the bf16 tensor cores' rate."""
+    b, t, heads, kvh, hd = shape
+    moved = elem * (2.0 * b * t * heads * hd + 2.0 * b * t * kvh * hd) \
+        + 4.0 * b * heads * t + 4.0 * b
+    ops = 2 * 2.0 * hd * b * t * (t + 1) / 2 * heads
+    return (moved, ops, *bound(moved, ops, PEAK_BF16_OPS_PER_S))
+
+
+def f32_forward_record(t_f32, fwd_errs) -> dict:
+    """The f32 forward (K7-f32) at the training shape: times with and
+    without the log-sum-exp, bounds (bytes; the split's issued bf16
+    products), the plain version's and SDPA's f32 forward's times, and
+    the largest errors of phase 8a (phase 2's are added in ``main``)."""
+    moved, ops, b_ms, b_by = _flash_fwd_bound(t_f32["shape"], 4)
+    issued = FLASH_FWD_PLANE_PRODUCTS * ops / 2
+    unit = [e["err"] for e in fwd_errs.values() if e["ulps"] == 0]
+    x8 = [e for e in fwd_errs.values() if e["ulps"] > 0]
+    return {"name": "flash_prefill_f32", "route": "cuda",
+            "kernel": "flash_prefill_f32_kernel",
+            "source": "leafgrasp_tpu_torch/kernels/csrc/flash_prefill.cu",
+            "replaces": "leafgrasp_tpu/vla/llava_jax.py:284",
+            "shape": t_f32["shape"], "dtype": "float32",
+            "ms": t_f32["forward_ms"],
+            "ms_repeats": t_f32["forward_ms_repeats"],
+            "lse_ms": t_f32["forward_lse_ms"],
+            "lse_ms_repeats": t_f32["forward_lse_ms_repeats"],
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved,
+            "operations": ops,
+            "issued_bound_ms": bound(moved, issued, PEAK_BF16_OPS_PER_S)[0],
+            "issued_operations": issued,
+            "plain_ms": t_f32["forward_plain_ms"],
+            "library_ms": t_f32["library_forward_ms"],
+            "tolerance": FLASH_TOL["float32"]["abs"],
+            "max_abs_err": max(unit),
+            "max_abs_err_x8": max(e["err"] for e in x8),
+            "x8_over_limit": max(e["over"] for e in x8),
+            "x8_slack_ulps": FLASH_FWD_SLACK_ULPS,
+            "errors": fwd_errs}
+
+
 def check_flash_backward(torch, dev):
     """Phase 8a: K7-dq and K7-dkv against the plain backward at the
     training shape in f32 and bf16, the shapes of FLASH_BWD_SHAPES and the
@@ -2312,6 +2523,7 @@ def check_flash_backward(torch, dev):
         flash_prefill_plain)
     rng = np.random.default_rng(8)
     errs, lse_errs, abs_err = {}, {}, 0.0
+    fwd_errs = {}                             # the f32 forward's, per case
     cases = [(n, *case, dt) for n, case in FLASH_BWD_SHAPES.items()
              for dt in (torch.float32, torch.bfloat16)]
     cases.append(("serving", *FLASH_BWD_SERVING, torch.bfloat16))
@@ -2321,8 +2533,11 @@ def check_flash_backward(torch, dev):
                                              rng, qk_mul)
         t = shape[1]
         out, lse = flash_prefill(q, k, v, pad, return_lse=True)
-        _, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
-                                           return_lse=True)
+        out_plain, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
+                                                   return_lse=True)
+        if dtype == torch.float32:            # with and without the lse
+            fwd_errs[name] = check_f32_forward(torch, name, q, k, v, pad,
+                                               out, out_plain, ulps)
         real = torch.isfinite(lse_plain)
         if not torch.equal(real, torch.isfinite(lse)):
             raise RuntimeError(f"phase 8a {name}: lse is finite elsewhere "
@@ -2363,6 +2578,22 @@ def check_flash_backward(torch, dev):
         if name in ("train", "serving"):
             kept[key] = (q, k, v, pad, dout, out, lse)
         del got, again, want
+    for name, (shape, pads) in FLASH_FWD_X8.items():
+        q, k, v, pad, _ = _flash_bwd_case(torch, dev, torch.float32, shape,
+                                          pads, rng, 8.0)
+        out, lse = flash_prefill(q, k, v, pad, return_lse=True)
+        out_plain, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
+                                                   return_lse=True)
+        fwd_errs[name] = check_f32_forward(torch, name, q, k, v, pad, out,
+                                           out_plain, FLASH_FWD_SLACK_ULPS)
+        real = torch.isfinite(lse_plain)
+        ulp = 2.0 ** -23 * _score_terms(torch, q, k, shape[1])[real]
+        if not (torch.equal(real, torch.isfinite(lse)) and bool(
+                ((lse - lse_plain)[real].abs() <= FLASH_LSE_TOL
+                 + FLASH_FWD_SLACK_ULPS * ulp).all())):
+            raise RuntimeError(f"phase 8a {name}: the f32 forward's "
+                               f"log-sum-exp is off the plain one")
+        del q, k, v, out, out_plain
 
     def times(key, iters):
         q, k, v, pad, dout, out, lse = kept[key]
@@ -2394,13 +2625,15 @@ def check_flash_backward(torch, dev):
                "library_forward_ms": lib_fwd_ms}
         fwd = "flash_prefill_f32_kernel" if q.dtype == torch.float32 \
             else "flash_prefill_kernel"
+        res["forward_plain_ms"] = cuda_ms(lambda: flash_prefill_plain(
+            q, k, v, pad, chunk=256), iters=2, warmup=1)
         def median_ms(fn, kernel):
             reps = [kernel_ms(fn, kernel, iters=iters)
                     for _ in range(FLASH_BWD_TIME_REPEATS)]
             return statistics.median(reps), reps
-        res["forward_lse_ms"], _ = median_ms(
+        res["forward_lse_ms"], res["forward_lse_ms_repeats"] = median_ms(
             lambda: flash_prefill(q, k, v, pad, return_lse=True), fwd)
-        res["forward_ms"], _ = median_ms(
+        res["forward_ms"], res["forward_ms_repeats"] = median_ms(
             lambda: flash_prefill(q, k, v, pad), fwd)
         for name in ("dq", "dkv"):
             moved, ops, b_ms, b_by, issued, issued_ms = bounds[name]
@@ -2424,10 +2657,12 @@ def check_flash_backward(torch, dev):
                  "bf16_ms": t_bf16["forward_ms"],
                  "bf16_lse_ms": t_bf16["forward_lse_ms"],
                  "bf16_library_ms": t_bf16["library_forward_ms"],
+                 "bf16_bound_ms": _flash_fwd_bound(t_bf16["shape"], 2)[2],
                  "shape": t_f32["shape"]}
     log(f"phase 8a flash forward at the training shape, without and with "
         f"the log-sum-exp, and SDPA's forward (causal, K/V repeated) "
         f"{json.dumps(fwd_train)}")
+    fwd_train["f32"] = f32_forward_record(t_f32, fwd_errs)
     for name, line in (("dkv", 941), ("dq", 1287)):
         rec = {"name": f"flash_prefill_bwd_{name}", "route": "cuda",
                "source": "leafgrasp_tpu_torch/kernels/csrc/"
@@ -2834,8 +3069,11 @@ def main() -> int:
     train_records, fwd_train, vla_train_counts, vla_bf16_counts, \
         vla_perf = run_phase_8(torch, dev)
     records.extend(train_records)
-    next(r for r in records
-         if r["name"] == "flash_prefill")["training_shape"] = fwd_train
+    flash = next(r for r in records if r["name"] == "flash_prefill")
+    f32 = fwd_train.pop("f32")
+    f32["max_abs_err"] = max(f32["max_abs_err"], flash["max_abs_err_f32"])
+    flash["training_shape"] = fwd_train
+    flash["f32"] = f32
     log(f"phase 8: the LLaVA LoRA trainer trained at full width on the card "
         f"({vla_perf['step_s']:.3f} s a step, "
         f"{vla_perf['tokens_per_s']:.0f} tokens/s)")
@@ -2850,6 +3088,8 @@ def main() -> int:
         rec["launches"] = sum(cnt[rec["name"]] for cnt in phases.values())
         if rec["launches"] == 0:
             raise RuntimeError(f"no path launched {rec['name']}")
+    # the f32 forward runs on the f32 LoRA step's path (phase 8b) only
+    f32["launches"] = vla_train_counts["flash_prefill"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": records}), flush=True)

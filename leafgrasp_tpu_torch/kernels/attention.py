@@ -156,10 +156,11 @@ def _gate_forward(x, ws, bs, w1, b1, w2, b2, mode: str) -> torch.Tensor:
 
 def attention_gate_backward(dy, x, ws, bs, w1, b1, w2, b2, mode: str):
     """(dx, dws, dbs, dw1, db1, dw2, db2): the CUDA kernel for CUDA
-    tensors (two launches, counted once: a block an example, then the sum
-    over N in a fixed order), the plain version for CPU tensors. dy and x
-    are read through their strides (dy may be stride 0 along HW, as the
-    average pool's gradient is); dx has x's layout."""
+    tensors (one launch: a cluster of blocks, a block an example, whose
+    blocks then sum the examples' records over N in a fixed order), the
+    plain version for CPU tensors. dy and x are read through their
+    strides (dy may be stride 0 along HW, as the average pool's gradient
+    is); dx has x's layout."""
     if x.device.type == "cpu":
         return attention_gate_backward_plain(dy, x, ws, bs, w1, b1, w2, b2,
                                              mode)

@@ -67,18 +67,41 @@
 // cores idle, and the group that owns the upper 64 rows multiplies the
 // masked half of the diagonal tile.
 //
-// The f32 instantiation (flash_prefill_f32_kernel) runs the same tile
-// walk, masking, running softmax and epilogue on 64 x 64 tiles with the
-// two products as scalar loops over shared memory (f32 has no exact
-// tensor-core form); it exists to hold the masking and the softmax
-// against the plain version to about 1e-5.
+// f32 design (flash_prefill_f32_kernel). Both products run on the tensor
+// cores in bf16 with f32 sums, the f32 operands written as bf16 planes
+// and the plane products summed smallest first, as the backward does
+// (the note at the head of flash_prefill_bwd.cu; the helpers are in
+// hopper.cuh): S = Q K^T takes three planes of each (six products; its
+// error enters exp(S - m) absolutely), O += P V two planes of P, split
+// in registers, and three of V (five products: p1 v1, p0 v2, p1 v0,
+// p0 v1, p0 v0). A row whose probabilities are one-hot returns a V row,
+// which two planes would leave up to 2^-17 of the value off: past the
+// 2e-5 limit for |v| above 2.6 (tests/test_torch_flash_split.py
+// emulates every product and the running softmax on the CPU). V is read
+// as it lies, MN-major with the transpose bit, which wgmma offers for
+// 16-bit types only: hence bf16 planes and not TF32. A block is one
+// warpgroup that owns 64 query rows of one head, heaviest tiles first,
+// and walks 32-key tiles from the pad's tile to the diagonal. TMA lands
+// the f32 rows of Q (once) and of a K and a V tile (a ring of three
+// stages) in dense rows inside the region of their planes; a thread pass
+// splits them in place (split_tile). The walk is skewed: P(n) V(n) and
+// S(n+1) are issued together, tile n+2 is split while they run, and the
+// softmax of n+1 follows their wait. Masking, the running softmax
+// (ex2.approx, maxima in raw units, the row's no-key case) and the
+// epilogue are the bf16 kernel's. Bound: bytes at the training shape
+// (2 rows of 642 tokens, 32 query heads over 8 K/V heads of 128): 53 MB
+// of f32 inputs and outputs, 0.016 ms at 3.35 TB/s, against 6.8 GFLOP
+// of the formulas' products; the split issues 11 bf16 products for the
+// formulas' 2, 37 GFLOP, 0.038 ms at 989 TFLOP/s. Resources at head size
+// 128: 198 KB of shared memory (Q 48 KB, three stages of 48 KB), one
+// block an SM.
 //
 // Both instantiations can also write the row log-sum-exp of the scaled
 // scores, lse[b, h, i] (natural log, f32; -inf on pad rows), which the
 // backward (flash_prefill_bwd.cu) recomputes the probabilities from. It is
 // converted once in the epilogue from the same maxima and sums that
-// normalise the output. The bf16 kernel takes it as a template flag, so
-// the serving instantiation (no lse) is the code it was.
+// normalise the output. Both kernels take it as a template flag, so an
+// instantiation without it carries no code for it.
 //
 // This file is built with fused multiply-adds allowed (the other kernels
 // are not); there is no --use_fast_math.
@@ -97,50 +120,8 @@ struct Strides {                // in elements: batch, token, head
   long long b, t, h;
 };
 
-// ============================ f32: scalar products ============================
-
-constexpr int BM = 64;          // query rows a block (16 a warp)
-constexpr int BN = 64;          // keys a tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PS_LD = BN + 4;   // probability scratch row
-constexpr int ROW_PAD = 4;      // 16 bytes: rows fall into different banks
-
-// 16 bytes global -> shared without passing registers; src_bytes 0 writes
-// zeros and reads nothing
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            int src_bytes) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [row0, row0 + nrows) of a (rows, HD) global tile into shared
-// memory through cp.async, 16 bytes a thread: returns at once, the copy
-// lands later; rows outside [0, limit) become zeros
-template <int HD>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* src,
-                                                long long row_stride,
-                                                int row0, int nrows,
-                                                int limit) {
-  constexpr int CH = HD / 4;
-  constexpr int LD = HD + ROW_PAD;
-  for (int idx = threadIdx.x; idx < nrows * CH; idx += NTHREADS) {
-    const int r = idx / CH, c = idx % CH;
-    const int row = row0 + r;
-    const bool ok = row >= 0 && row < limit;
-    cp_async_16(dst + r * LD + c * 4,
-                src + (long long)(ok ? row : 0) * row_stride + c * 4,
-                ok ? 16 : 0);
-  }
-}
+using namespace hopper;
+using bf16 = __nv_bfloat16;
 
 // natural-log log-sum-exp of a row from its maximum m2 (log2 units) and
 // the sum l of exp2(score - m2); -inf for a pad row or a row with no key
@@ -149,234 +130,7 @@ __device__ __forceinline__ float lse_of(float m2, float l, bool real) {
                             : -INFINITY;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_prefill_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const int* __restrict__ pad, float* __restrict__ out,
-                         float* __restrict__ lse, int t, int rep, Strides qs,
-                         Strides ks, Strides vs, Strides os, float scale) {
-  constexpr int LD = HD + ROW_PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Kst = Qs + BM * LD;                  // two stages of BN rows
-  float* Vst = Kst + 2 * BN * LD;
-  float* Ps = Vst + 2 * BN * LD;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int p = min(max(pad[b], 0), t);
-
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + (h / rep) * ks.h;
-  const float* vb = v + b * vs.b + (h / rep) * vs.h;
-  float* ob = out + b * os.b + h * os.h;
-  float* lb = lse == nullptr ? nullptr
-                             : lse + ((long long)b * gridDim.y + h) * t;
-
-  const int row_hi = min(q0 + BM, t);         // rows of this block: < row_hi
-  if (row_hi <= p) {                          // pad rows only: zeros
-    if (lb != nullptr)
-      for (int r = q0 + threadIdx.x; r < row_hi; r += NTHREADS)
-        lb[r] = -INFINITY;
-    for (int idx = threadIdx.x; idx < (row_hi - q0) * (HD / 2);
-         idx += NTHREADS) {
-      const int r = idx / (HD / 2), c = idx % (HD / 2);
-      *reinterpret_cast<float2*>(ob + (long long)(q0 + r) * os.t + 2 * c) =
-          make_float2(0.0f, 0.0f);
-    }
-    return;
-  }
-
-  const int kt_first = p / BN;
-  const int kt_last = (row_hi - 1) / BN;
-  load_tile_async<HD>(Qs, qb, qs.t, q0, BM, t);
-  cp_async_commit();
-  load_tile_async<HD>(Kst, kb, ks.t, kt_first * BN, BN, t);
-  load_tile_async<HD>(Vst, vb, vs.t, kt_first * BN, BN, t);
-  cp_async_commit();
-  cp_async_wait<1>();                         // Q has landed
-  __syncthreads();
-
-  const int lr = warp * 16 + g;               // this thread's rows: lr, lr+8
-  const int row_a = q0 + lr, row_b = row_a + 8;
-  const int warp_first = q0 + warp * 16;      // query rows of the warp
-  const int warp_last = warp_first + 15;
-  const float scale2 = scale * 1.4426950408889634f;   // to log2 units
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-    o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
-  float m_a = -INFINITY, m_b = -INFINITY;     // running row maxima
-  float l_a = 0.0f, l_b = 0.0f;               // this thread's share of sums
-
-  for (int kt = kt_first; kt <= kt_last; ++kt) {
-    const int k0 = kt * BN;
-    const int stage = (kt - kt_first) & 1;
-    const float* Ks = Kst + stage * BN * LD;
-    const float* Vs = Vst + stage * BN * LD;
-    if (kt < kt_last) {                       // prefetch the next tile
-      load_tile_async<HD>(Kst + (stage ^ 1) * BN * LD, kb, ks.t, k0 + BN, BN,
-                          t);
-      load_tile_async<HD>(Vst + (stage ^ 1) * BN * LD, vb, vs.t, k0 + BN, BN,
-                          t);
-      cp_async_commit();
-      cp_async_wait<1>();                     // this tile has landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (k0 <= warp_last) {                    // else above the warp's diagonal
-
-    // ---- S = Q K^T for 16 rows x BN keys, laid out as mma fragments
-    float s[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-      const float* qa = Qs + lr * LD;
-      const float* qb2 = qa + 8 * LD;
-      const float* ka = Ks + (n * 8 + 2 * tq) * LD;
-      const float* kb2 = ka + LD;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        s[n][0] += qa[d] * ka[d];
-        s[n][1] += qa[d] * kb2[d];
-        s[n][2] += qb2[d] * ka[d];
-        s[n][3] += qb2[d] * kb2[d];
-      }
-    }
-
-    // ---- mask, scale (to log2 units), running softmax. A tile behind
-    // the pad, under the warp's first row and inside the sequence has no
-    // masked key.
-    const bool masked = (k0 < p) || (k0 + BN - 1 > warp_first)
-                        || (k0 + BN > t);
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        bool ok = true;
-        if (masked) {
-          const int j = k0 + n * 8 + 2 * tq + (e & 1);
-          const int i = (e < 2) ? row_a : row_b;
-          ok = (j >= p) && (j <= i) && (j < t);
-        }
-        s[n][e] = ok ? s[n][e] * scale2 : -INFINITY;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-    }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    // a row with no key yet keeps -inf; subtract 0 then, so that every
-    // exponent is exp2(-inf) = 0 and never inf - inf
-    const float mu_a = (mn_a == -INFINITY) ? 0.0f : mn_a;
-    const float mu_b = (mn_b == -INFINITY) ? 0.0f : mn_b;
-    const float al_a = exp2f(m_a - mu_a), al_b = exp2f(m_b - mu_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float sum_a = 0.0f, sum_b = 0.0f;
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mu_a);        // a masked key gives exactly 0
-      s[n][1] = exp2f(s[n][1] - mu_a);
-      s[n][2] = exp2f(s[n][2] - mu_b);
-      s[n][3] = exp2f(s[n][3] - mu_b);
-      sum_a += s[n][0] + s[n][1];
-      sum_b += s[n][2] + s[n][3];
-    }
-    l_a = l_a * al_a + sum_a;
-    l_b = l_b * al_b + sum_b;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      o[d][0] *= al_a;
-      o[d][1] *= al_a;
-      o[d][2] *= al_b;
-      o[d][3] *= al_b;
-    }
-
-    // ---- O += P V through the warp's probability scratch
-    float* pw = Ps + warp * 16 * PS_LD;
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      pw[g * PS_LD + n * 8 + 2 * tq] = s[n][0];
-      pw[g * PS_LD + n * 8 + 2 * tq + 1] = s[n][1];
-      pw[(g + 8) * PS_LD + n * 8 + 2 * tq] = s[n][2];
-      pw[(g + 8) * PS_LD + n * 8 + 2 * tq + 1] = s[n][3];
-    }
-    __syncwarp();
-    const float* pa = pw + g * PS_LD;
-    const float* pb = pa + 8 * PS_LD;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      const float* vp = Vs + d * 8 + 2 * tq;
-#pragma unroll 8
-      for (int j = 0; j < BN; ++j) {
-        const float va = vp[j * LD], vb2 = vp[j * LD + 1];
-        o[d][0] += pa[j] * va;
-        o[d][1] += pa[j] * vb2;
-        o[d][2] += pb[j] * va;
-        o[d][3] += pb[j] * vb2;
-      }
-    }
-    __syncwarp();
-    }                                         // k0 <= warp_last
-    __syncthreads();                          // the stage may be overwritten
-  }
-
-  // ---- epilogue: finish the row sums over the quad, normalise, store
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float inv_a = (row_a >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
-  const float inv_b = (row_b >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
-  if (lb != nullptr && tq == 0) {             // maxima in log2 units here
-    if (row_a < t) lb[row_a] = lse_of(m_a, l_a, row_a >= p);
-    if (row_b < t) lb[row_b] = lse_of(m_b, l_b, row_b >= p);
-  }
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) {
-    const int col = d * 8 + 2 * tq;
-    if (row_a < t)
-      *reinterpret_cast<float2*>(ob + (long long)row_a * os.t + col) =
-          make_float2(o[d][0] * inv_a, o[d][1] * inv_a);
-    if (row_b < t)
-      *reinterpret_cast<float2*>(ob + (long long)row_b * os.t + col) =
-          make_float2(o[d][2] * inv_b, o[d][3] * inv_b);
-  }
-}
-
-template <int HD>
-int launch_f32(const float* q, const float* k, const float* v,
-               const int* pad, float* out, float* lse, int b, int t,
-               int heads, int rep, Strides qs, Strides ks, Strides vs,
-               Strides os, float scale, cudaStream_t stream) {
-  constexpr int LD = HD + ROW_PAD;
-  const size_t smem = ((size_t)(BM + 4 * BN) * LD     // Q, 2 x (K, V)
-                       + (size_t)NWARPS * 16 * PS_LD) * sizeof(float);
-  auto kernel = flash_prefill_f32_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + BM - 1) / BM, heads, b);
-  kernel<<<grid, NTHREADS, smem, stream>>>(q, k, v, pad, out, lse, t, rep,
-                                           qs, ks, vs, os, scale);
-  return (int)cudaGetLastError();
-}
-
 // ============================ bf16: wgmma and TMA =============================
-
-using namespace hopper;
-using bf16 = __nv_bfloat16;
 
 constexpr int WG_BM = 128;                    // query rows a work item
 constexpr int WG_BN = 128;                    // keys a tile
@@ -399,12 +153,6 @@ template <int HD> struct WgLayout {
   static constexpr int NBARS = 2 + 4 * WG_STAGES;
   static constexpr int BYTES = BARS + NBARS * 8 + 1024;   // + alignment
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -447,19 +195,21 @@ struct RowState {
   float m_a, m_b, l_a, l_b;
 };
 
-// One key tile of the running softmax, in place: sc holds raw scores laid
-// out as the wgmma accumulator (sc[4n + e]: columns 8n + 2tq + (e & 1),
-// row_a for e < 2, row_b else) and leaves with the probabilities in f32.
+// One key tile of the running softmax, in place: sc holds raw scores of
+// N / 2 keys laid out as the wgmma accumulator (sc[4n + e]: columns
+// 8n + 2tq + (e & 1), row_a for e < 2, row_b else) and leaves with the
+// probabilities in f32.
 // al_a, al_b: the factors that bring the earlier sums and outputs to the
 // new maxima.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], RowState& st,
                                              float& al_a, float& al_b,
                                              bool masked, int k0, int p,
                                              int t, int row_a, int row_b,
                                              int tq, float scale2) {
   if (masked) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < N; ++i) {
       const int j = k0 + (i >> 2) * 8 + 2 * tq + (i & 1);
       const int row = (i & 2) ? row_b : row_a;
       if (!((j >= p) && (j <= row) && (j < t))) sc[i] = -INFINITY;
@@ -467,7 +217,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
   }
   float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < N / 4; ++n) {
     mx_a = fmaxf(mx_a, fmaxf(sc[4 * n], sc[4 * n + 1]));
     mx_b = fmaxf(mx_b, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
   }
@@ -480,18 +230,18 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
   // exponent is exp2(-inf) = 0 and never inf - inf
   const float mu_a = (mn_a == -INFINITY) ? 0.0f : mn_a;
   const float mu_b = (mn_b == -INFINITY) ? 0.0f : mn_b;
-  al_a = ex2((st.m_a - mu_a) * scale2);
-  al_b = ex2((st.m_b - mu_b) * scale2);
+  al_a = exp2_approx((st.m_a - mu_a) * scale2);
+  al_b = exp2_approx((st.m_b - mu_b) * scale2);
   st.m_a = mn_a;
   st.m_b = mn_b;
   const float ms_a = mu_a * scale2, ms_b = mu_b * scale2;
   float sum_a = 0.0f, sum_b = 0.0f;
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {              // a masked key gives exactly 0
-    sc[4 * n] = ex2(fmaf(sc[4 * n], scale2, -ms_a));
-    sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], scale2, -ms_a));
-    sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], scale2, -ms_b));
-    sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], scale2, -ms_b));
+  for (int n = 0; n < N / 4; ++n) {              // a masked key gives exactly 0
+    sc[4 * n] = exp2_approx(fmaf(sc[4 * n], scale2, -ms_a));
+    sc[4 * n + 1] = exp2_approx(fmaf(sc[4 * n + 1], scale2, -ms_a));
+    sc[4 * n + 2] = exp2_approx(fmaf(sc[4 * n + 2], scale2, -ms_b));
+    sc[4 * n + 3] = exp2_approx(fmaf(sc[4 * n + 3], scale2, -ms_b));
     sum_a += sc[4 * n] + sc[4 * n + 1];
     sum_b += sc[4 * n + 2] + sc[4 * n + 3];
   }
@@ -803,6 +553,221 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
   return (int)cudaGetLastError();
 }
 
+// ========================= f32: wgmma on bf16 planes ==========================
+
+constexpr int F_BN = 32;                      // keys a stream tile
+constexpr int F_NST = 3;                      // stages of the K/V ring
+constexpr int F_SP = 3;                       // planes of Q and of K (S)
+constexpr int F_VP = 3;                       // planes of V (P takes two)
+
+// shared-memory layout, in bytes from a 1024-byte boundary: Q's planes,
+// then the stages (K's planes, then V's), then the barriers (q_full, then
+// a full barrier a stage)
+template <int HD> struct F32Layout {
+  static constexpr int NH = HD / 64;                      // column halves
+  static constexpr int QPLANE = NH * PLANE_M * 128;
+  static constexpr int SPLANE = NH * F_BN * 128;
+  static constexpr int Q = 0;
+  static constexpr int STREAM = F_SP * QPLANE;
+  static constexpr int V = F_SP * SPLANE;                 // in a stage
+  static constexpr int STAGE = (F_SP + F_VP) * SPLANE;
+  static constexpr int BARS = STREAM + F_NST * STAGE;
+  static constexpr int BYTES = BARS + (1 + F_NST) * 8 + 1024;
+  // bytes that land for Q, and for a stage (a K and a V tile)
+  static constexpr int Q_TX = PLANE_M * HD * 4;
+  static constexpr int STAGE_TX = 2 * F_BN * HD * 4;
+};
+
+template <int HD, bool LSE>
+__global__ void __launch_bounds__(PLANE_THREADS, 1)
+flash_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const int* __restrict__ pad, float* __restrict__ out,
+                         float* __restrict__ lse, int b_n, int t, int heads,
+                         int rep, Strides os, float scale2, int n_mt) {
+  using L = F32Layout<HD>;
+  constexpr int BN = F_BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_u32 = smem_u32(smem_raw);
+  const uint32_t base = (raw_u32 + 1023u) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw_u32);
+  const uint32_t q_full = base + L::BARS;
+  auto full = [&](int s) { return q_full + 8 + 8 * s; };
+  auto stage = [&](int s) { return base + L::STREAM + s * L::STAGE; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  // the block's query tile, batch row and head: the last query tiles (the
+  // longest walks) first, the heads of a K/V group side by side
+  const int per = b_n * heads;
+  const int q0 = (n_mt - 1 - (int)blockIdx.x / per) * PLANE_M;
+  const int bi = (int)blockIdx.x % per / heads;
+  const int h = (int)blockIdx.x % heads;
+  const int p = min(max(pad[bi], 0), t);
+  const int row_hi = min(q0 + PLANE_M, t);
+  float* ob = out + bi * os.b + h * os.h;
+  float* lb = LSE ? lse + ((long long)bi * heads + h) * t : nullptr;
+  if (row_hi <= p) {                          // pad rows only: zeros
+    for (int i = tid; i < (row_hi - q0) * (HD / 4); i += PLANE_THREADS) {
+      const int r = i / (HD / 4), c = i % (HD / 4);
+      *reinterpret_cast<float4*>(ob + (long long)(q0 + r) * os.t + 4 * c) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    if constexpr (LSE)
+      for (int r = q0 + tid; r < row_hi; r += PLANE_THREADS) lb[r] = -INFINITY;
+    return;
+  }
+  // the walk: key tiles kt0 .. up to the tile's last row, of K/V head kvh
+  const int kt0 = p / BN;
+  const int n_steps = (row_hi - 1) / BN - kt0 + 1;
+  const int kvh = h / rep;
+  auto load_stage = [&](int n) {              // thread 0 only
+    const int s = n % F_NST, row0 = (kt0 + n) * BN;
+    mbar_arrive_expect_tx(full(s), L::STAGE_TX);
+    tma_load_4d(stage(s), &map_k, full(s), 0, row0, kvh, bi);
+    tma_load_4d(stage(s) + L::V, &map_v, full(s), 0, row0, kvh, bi);
+  };
+  auto split_stage = [&](int n) {             // every thread
+    const int s = n % F_NST;
+    mbar_wait(full(s), (n / F_NST) & 1);
+    split_tile<BN, HD, F_SP>(sbase + L::STREAM + s * L::STAGE);
+    split_tile<BN, HD, F_VP>(sbase + L::STREAM + s * L::STAGE + L::V);
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < F_NST; ++s) mbar_init(full(s), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(q_full, L::Q_TX);
+    tma_load_4d(base + L::Q, &map_q, q_full, 0, q0, h, bi);
+    for (int n = 0; n < F_NST && n < n_steps; ++n) load_stage(n);
+  }
+  mbar_wait(q_full, 0);
+  split_tile<PLANE_M, HD, F_SP>(sbase + L::Q);
+  split_stage(0);
+  __syncthreads();                            // the planes are published
+
+  // this thread's rows: ra and ra + 8
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  RowState st{-INFINITY, -INFINITY, 0.0f, 0.0f};
+  float x[BN / 2];                            // scores, then probabilities
+  uint32_t p0[BN / 4], p1[BN / 4];            // P in two bf16 planes
+  float al_a, al_b;
+  auto scores = [&](int n) {
+    issue_planes<HD, BN, F_SP>(x, base + L::Q, stage(n % F_NST), L::QPLANE,
+                               L::SPLANE);
+  };
+  // the probabilities of tile n from its scores, split for P V. A tile
+  // behind the pad, under the block's first row and inside the sequence
+  // has no masked key.
+  auto probs = [&](int n) {
+    const int c0 = (kt0 + n) * BN;
+    const bool masked = c0 < p || c0 + BN - 1 > q0 || c0 + BN > t;
+    softmax_tile(x, st, al_a, al_b, masked, c0, p, t, ra, rb, tq, scale2);
+    split_frag<BN / 2>(x, p0, p1);
+  };
+
+  wgmma_fence();
+  scores(0);
+  wgmma_commit();
+  if (n_steps > 1) split_stage(1);            // meanwhile
+  wgmma_wait<0>();
+  reg_fence(x);
+  probs(0);                                   // o is zero: nothing to rescale
+  __syncthreads();                            // stage 1's planes: published
+  for (int n = 0; n < n_steps; ++n) {
+    // O += P(n) V(n) and S(n+1) together; tile n+2 is split meanwhile
+    reg_fence(o);
+    wgmma_fence();
+    issue_second<HD, BN, F_VP>(o, p0, p1, stage(n % F_NST) + L::V,
+                               L::SPLANE);
+    if (n + 1 < n_steps) scores(n + 1);
+    wgmma_commit();
+    if (n + 2 < n_steps) split_stage(n + 2);
+    wgmma_wait<0>();
+    reg_fence(o);
+    reg_fence(x);
+    reg_fence(p0);
+    reg_fence(p1);
+    __syncthreads();                          // stage n is read by all, and
+                                              // stage n+2's planes published
+    if (tid == 0 && n + F_NST < n_steps) {
+      fence_proxy_async();
+      load_stage(n + F_NST);
+    }
+    if (n + 1 < n_steps) {
+      probs(n + 1);
+      rescale(o, al_a, al_b);
+    }
+  }
+
+  // ---- epilogue: finish the row sums over the quad, normalise, store
+  float l_a = st.l_a, l_b = st.l_b;
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float inv_a = (ra >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
+  const float inv_b = (rb >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
+  if constexpr (LSE) {                        // maxima in raw score units
+    if (tq == 0) {
+      if (ra < t) lb[ra] = lse_of(st.m_a * scale2, l_a, ra >= p);
+      if (rb < t) lb[rb] = lse_of(st.m_b * scale2, l_b, rb >= p);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = n * 8 + 2 * tq;
+    if (ra < t)
+      *reinterpret_cast<float2*>(ob + (long long)ra * os.t + col) =
+          make_float2(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
+    if (rb < t)
+      *reinterpret_cast<float2*>(ob + (long long)rb * os.t + col) =
+          make_float2(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
+  }
+}
+
+template <int HD, bool LSE>
+int launch_f32(const void* q, const void* k, const void* v, const int* pad,
+               void* out, float* lse, int b, int t, int heads, int kv_heads,
+               Strides qs, Strides ks, Strides vs, Strides os, float scale,
+               cudaStream_t stream) {
+  using L = F32Layout<HD>;
+  static bool ready = false;
+  auto kernel = flash_prefill_f32_kernel<HD, LSE>;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  // f32 rows as they lie, whole (no swizzle): the split pass reads them
+  auto map = [&](CUtensorMap* m, const void* ptr, int n_heads, Strides s,
+                 int rows) {
+    return make_map_4d(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, HD, t,
+                       n_heads, b, s.b, s.t, s.h, HD, rows,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  };
+  CUtensorMap mq, mk, mv;
+  if (!map(&mq, q, heads, qs, PLANE_M) || !map(&mk, k, kv_heads, ks, F_BN)
+      || !map(&mv, v, kv_heads, vs, F_BN))
+    return (int)cudaErrorInvalidValue;
+  const int n_mt = (t + PLANE_M - 1) / PLANE_M;
+  const long long blocks = (long long)n_mt * b * heads;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(int)blocks, PLANE_THREADS, L::BYTES, stream>>>(
+      mq, mk, mv, pad, static_cast<float*>(out), lse, b, t, heads,
+      heads / kv_heads, os, scale * 1.4426950408889634f, n_mt);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, out: (b, t, heads, hd); k, v: (b, >= t, kv_heads, hd), only the first
@@ -819,7 +784,6 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   if (b <= 0 || t <= 0 || heads <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || (hd != 64 && hd != 128))
     return (int)cudaErrorInvalidValue;
-  const int rep = heads / kv_heads;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
@@ -838,13 +802,16 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
     return launch_bf16<128, false>(q, k, v, pad, out, nullptr, b, t, heads,
                                    kv_heads, qs, ks, vs, os, scale, stream);
   }
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(out);
+  if (lse != nullptr) {
+    if (hd == 64)
+      return launch_f32<64, true>(q, k, v, pad, out, lse, b, t, heads,
+                                  kv_heads, qs, ks, vs, os, scale, stream);
+    return launch_f32<128, true>(q, k, v, pad, out, lse, b, t, heads,
+                                 kv_heads, qs, ks, vs, os, scale, stream);
+  }
   if (hd == 64)
-    return launch_f32<64>(qf, kf, vf, pad, of, lse, b, t, heads, rep, qs, ks,
-                          vs, os, scale, stream);
-  return launch_f32<128>(qf, kf, vf, pad, of, lse, b, t, heads, rep, qs, ks,
-                         vs, os, scale, stream);
+    return launch_f32<64, false>(q, k, v, pad, out, nullptr, b, t, heads,
+                                 kv_heads, qs, ks, vs, os, scale, stream);
+  return launch_f32<128, false>(q, k, v, pad, out, nullptr, b, t, heads,
+                                kv_heads, qs, ks, vs, os, scale, stream);
 }

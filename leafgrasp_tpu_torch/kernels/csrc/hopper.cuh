@@ -1,8 +1,10 @@
 // Hopper building blocks as inline PTX, for the kernels of this directory
 // that use the asynchronous units of sm_90a: mbarriers, tiled TMA loads
 // (and the host side that encodes their tensor maps), and warpgroup
-// matrix multiply-accumulate (wgmma) on bf16 with f32 accumulators.
-// Nothing here is a kernel; see flash_prefill.cu and flash_prefill_bwd.cu.
+// matrix multiply-accumulate (wgmma) on bf16 with f32 accumulators; then
+// the products of f32 operands written as bf16 planes, which the f32
+// flash kernels (flash_prefill.cu, flash_prefill_bwd.cu) share. Nothing
+// here is a kernel.
 //
 // Shared-memory operand tiles are rows of 128 bytes (64 bf16) in the
 // 128-byte swizzle, eight rows (1024 bytes) a swizzle atom, as a TMA load
@@ -12,6 +14,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <dlfcn.h>
 #include <stdint.h>
 
@@ -294,6 +297,180 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
         "r"(accumulate));
+}
+
+// ---- f32 operands as bf16 planes ------------------------------------------
+//
+// wgmma multiplies bf16 (or TF32, about 11 bits) with f32 sums. An f32
+// operand is written as bf16 planes, x = x0 + x1 (+ x2), x0 = bf16(x),
+// x1 = bf16(x - x0), x2 = bf16(x - x0 - x1): two planes keep 16
+// significant bits, three 24. A product of two planed operands sums the
+// plane products whose order is below the kept precision, smallest
+// first (see the note at the head of flash_prefill_bwd.cu). The helpers
+// below serve a block of one warpgroup whose A tiles have 64 rows.
+
+constexpr int PLANE_M = 64;           // rows of an A tile (wgmma's M)
+constexpr int PLANE_THREADS = 128;    // the warpgroup that splits a tile
+constexpr int SWIZZLE_ATOM = 8 * 128; // eight 128-byte rows
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// A tile of R rows x HD f32 that TMA has landed as dense rows at `region`,
+// split in place into NP bf16 planes of R rows in the 128-byte swizzle
+// (plane p at p * NH * R * 128). Every thread reads its share first, then
+// the block waits, then the planes are written: the planes overlap the
+// rows. Ends with the proxy fence; the caller's barrier publishes them.
+template <int R, int HD, int NP>
+__device__ __forceinline__ void split_tile(unsigned char* region) {
+  constexpr int OCT = R * HD / 8;               // 8 floats: 16 B a plane
+  constexpr int PER = OCT / PLANE_THREADS;
+  constexpr int PLANE = (HD / 64) * R * 128;
+  const float4* raw = reinterpret_cast<const float4*>(region);
+  float4 x[PER][2];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int o = threadIdx.x + PLANE_THREADS * i;
+    x[i][0] = raw[2 * o];
+    x[i][1] = raw[2 * o + 1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int o = threadIdx.x + PLANE_THREADS * i;
+    const int r = o / (HD / 8), c8 = o % (HD / 8);
+    const int off =
+        (c8 >> 3) * R * 128 + r * 128 + (((c8 & 7) ^ (r & 7)) << 4);
+    float v[8] = {x[i][0].x, x[i][0].y, x[i][0].z, x[i][0].w,
+                  x[i][1].x, x[i][1].y, x[i][1].z, x[i][1].w};
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        const float2 f = __bfloat1622float2(h);
+        v[2 * e] -= f.x;                        // exact: the rest of x
+        v[2 * e + 1] -= f.y;
+        w[e] = bf16x2_bits(h);
+      }
+      *reinterpret_cast<uint4*>(region + p * PLANE + off) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  fence_proxy_async();
+}
+
+// an accumulator of 64 rows x N (wgmma layout) as the A fragments of a
+// product over its N columns, in two bf16 planes: f = f0 + f1
+template <int N>
+__device__ __forceinline__ void split_frag(const float (&f)[N],
+                                           uint32_t (&a0)[N / 2],
+                                           uint32_t (&a1)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    const float2 g = __bfloat1622float2(h);
+    a0[i] = bf16x2_bits(h);
+    a1[i] = bf16x2_bits(
+        __floats2bfloat162_rn(f[2 * i] - g.x, f[2 * i + 1] - g.y));
+  }
+}
+
+// K-major descriptor of a plane of `half` bytes a 64-column half, advanced
+// to k-step kk (16 columns: 32 bytes along a row)
+__device__ __forceinline__ uint64_t kmajor(uint32_t plane, int half, int kk) {
+  const uint32_t off = (kk / 4) * half + (kk % 4) * 32;
+  return smem_desc(plane + off, 16, SWIZZLE_ATOM);
+}
+
+// acc (64 x BN) = or += A B^T over HD, A a 64-row plane, B a plane of BN
+// rows
+template <int HD, int BN>
+__device__ __forceinline__ void issue_ss(float (&acc)[BN / 2], uint32_t a,
+                                         uint32_t b, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t ad = kmajor(a, PLANE_M * 128, kk);
+    const uint64_t bd = kmajor(b, BN * 128, kk);
+    const int accumulate = (first && kk == 0) ? 0 : 1;
+    if constexpr (BN == 64) wgmma_ss_n64(acc, ad, bd, accumulate);
+    else wgmma_ss_n32(acc, ad, bd, accumulate);
+  }
+}
+
+// X = F S^T over the plane products whose order is below the kept
+// precision, smallest first; F's planes are fplane bytes apart, S's splane
+template <int HD, int BN, int NP>
+__device__ __forceinline__ void issue_planes(float (&acc)[BN / 2],
+                                             uint32_t f, uint32_t s,
+                                             int fplane, int splane) {
+  auto prod = [&](int i, int j, bool first) {
+    issue_ss<HD, BN>(acc, f + i * fplane, s + j * splane, first);
+  };
+  if constexpr (NP == 3) {
+    prod(1, 1, true);
+    prod(2, 0, false);
+    prod(0, 2, false);
+    prod(1, 0, false);
+    prod(0, 1, false);
+    prod(0, 0, false);
+  } else if constexpr (NP == 2) {
+    prod(1, 0, true);
+    prod(0, 1, false);
+    prod(0, 0, false);
+  } else {
+    prod(0, 0, true);
+  }
+}
+
+// acc (64 x HD) += A B, A in registers (64 x BN, fragments), B a plane of
+// BN rows x HD, MN-major (transpose bit)
+template <int HD, int BN>
+__device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
+                                         const uint32_t (&a)[BN / 4],
+                                         uint32_t b) {
+  const uint64_t desc = smem_desc(b, BN * 128, SWIZZLE_ATOM);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                           a[4 * kk + 3]};
+    const uint64_t d = desc + ((kk * 16 * 128) >> 4);
+    if constexpr (HD == 128) wgmma_rs_n128(acc, f, d, 1);
+    else wgmma_rs_n64(acc, f, d, 1);
+  }
+}
+
+// acc += A B with A = a0 + a1 (f32 split in registers) and B of NP planes
+// splane bytes apart (b0 + b1 + b2, b0 + b1 or b0), smallest terms
+// first: a1 b0, a0 b1 (NP >= 2), a0 b0, and before them, with three
+// planes of B, a1 b1 and a0 b2 (the terms of order 2^-16)
+template <int HD, int BN, int NP>
+__device__ __forceinline__ void issue_second(float (&acc)[HD / 2],
+                                             const uint32_t (&a0)[BN / 4],
+                                             const uint32_t (&a1)[BN / 4],
+                                             uint32_t b, int splane) {
+  if constexpr (NP == 3) {
+    issue_rs<HD, BN>(acc, a1, b + splane);
+    issue_rs<HD, BN>(acc, a0, b + 2 * splane);
+  }
+  issue_rs<HD, BN>(acc, a1, b);
+  if constexpr (NP >= 2) issue_rs<HD, BN>(acc, a0, b + splane);
+  issue_rs<HD, BN>(acc, a0, b);
+}
+
+// the registers of an A fragment that an asynchronous wgmma reads: this
+// keeps the compiler from reusing them before the wait
+template <int N> __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace hopper

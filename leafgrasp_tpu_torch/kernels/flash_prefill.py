@@ -16,10 +16,11 @@ multiple on the host and repeats K/V to the query head count first; the
 kernel source, with its bound and design, is ``csrc/flash_prefill.cu``:
 in bf16 a persistent ``wgmma`` kernel whose K/V tiles arrive by TMA
 through tensor maps of the tensors as they lie (so every stride must be
-a multiple of 16 bytes), in f32 a scalar kernel that exists to hold the
-masking and the softmax to 1e-5. Kernel and plain version differ in the
+a multiple of 16 bytes), in f32 a ``wgmma`` kernel on bf16 planes of the
+f32 operands (three planes of q, k and v, two of the probabilities),
+whose tiles arrive by TMA too. Kernel and plain version differ in the
 order of the f32 sums and, in bf16, in where probabilities are rounded
-(before or after the division by the row sum): about 1e-6 in f32, and in
+(before or after the division by the row sum): a few 1e-6 in f32, and in
 bf16 a few ulps of the value (an ulp is 2^-8 of it) on unit-scale
 inputs.
 

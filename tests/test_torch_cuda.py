@@ -20,6 +20,8 @@ row's largest stands for: ``chip_smoke.py`` reads at most 0.0051 of it
 over the relative part), pad rows exactly zero.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -463,13 +465,18 @@ FLASH_TOL = {torch.float32: (2e-5, 0.0, 0.0),
     ((2, 100, 4, 4, 128), (0, 99)),
     ((2, 257, 8, 2, 128), (130, 70)),
     ((1, 2437, 4, 1, 128), (300,)),
+    ((2, 642, 32, 8, 128), (0, 5)),
 ])
 def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, shape, pads):
     """Unequal left pads including 0 and pads that end inside a 64-row
     group, prompts of one token, shorter than a tile and no multiple of
-    one, one to four query heads a K/V head, K/V read through the strides
-    of a longer cache that holds NaN beyond t: real rows within
-    tolerance, pad rows exactly zero, everything finite."""
+    one, one to four query heads a K/V head, the LoRA step's training
+    shape, K/V read through the strides of a longer cache that holds NaN
+    beyond t: real rows within tolerance, pad rows exactly zero,
+    everything finite, the same bits on a second run; with the
+    log-sum-exp too (the training forward), its output within the same
+    tolerance and the log-sum-exp within 1e-5 of the plain one, -inf on
+    pad rows."""
     b, t, heads, kvh, hd = shape
     rng = np.random.default_rng(21)
 
@@ -484,18 +491,97 @@ def test_flash_prefill_kernel_matches_plain_on_card(cuda, dtype, shape, pads):
     pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
     kernels.reset_launch_counts()
     got = flash_prefill(q, cache_k, cache_v, pad)
+    again = flash_prefill(q, cache_k, cache_v, pad)
+    got_lse, lse = flash_prefill(q, cache_k, cache_v, pad, return_lse=True)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["flash_prefill"] == 1
-    want = flash_prefill_plain(q, cache_k, cache_v, pad, chunk=256)
-    assert got.dtype == dtype and got.shape == q.shape
-    assert torch.isfinite(got.float()).all()
-    for i, p in enumerate(pads):
-        assert not got[i, :p].any()
+    assert kernels.launch_counts()["flash_prefill"] == 3
+    assert torch.equal(got, again)
+    want, lse_plain = flash_prefill_plain(q, cache_k, cache_v, pad,
+                                          chunk=256, return_lse=True)
     atol, rtol, rowtol = FLASH_TOL[dtype]
-    got, want = got.float(), want.float()
-    diff = (got - want).abs()
-    allowed = rtol * want.abs() + rowtol * want.abs().amax(-1, keepdim=True)
-    assert float((diff - allowed).max()) <= atol, float(diff.max())
+    allowed = rtol * want.float().abs() \
+        + rowtol * want.float().abs().amax(-1, keepdim=True)
+    for out in (got, got_lse):
+        assert out.dtype == dtype and out.shape == q.shape
+        assert torch.isfinite(out.float()).all()
+        for i, p in enumerate(pads):
+            assert not out[i, :p].any()
+        diff = (out.float() - want.float()).abs()
+        assert float((diff - allowed).max()) <= atol, float(diff.max())
+    real = torch.isfinite(lse_plain)
+    assert torch.equal(real, torch.isfinite(lse))
+    assert float((lse - lse_plain)[real].abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,pads", [
+    ((2, 128, 4, 2, 64), (0, 64)),
+    ((2, 257, 8, 2, 128), (130, 70)),
+    ((2, 642, 32, 8, 128), (0, 5)),
+])
+def test_flash_prefill_f32_kernel_holds_large_scores_on_card(cuda, shape,
+                                                             pads):
+    """The f32 kernel with q and k at 8 times unit scale (|S / sqrt(hd)|
+    in the tens, softmax rows close to one-hot; the training shape among
+    them), with and without the log-sum-exp: the output within
+    FLASH_TOL[float32] of the plain version plus what four f32 ulps of
+    the row's score terms in S move it by (``_score_slack``): kernel and
+    plain version sum S over hd in f32 in other orders, and between two
+    near-equal top scores that moves an output by up to 1e-4, as far as
+    the plain version itself is from float64 there
+    (tests/test_torch_flash_split.py shows both); a one-hot row takes no
+    slack. The log-sum-exp within 1e-5 plus four ulps of those terms, as
+    the backward's tests hold it. Pad rows zero, the same bits twice."""
+    q, k, v, pad, _ = _flash_bwd_inputs(cuda, torch.float32, shape, pads,
+                                        qk_mul=8.0)
+    t = shape[1]
+    want, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
+                                          return_lse=True)
+    slack = _score_slack(q, k, v, pad, 4)
+    real_rows = (torch.arange(t, device=cuda)[None, :]
+                 >= pad.to(torch.int64)[:, None])[:, :, None, None]
+    for return_lse in (False, True):
+        got = flash_prefill(q, k, v, pad, return_lse=return_lse)
+        again = flash_prefill(q, k, v, pad, return_lse=return_lse)
+        if return_lse:
+            (got, lse), (again, _) = got, again
+            real = torch.isfinite(lse_plain)
+            assert torch.equal(real, torch.isfinite(lse))
+            lse_tol = 1e-5 + 4 * 2.0 ** -23 * _score_terms(q, k, t)[real]
+            assert bool(((lse - lse_plain)[real].abs() <= lse_tol).all())
+        assert torch.equal(got, again)
+        assert torch.isfinite(got).all()
+        for i, p in enumerate(pads):
+            assert not got[i, :p].any()
+        diff = (got - want).abs() * real_rows
+        over = float((diff - FLASH_TOL[torch.float32][0] - slack).max())
+        assert over <= 0.0, (float(diff.max()), over)
+
+
+def _score_slack(q, k, v, pad, ulps, chunk=128):
+    """(b, t, heads, hd): how far ``ulps`` f32 ulps of each row's score
+    terms (``_score_terms``) in S scale move an output: a change d_j of
+    S_j scale moves O_i by sum_j P_ij d_j (v_j - O_i), so by at most
+    max |d| sum_j P_ij |v_j - O_i|, which is 0 for a one-hot row."""
+    b, t, heads, hd = q.shape
+    rep = heads // k.shape[2]
+    kf = k[:, :t].float().repeat_interleave(rep, 2)
+    vf = v[:, :t].float().repeat_interleave(rep, 2)
+    key = torch.arange(t, device=q.device)
+    spread = torch.zeros((b, t, heads, hd), device=q.device)
+    for lo in range(0, t, chunk):
+        hi = min(t, lo + chunk)
+        s = torch.einsum("bihd,bjhd->bhij", q[:, lo:hi].float(), kf) \
+            / math.sqrt(hd)
+        vis = (key[None, None, :] <= key[lo:hi][None, :, None]) \
+            & (key[None, None, :] >= pad.to(torch.int64)[:, None, None])
+        s = s.masked_fill(~vis[:, None], -math.inf)
+        p = torch.nan_to_num(torch.softmax(s, -1))      # pad rows: 0
+        o = torch.einsum("bhij,bjhd->bihd", p, vf)
+        for h in range(heads):
+            dev = (vf[:, None, :, h] - o[:, :, None, h]).abs()
+            spread[:, lo:hi, h] = torch.einsum("bij,bijd->bid", p[:, h], dev)
+    return ulps * 2.0 ** -23 \
+        * _score_terms(q, k, t).transpose(1, 2)[..., None] * spread
 
 
 def test_flash_prefill_raises_on_card_for_what_the_kernel_lacks(cuda):
@@ -530,17 +616,21 @@ def test_flash_route_raises_on_card_rather_than_take_another_route(cuda):
 
 
 @pytest.mark.parametrize("shape", [(16, 16, 256, 16), (16, 4, 256, 16),
-                                   (5, 9, 48, 3), (3, 64, 1024, 64)])
-@pytest.mark.parametrize("dy_form", ["contiguous", "pool_stride0"])
+                                   (5, 9, 48, 3), (3, 64, 1024, 64),
+                                   (1, 16, 256, 16), (17, 16, 256, 16),
+                                   (33, 16, 128, 8), (17, 64, 1024, 64)])
+@pytest.mark.parametrize("dy_form", ["contiguous", "pool_stride0",
+                                     "channel_major"])
 def test_gate_backward_kernel_matches_plain_on_card(cuda, shape, dy_form):
     """The gate's gradient kernel against its plain version: dx within
     1e-5 absolute; each parameter gradient within 1e-5 of its L2 norm of
     the float64 gradient plus twice the plain f32 version's own distance
     from it (a sum over N and HW whose terms cancel has a small norm and
     a rounding error set by its terms); the same bits on a second run
-    (the sum over N is in a fixed order); x the NCHW view, dy contiguous
-    or with stride 0 along HW (the average pool's gradient); one count a
-    call."""
+    (the sum over N is in a fixed order); x the NCHW view and contiguous,
+    dy contiguous, channel-major or with stride 0 along HW (the average
+    pool's gradient); N of 1, past one cluster of blocks (17, 33) and the
+    kernel's limits (HW 64, C 1024, R 64); one launch a call."""
     from leafgrasp_tpu_torch.kernels.attention import (
         attention_gate_backward, attention_gate_backward_plain)
     n, hw, c, r = shape
@@ -550,27 +640,30 @@ def test_gate_backward_kernel_matches_plain_on_card(cuda, shape, dy_form):
         return torch.as_tensor((rng.normal(size=sh) * s)
                                .astype(np.float32), device=cuda)
 
-    x = torch.relu(t(n, c, hw)).transpose(1, 2)
+    x_view = torch.relu(t(n, c, hw)).transpose(1, 2)
     params = (t(c, 1, s=c ** -0.5), t(1), t(c, r, s=c ** -0.5), t(r),
               t(r, c, s=r ** -0.5), t(c))
-    dy = t(n, hw, c) if dy_form == "contiguous" \
-        else (t(n, 1, c) / hw).expand(n, hw, c)
+    dy = {"contiguous": lambda: t(n, hw, c),
+          "pool_stride0": lambda: (t(n, 1, c) / hw).expand(n, hw, c),
+          "channel_major": lambda: t(n, c, hw).transpose(1, 2)}[dy_form]()
     kernels.reset_launch_counts()
-    for mode in ("spatial", "channel", "hybrid"):
-        got = attention_gate_backward(dy, x, *params, mode)
-        again = attention_gate_backward(dy, x, *params, mode)
-        want = attention_gate_backward_plain(dy, x, *params, mode)
-        exact = attention_gate_backward_plain(
-            dy.double(), x.double(), *(p.double() for p in params), mode)
-        assert all(torch.equal(a, b) for a, b in zip(got, again)), mode
-        assert float((got[0] - want[0]).abs().max()) <= 1e-5, mode
-        assert got[0].stride() == x.stride()
-        for g, w, e in zip(got[1:], want[1:], exact[1:]):
-            assert g.shape == w.shape
-            err = float((g.double() - e).abs().max())
-            err_plain = float((w.double() - e).abs().max())
-            assert err <= 2.0 * err_plain + 1e-5 * float(e.norm()), mode
-    assert kernels.launch_counts()["attention_gate_backward"] == 6
+    for x in (x_view, x_view.contiguous()):
+        for mode in ("spatial", "channel", "hybrid"):
+            got = attention_gate_backward(dy, x, *params, mode)
+            again = attention_gate_backward(dy, x, *params, mode)
+            want = attention_gate_backward_plain(dy, x, *params, mode)
+            exact = attention_gate_backward_plain(
+                dy.double(), x.double(), *(p.double() for p in params),
+                mode)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), mode
+            assert float((got[0] - want[0]).abs().max()) <= 1e-5, mode
+            assert got[0].stride() == x.stride()
+            for g, w, e in zip(got[1:], want[1:], exact[1:]):
+                assert g.shape == w.shape
+                err = float((g.double() - e).abs().max())
+                err_plain = float((w.double() - e).abs().max())
+                assert err <= 2.0 * err_plain + 1e-5 * float(e.norm()), mode
+    assert kernels.launch_counts()["attention_gate_backward"] == 12
 
 
 def test_cnn_train_step_gradients_on_card_match_cpu(cuda):
