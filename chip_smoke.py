@@ -126,7 +126,27 @@ Phases, each a hard failure (non-zero exit):
    reloaded (equal logits), one step profiled, five steps on one batch
    (after the first, the loss falls at every step and ends below the
    first); (c) one step with the adapters in bf16 (the bf16
-   forward with its log-sum-exp and the bf16 backward).
+   forward with its log-sum-exp and the bf16 backward);
+9. serving from a checkpoint on disk: (a) a 3-shard HF-layout checkpoint
+   at the LLaVA-1.6-Mistral-7B tensor shapes cut to 2 decoder and 2
+   vision layers (about 1.5 GB bf16, seeded random weights, the port's
+   own ``write_synthetic_llava_checkpoint``) under
+   ``build/chip_smoke_ckpt/``, loaded onto the card in bf16, int8 and
+   int4 (group 128): the bf16 state bit-equal to what was written, the
+   int8 and int4 codes and scales bit-equal to the host quantizer on the
+   same tensors; then one rerank a mode through
+   ``tools/serve_llava_torch.py``'s ``main`` (anyres, 1080 x 1440 frame),
+   the flash prefill launched once a layer and the scorer's own record
+   showing the rerank finished (its scores, and every candidate's tokens
+   decoded); (b) the 7.567 G-parameter model of phase 6 quantized to
+   int8 on the card by ``quantize_llava_state_device`` (peak at most the
+   bf16 model and one kernel's f32 working set), five candidates scored
+   (t 2400, 32 flash launches), profiled, and scored one by one;
+   ``QuantDense`` at 5 and 12,000 rows: int8 and int4's per-group
+   partials within one bf16 rounding of the f64 product (and int8's
+   product rounded to bf16 before its scale shown to miss that limit),
+   int4's dequantized product against its plain version, with the
+   weight conversions eager torch materializes timed.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -1466,6 +1486,50 @@ def build_llava(torch, dev):
     return model
 
 
+def profile_rerank(torch, scorer, rgb, cands, instruction, phase):
+    """Where a rerank's time goes: one profiled rerank, and one that stops
+    after the prompt pass, so the difference is the nine decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+    prof_out = {}
+    for name, new_tokens in (("rerank", 10), ("prompt_pass_only", 1)):
+        scorer.max_new_tokens = new_tokens
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
+            t0 = time.perf_counter()
+            scorer.score(rgb, cands, instruction)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                       for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and not is_lead_in(ev.key)), reverse=True)
+        busy = sum(r[0] for r in rows)
+        prof_out[name] = {
+            "wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "kernel_launches": sum(r[1] for r in rows),
+            "flash_prefill_ms": sum(
+                r[0] for r in rows
+                if kernel_function(r[2]) in ("flash_prefill_kernel",
+                                             "flash_prefill_f32_kernel")),
+            "top": [{"ms": ms, "count": n, "name": key[:60]}
+                    for ms, n, key in rows[:6]]}
+        log(f"{phase} profile {name} {json.dumps(prof_out[name])}")
+    scorer.max_new_tokens = 10
+    steps = scorer.max_new_tokens - 1
+    full, prompt = prof_out["rerank"], prof_out["prompt_pass_only"]
+    prof_out["decode_step_launches"] = (full["kernel_launches"]
+                                        - prompt["kernel_launches"]) / steps
+    prof_out["decode_step_device_ms"] = (full["device_busy_ms"]
+                                         - prompt["device_busy_ms"]) / steps
+    log(f"{phase} profile: a decode step launches "
+        f"{prof_out['decode_step_launches']} kernels and keeps the device "
+        f"busy {prof_out['decode_step_device_ms']} ms (under the profiler)")
+    return prof_out
+
+
 def run_vla(torch, dev, cnn, scenes):
     """Phase 6: the VLA rerank serve path at full width."""
     from leafgrasp_tpu_torch.config import DEFAULT_CONFIG
@@ -1534,42 +1598,12 @@ def run_vla(torch, dev, cnn, scenes):
                            f"{last['n_image_tokens']} image tokens, t "
                            f"{last['prompt_len']}")
 
-    # where a rerank's time goes: one profiled rerank, and one that stops
-    # after the prompt pass, so the difference is the nine decode steps
-    from torch.profiler import ProfilerActivity, profile
-    prof_out = {}
-    for name, new_tokens in (("rerank", 10), ("prompt_pass_only", 1)):
-        scorer.max_new_tokens = new_tokens
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            lead_in(torch)
-            t0 = time.perf_counter()
-            scorer.score(rgb, cands, instruction)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
-                       for ev in prof.key_averages()
-                       if ev.device_type == torch.autograd.DeviceType.CUDA
-                       and not is_lead_in(ev.key)), reverse=True)
-        busy = sum(r[0] for r in rows)
-        prof_out[name] = {
-            "wall_ms": wall, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall,
-            "kernel_launches": sum(r[1] for r in rows),
-            "flash_prefill_ms": sum(
-                r[0] for r in rows
-                if kernel_function(r[2]) == "flash_prefill_kernel"),
-            "top": [{"ms": ms, "count": n, "name": key[:60]}
-                    for ms, n, key in rows[:6]]}
-        log(f"phase 6.1 profile {name} {json.dumps(prof_out[name])}")
-    scorer.max_new_tokens = 10
-    steps = scorer.max_new_tokens - 1
-    log(f"phase 6.1 profile: a decode step launches "
-        f"{(prof_out['rerank']['kernel_launches'] - prof_out['prompt_pass_only']['kernel_launches']) / steps}"
-        f" kernels and keeps the device busy "
-        f"{(prof_out['rerank']['device_busy_ms'] - prof_out['prompt_pass_only']['device_busy_ms']) / steps}"
-        f" ms (under the profiler)")
+    prof_out = profile_rerank(torch, scorer, rgb, cands, instruction,
+                              "phase 6.1")
+    perf = {"encode_ms": last.get("encode_ms"),
+            "prefill_ms": last["prefill_ms"],
+            "decode_ms": last["decode_ms"],
+            "decode_step_device_ms": prof_out["decode_step_device_ms"]}
 
     # 6.2 the same candidates through the chunked route, and one by one
     def differing(a, b):
@@ -1667,8 +1701,10 @@ def run_vla(torch, dev, cnn, scenes):
     single_scores = scorer.score(rgb, cands, instruction)
     single = dict(scorer.last)
     scorer.max_batch = None
+    perf["batched_vs_single_tokens_differ"] = differing(flash_tokens,
+                                                        single["tokens"])
     log(f"phase 6.2 batched against one by one: "
-        f"{differing(flash_tokens, single['tokens'])} of 50 tokens differ; "
+        f"{perf['batched_vs_single_tokens_differ']} of 50 tokens differ; "
         f"parsed scores differ: {scores != single_scores}; flash launches "
         f"{launch_counts()['flash_prefill']}; prefill {single['prefill_ms']}"
         f" ms, decode {single['decode_ms']} ms for the five")
@@ -1770,7 +1806,7 @@ def run_vla(torch, dev, cnn, scenes):
     log(f"phase 6.5 TinyVLAScorer on the card: scores {tiny_scores}, "
         f"strategy {choice['strategy']}")
     del model, scorer, svc
-    return counts
+    return counts, perf
 
 
 # ---------------------------------------------------------------- phase 7 --
@@ -2984,6 +3020,379 @@ def run_phase_8(torch, dev):
     return records, fwd_train, counts, counts_bf16, perf
 
 
+# ---------------------------------------------------------------- phase 9 --
+# the full-width checkpoint of phase 9a: the 7B widths (CLIP-L/336 tower,
+# Mistral 4096 / 14336, 32 over 8 heads, vocab 32064, the five anyres
+# pinpoints) cut to 2 decoder and 2 vision layers, bf16, in 3 shards (the
+# JAX package's real-dims checkpoint test), about 1.5 GB
+CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")
+CKPT_LAYERS = 2
+CKPT_VIS_LAYERS = 2
+CKPT_SHARDS = 3
+CKPT_SEED = 0
+QUANT_MODES = {"bf16": ("none", 8), "int8": ("int8", 8),
+               "int4": ("int4", 4)}
+QUANT_GROUP = 128
+SERVE_NEW_TOKENS = 4
+# QuantDense on the card at a decode shape (the rerank's five rows) and the
+# prompt pass's (5 x 2400 rows), on gate_proj's widths (4096 -> 14336),
+# bf16 compute. int8 and int4's per-group partials round once: against
+# the f64 product on the card (quant_dense_exact) each output is within
+# half a bf16 ulp of the value plus 2^-12 of its row's rms
+# (one_rounding_share <= 1), and int8's bf16 product rounded before the
+# scale must miss that limit. int4's prompt-pass formulation rounds the
+# dequantized weight to bf16 before its product: |layer - plain| <=
+# QUANT_DENSE_TOL * (|plain| + the row's largest |plain|), two ulps
+QUANT_ROWS = {"decode": 5, "prefill": 12000}
+# allocator slack of phase 9b's peak bound (scales, block rounding)
+QUANT_PEAK_SLACK = 64 * 2 ** 20
+QUANT_DENSE_TOL = 2.0 ** -6
+
+
+def _counts_sum(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def write_phase9_checkpoint():
+    """Phase 9a's checkpoint, written by the port's own writers."""
+    import shutil
+    from leafgrasp_tpu_torch.vla.checkpoint_io import \
+        write_synthetic_llava_checkpoint
+    from leafgrasp_tpu_torch.vla.llava_torch import LlavaTorchConfig
+    cfg = LlavaTorchConfig(layers=CKPT_LAYERS, vis_layers=CKPT_VIS_LAYERS,
+                           image_grid_pinpoints=VLA_PINPOINTS)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    n_bytes = write_synthetic_llava_checkpoint(
+        CKPT_DIR, cfg, seed=CKPT_SEED, n_shards=CKPT_SHARDS)
+    log(f"phase 9a: wrote a {CKPT_SHARDS}-shard checkpoint at the 7B widths "
+        f"({CKPT_LAYERS} decoder, {CKPT_VIS_LAYERS} vision layers) under "
+        f"{CKPT_DIR}: {n_bytes} bytes of safetensors in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return n_bytes
+
+
+def check_loaded_state(torch, mode, bits, state, written, rename):
+    """The loaded state on the card against the checkpoint's tensors: bf16
+    bit-equal; the quantized codes and scales bit-equal to the port's
+    host quantizer on the same bf16 tensors (every weight in bf16, the
+    largest ones in int8 and int4 too)."""
+    from leafgrasp_tpu_torch.vla.quant import (is_quantized_weight,
+                                               quantize_kernel)
+    n_q = 0
+    for src, dst in rename.items():
+        host = written[src]
+        if mode == "bf16" or not is_quantized_weight(dst):
+            if not torch.equal(state[dst].cpu().view(torch.int16),
+                               host.view(torch.int16)):
+                raise RuntimeError(f"phase 9a {mode}: {dst} differs from "
+                                   f"the checkpoint")
+            continue
+        stem = dst[:-len("weight")]
+        q, s = quantize_kernel(host.T, bits, QUANT_GROUP)
+        if not (torch.equal(state[stem + "kernel_q"].cpu(), q)
+                and torch.equal(state[stem + "kernel_scale"].cpu(), s)):
+            raise RuntimeError(f"phase 9a {mode}: {stem}kernel_q / "
+                               f"kernel_scale differ from the host "
+                               f"quantizer's")
+        n_q += 1
+    return n_q
+
+
+def run_phase_9a(torch, dev, n_bytes):
+    """Phase 9a: the full-width checkpoint loaded onto the card in bf16,
+    int8 and int4, checked against what was written, and served once per
+    mode through tools/serve_llava_torch.py's main."""
+    import contextlib
+    import io
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.vla.checkpoint_io import (_hf_name_map,
+                                                       _read_state_dict,
+                                                       load_llava_checkpoint)
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import serve_llava_torch
+
+    written = _read_state_dict(CKPT_DIR)
+    out = {"bytes_on_disk": n_bytes}
+    counts = {}
+    for mode, (flag, bits) in QUANT_MODES.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model, state, _ = load_llava_checkpoint(
+            CKPT_DIR, dtype="bfloat16", quantize=flag != "none",
+            quant_bits=bits, quant_group=QUANT_GROUP, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        resident = torch.cuda.memory_allocated() - base
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        n_q = check_loaded_state(torch, mode, bits, state, written,
+                                 _hf_name_map(model.cfg, written))
+        check_s = time.perf_counter() - t0
+        del model, state
+        torch.cuda.empty_cache()
+
+        argv = [CKPT_DIR, "--dtype", "bfloat16", "--quantize", flag,
+                "--quant-group", str(QUANT_GROUP), "--anyres",
+                "--max-new-tokens", str(SERVE_NEW_TOKENS), "--json"]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve_llava_torch.main(argv)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        cnt = launch_counts()
+        counts = _counts_sum(counts, cnt)
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        # the selector falls back to geometry if the scorer raises: its
+        # own record proves the rerank ran to its end (scores are set
+        # only when it returns; every candidate decoded its tokens)
+        n = len(res["candidates"])
+        if (cnt["flash_prefill"] != CKPT_LAYERS or not n
+                or res["best"] is None or res["vla_scores"] is None
+                or len(res["vla_scores"]) != n
+                or res["generated_tokens"] != [SERVE_NEW_TOKENS] * n
+                or not res["prefill_ms"] > 0 or not res["decode_ms"] > 0):
+            raise RuntimeError(f"phase 9a {mode}: served {res}, flash "
+                               f"launches {cnt['flash_prefill']}")
+        out[mode] = {"load_s": load_s, "resident_gib": resident / 2 ** 30,
+                     "load_peak_gib": peak / 2 ** 30, "check_s": check_s,
+                     "quantized_weights_checked": n_q, "serve_s": serve_s,
+                     "rerank_s": res["rerank_s"],
+                     "vla_scores": res["vla_scores"],
+                     "prefill_ms": res["prefill_ms"],
+                     "decode_ms": res["decode_ms"],
+                     "best_leaf": res["best"]["leaf_id"],
+                     "strategy": res["best"]["strategy"],
+                     "flash_launches": cnt["flash_prefill"]}
+        log(f"phase 9a {mode}: {json.dumps(out[mode])}")
+    del written
+    return out, counts
+
+
+def _quant_dense_err(name, lay, x, got):
+    """(largest |got - reference|, largest share of its limit): int8 and
+    int4's partials against the f64 product, held to one rounding;
+    int4's dequantized product against the plain version, at
+    QUANT_DENSE_TOL."""
+    from leafgrasp_tpu_torch.vla.quant import (one_rounding_share,
+                                               quant_dense_exact,
+                                               quant_dense_plain)
+    if name == "int4_dequant":
+        w = quant_dense_plain(lay, x).float()
+        d = (got.float() - w).abs()
+        lim = QUANT_DENSE_TOL * (w.abs() + w.abs().amax(dim=-1, keepdim=True))
+        return float(d.max()), float((d / lim.clamp_min(1e-30)).max())
+    exact = quant_dense_exact(lay, x)
+    return (float((got.double() - exact).abs().max()),
+            one_rounding_share(got, exact))
+
+
+def check_quant_dense(torch, dev, qmodel):
+    """QuantDense on the card against its references at the decode and
+    prompt-pass shapes: int8 (the served model's layer 0 gate_proj), int4
+    by per-group partials and by the dequantized product; int8's product
+    rounded to bf16 before its scale must fail the one-rounding check;
+    beside each, the weight conversion that eager torch materializes."""
+    from leafgrasp_tpu_torch.vla.quant import (QuantDense, one_rounding_share,
+                                               quant_dense_exact,
+                                               quant_dense_plain,
+                                               quantize_kernel)
+    int8 = qmodel.layers[0].gate_proj
+    n_in, n_out = int8.in_features, int8.features
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    w = 0.02 * torch.randn((n_in, n_out), generator=gen, device=dev)
+    layers = {"int8": int8}
+    for name, thr in (("int4_partials", 10 ** 9), ("int4_dequant", 0)):
+        lay = QuantDense(n_in, n_out, dtype=torch.bfloat16, bits=4,
+                         group=QUANT_GROUP, dequant_threshold=thr,
+                         device=dev)
+        q, s = quantize_kernel(w, 4, QUANT_GROUP)
+        with torch.no_grad():
+            lay.kernel_q.copy_(q)
+            lay.kernel_scale.copy_(s)
+        layers[name] = lay
+    del w
+    out = {}
+    with torch.no_grad():
+        for shape, rows in QUANT_ROWS.items():
+            x = torch.randn((rows, n_in), generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            for name, lay in layers.items():
+                if name == "int4_partials" and shape == "prefill":
+                    # the (rows, 32 groups, 14336) f32 partials would take
+                    # 2 x 22 GB: the layer dequantizes above 256 rows
+                    continue
+                err, share = _quant_dense_err(name, lay, x, lay(x))
+                rec = {"rows": rows, "max_abs_err": err,
+                       "share_of_tol": share}
+                if name == "int8":
+                    twice = (torch.mm(x, lay.kernel_q.to(torch.bfloat16))
+                             .float() * lay.kernel_scale).to(torch.bfloat16)
+                    rec["bf16_product_share"] = one_rounding_share(
+                        twice, quant_dense_exact(lay, x))
+                    del twice
+                    if rec["bf16_product_share"] <= 1.0:
+                        raise RuntimeError(
+                            f"phase 9b: the one-rounding check of int8 at "
+                            f"{rows} rows does not tell a bf16 product "
+                            f"rounded before its scale apart ({rec})")
+                if share > 1.0:
+                    raise RuntimeError(
+                        f"phase 9b: QuantDense {name} at {rows} rows is "
+                        f"{err} from its reference ({share} of the limit)")
+                rec["ms"] = cuda_ms(lambda: lay(x), iters=10)
+                rec["plain_ms"] = cuda_ms(
+                    lambda: quant_dense_plain(lay, x), iters=5)
+                out[f"{name}_{shape}"] = rec
+            del x
+        # what eager torch materializes beside each product: the int8
+        # codes in bf16, int4's dequantized bf16 weight
+        conv = {"int8_to_bf16": (lambda: int8.kernel_q.to(torch.bfloat16),
+                                 n_in * n_out * 3),
+                "int4_dequantize": (layers["int4_dequant"].dequantized,
+                                    n_in * n_out // 2 + n_in * n_out * 2
+                                    + 4 * n_in // QUANT_GROUP * n_out)}
+        for name, (fn, n_bytes) in conv.items():
+            ms = cuda_ms(fn, iters=20)
+            out[name] = {"ms": ms, "bytes": n_bytes,
+                         "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3}
+    for key, val in out.items():
+        log(f"phase 9b QuantDense {key} {json.dumps(val)}")
+    return out
+
+
+def run_phase_9b(torch, dev, bf16_perf):
+    """Phase 9b: the 7B model at full width and depth quantized to int8 on
+    the card (the bf16 state consumed), then served."""
+    import dataclasses
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.vla.llava_runtime import LlavaTorchScorer
+    from leafgrasp_tpu_torch.vla.llava_torch import LlavaTorch
+    from leafgrasp_tpu_torch.vla.quant import quantize_llava_state_device
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_llava(torch, dev)
+    cfg = model.cfg
+    layers = cfg.layers
+    torch.cuda.synchronize()
+    bf16_bytes = torch.cuda.memory_allocated() - base
+    largest = max(p.numel() for n, p in model.named_parameters()
+                  if n.endswith("proj.weight") or n == "lm_head.weight")
+    state = model.state_dict()
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    box = [state]
+    del state
+    qstate = quantize_llava_state_device(box)
+    qmodel = LlavaTorch.from_state(dataclasses.replace(cfg, quantized=True),
+                                   qstate)
+    del qstate
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    int8_bytes = sum(p.numel() * p.element_size()
+                     for p in qmodel.parameters())
+    # the bf16 model and one kernel's quantization (its f32 copy and up to
+    # three f32 intermediates), and QUANT_PEAK_SLACK for the allocator:
+    # the int8 tree grows only as the bf16 weights it replaces are freed,
+    # so a quantizer that held both models (about 21 GiB) would fail
+    peak_bound = bf16_bytes + 16 * largest + QUANT_PEAK_SLACK
+    log(f"phase 9b: int8 in {quant_s:.2f} s; resident "
+        f"{resident / 2 ** 30:.2f} GiB (bf16 {bf16_bytes / 2 ** 30:.2f} "
+        f"GiB, int8 tree {int8_bytes / 2 ** 30:.2f} GiB); peak "
+        f"{peak / 2 ** 30:.2f} GiB (bound {peak_bound / 2 ** 30:.2f} GiB: "
+        f"bf16 model + one kernel's f32 working set)")
+    if peak > peak_bound:
+        raise RuntimeError("phase 9b: the device quantizer held more than "
+                           "the bf16 model and one kernel")
+
+    scorer = LlavaTorchScorer(qmodel, FixedLenTok(cfg.vocab_size),
+                              max_new_tokens=10, decode_mode="steps",
+                              anyres=True)
+    rgb = (np.random.default_rng(0).uniform(0, 255, (H, W, 3))
+           .astype(np.uint8))
+    rng = np.random.default_rng(3)
+    cands = [dict(leaf_id=i + 1, x=float(rng.uniform(100, W - 100)),
+                  y=float(rng.uniform(100, H - 100)),
+                  clutter_score=float(rng.uniform(0.2, 1.0)),
+                  distance_score=float(rng.uniform(0.2, 1.0)),
+                  visibility_score=float(rng.uniform(0.2, 1.0)),
+                  geometric_score=float(rng.uniform(0.2, 1.0)))
+             for i in range(5)]
+    instruction = "Select the best leaf for grasping"
+    scorer.score(rgb, cands, instruction)              # warm-up, uncounted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = scorer.score(rgb, cands, instruction)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    rerank_peak = torch.cuda.max_memory_allocated() - base
+    last = dict(scorer.last)
+    tokens = last.pop("tokens")
+    if not (len(scores) == 5 and np.isfinite(scores).all()) \
+            or counts["flash_prefill"] != layers:
+        raise RuntimeError(f"phase 9b: scores {scores}, flash launches "
+                           f"{counts['flash_prefill']}")
+    prof = profile_rerank(torch, scorer, rgb, cands, instruction, "phase 9b")
+    scorer.max_batch = 1
+    scorer.score(rgb, cands, instruction)
+    single = scorer.last["tokens"]
+    scorer.max_batch = None
+    kept = int((np.asarray(tokens) == np.asarray(single)).sum())
+    perf = {"resident_gib": resident / 2 ** 30,
+            "bf16_gib": bf16_bytes / 2 ** 30, "peak_gib": peak / 2 ** 30,
+            "quantize_s": quant_s, "rerank_wall_ms": wall_ms,
+            "encode_ms": last.get("encode_ms"),
+            "prefill_ms": last["prefill_ms"], "decode_ms": last["decode_ms"],
+            "decode_step_device_ms": prof["decode_step_device_ms"],
+            "decode_step_launches": prof["decode_step_launches"],
+            "rerank_peak_gib": rerank_peak / 2 ** 30,
+            "tokens_kept_batched_vs_single": kept,
+            "tokens": int(np.asarray(tokens).size),
+            "bf16_phase6": bf16_perf}
+    log(f"phase 9b int8 rerank: scores {scores}; t {last['prompt_len']}; "
+        f"{json.dumps(perf)}")
+    log(f"phase 9b: int8 keeps {kept} of {perf['tokens']} greedy tokens "
+        f"between the batched and the one-by-one rerank (bf16, phase 6.2: "
+        f"{perf['tokens'] - bf16_perf['batched_vs_single_tokens_differ']} "
+        f"of 50)")
+    perf["quant_dense"] = check_quant_dense(torch, dev, qmodel)
+    del qmodel, scorer
+    torch.cuda.empty_cache()
+    return counts, perf
+
+
+def run_phase_9(torch, dev, bf16_perf):
+    """Phase 9: serving from a checkpoint on disk, bf16, int8 and int4."""
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 9: {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB of "
+        f"device memory free, {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated")
+    t0 = time.perf_counter()
+    n_bytes = write_phase9_checkpoint()
+    ckpt, counts_a = run_phase_9a(torch, dev, n_bytes)
+    counts_b, perf = run_phase_9b(torch, dev, bf16_perf)
+    perf["checkpoint"] = ckpt
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return counts_a, counts_b, perf
+
+
 def main() -> int:
     try:
         import torch
@@ -3056,7 +3465,7 @@ def main() -> int:
                                  model_cpu, scenes)
 
     with torch.no_grad():
-        vla_counts = run_vla(torch, dev, model, scenes)
+        vla_counts, rerank_perf = run_vla(torch, dev, model, scenes)
     log("phase 6: the VLA serve path ran at full width")
 
     records.append(check_attention_backward(torch, dev))
@@ -3078,18 +3487,29 @@ def main() -> int:
         f"({vla_perf['step_s']:.3f} s a step, "
         f"{vla_perf['tokens_per_s']:.0f} tokens/s)")
 
+    ckpt_counts, int8_counts, quant_perf = run_phase_9(torch, dev,
+                                                       rerank_perf)
+    log(f"phase 9: a full-width checkpoint served in bf16, int8 and int4; "
+        f"the 7B model served in int8 "
+        f"({quant_perf['resident_gib']:.2f} GiB resident, rerank "
+        f"{quant_perf['rerank_wall_ms']:.1f} ms)")
+
     phases = {"frames": counts, "service": service_counts,
               "vla_service": vla_counts, "teacher": teacher_counts,
               "train": train_counts, "vla_train": vla_train_counts,
-              "vla_train_bf16": vla_bf16_counts}
+              "vla_train_bf16": vla_bf16_counts,
+              "checkpoint_serve": ckpt_counts, "int8_serve": int8_counts}
     for rec in records:
         for phase, cnt in phases.items():
-            rec[f"launches_{phase}"] = cnt[rec["name"]]
-        rec["launches"] = sum(cnt[rec["name"]] for cnt in phases.values())
+            rec[f"launches_{phase}"] = cnt.get(rec["name"], 0)
+        rec["launches"] = sum(cnt.get(rec["name"], 0)
+                              for cnt in phases.values())
         if rec["launches"] == 0:
             raise RuntimeError(f"no path launched {rec['name']}")
-    # the f32 forward runs on the f32 LoRA step's path (phase 8b) only
-    f32["launches"] = vla_train_counts["flash_prefill"]
+    # the f32 forward runs on the f32 LoRA step's path (phase 8b) and in
+    # the checkpoint's f32-compute serving (phase 9a)
+    f32["launches"] = vla_train_counts["flash_prefill"] \
+        + ckpt_counts["flash_prefill"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": records}), flush=True)

@@ -2,10 +2,10 @@
 a vision-language model, for serving and LoRA training
 (``vla/trainer.py``, ``vla/llava_trainer.py``, ``vla/experiments.py``).
 
-Exports the same public names as ``leafgrasp_tpu.vla`` for what is
-ported, with "torch" where the JAX package says "jax". What is not
-ported yet (quantized serving, the checkpoint reader) raises an
-``ImportError`` that names it.
+Exports the same public names as ``leafgrasp_tpu.vla``, with "torch"
+where the JAX package says "jax": the checkpoint reader
+(``vla/checkpoint_io.py``) and weight-only int8 / int4 serving
+(``vla/quant.py``) among them.
 """
 
 from leafgrasp_tpu_torch.vla.hybrid import (HybridGraspSelector,
@@ -32,6 +32,12 @@ from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
 from leafgrasp_tpu_torch.vla.llava_runtime import (LlavaTorchScorer,
                                                    load_llava_from_hf,
                                                    preprocess_image)
+from leafgrasp_tpu_torch.vla.checkpoint_io import (SentencePieceTokenizer,
+                                                   load_llava_checkpoint,
+                                                   read_safetensors,
+                                                   write_safetensors)
+from leafgrasp_tpu_torch.vla.quant import (QuantDense, QuantLoRADense,
+                                           quantize_llava_variables)
 
 __all__ = [
     "HybridGraspSelector", "HybridSelector", "confidence_weights",
@@ -43,25 +49,7 @@ __all__ = [
     "ByteTokenizer", "greedy_generate", "init_vla", "LlavaTorch",
     "LlavaTorchConfig", "config_from_hf", "convert_hf_llava_state_dict",
     "greedy_generate_llava", "LlavaTorchScorer", "load_llava_from_hf",
-    "preprocess_image",
+    "preprocess_image", "SentencePieceTokenizer", "load_llava_checkpoint",
+    "read_safetensors", "write_safetensors", "QuantDense", "QuantLoRADense",
+    "quantize_llava_variables",
 ]
-
-# public names of leafgrasp_tpu.vla that wait for a later slice
-_LATER = {
-    "SentencePieceTokenizer": "the checkpoint reader (vla/checkpoint_io.py)",
-    "load_llava_checkpoint": "the checkpoint reader (vla/checkpoint_io.py)",
-    "read_safetensors": "the checkpoint reader (vla/checkpoint_io.py)",
-    "write_safetensors": "the checkpoint reader (vla/checkpoint_io.py)",
-    "QuantDense": "int8/int4 serving (vla/quant.py)",
-    "QuantLoRADense": "int8/int4 serving (vla/quant.py)",
-    "quantize_llava_variables": "int8/int4 serving (vla/quant.py)",
-}
-
-
-def __getattr__(name: str):
-    if name in _LATER:
-        raise ImportError(
-            f"leafgrasp_tpu_torch.vla.{name} is not ported yet: "
-            f"{_LATER[name]} comes with the next VLA slice of the port; "
-            f"the JAX package's leafgrasp_tpu.vla.{name} is the reference")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

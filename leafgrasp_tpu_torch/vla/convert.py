@@ -5,9 +5,10 @@ Takes Flax variables as nested dicts of numpy arrays (``{"params":
 that the ``.npz`` files under ``artifacts/vla`` hold, and renames and
 transposes: Dense kernels (in, out) -> (out, in), convolution kernels
 (kh, kw, in, out) -> (out, in, kh, kw), LayerNorm ``scale`` ->
-``weight``; embeddings, RMSNorm weights, ``lora_a`` / ``lora_b`` and
-``image_newline`` go as they are. Reads no files itself and imports
-neither JAX nor Flax.
+``weight``; embeddings, RMSNorm weights, ``lora_a`` / ``lora_b``,
+``image_newline`` and the quantized layers' ``kernel_q`` (int8, or int4
+nibble-packed) and ``kernel_scale`` keep the JAX orientation. Reads no
+files itself and imports neither JAX nor Flax.
 
 The other way, ``torch_to_flax_tiny_vla`` and ``torch_to_flax_llava_adapter``
 give the flat ``"a/b/c"`` keys and orientation of the JAX package's
@@ -22,6 +23,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from leafgrasp_tpu_torch.vla.quant import pack_nibbles
 
 __all__ = ["unflatten_tree", "flax_to_torch_tiny_vla",
            "flax_to_torch_llava", "torch_to_flax_tiny_vla",
@@ -51,13 +54,32 @@ def _params(variables) -> Mapping:
     return variables.get("params", variables)
 
 
+def _quant_codes(kernel_q, kernel_scale) -> torch.Tensor:
+    """A QuantDense's ``kernel_q`` in the port's layout: int8 (in, out) as
+    it is; int4 as (in / 2, out) nibble-packed int8, which the JAX
+    package's packed storage already is and its native ``jnp.int4``
+    (in, out) gets packed into. int4 has a 2-D scale (G, out)."""
+    q = np.asarray(kernel_q)
+    if q.dtype.name == "int4":
+        return pack_nibbles(torch.as_tensor(q.astype(np.int8)))
+    if q.dtype != np.int8 or np.ndim(kernel_scale) not in (1, 2):
+        raise TypeError(f"kernel_q of type {q.dtype}, scale of rank "
+                        f"{np.ndim(kernel_scale)}: not a QuantDense kernel")
+    return _t(q)
+
+
 def _dense(out: dict, prefix: str, node: Mapping) -> None:
-    """A Dense (``kernel`` [+ ``bias``]) or a LoRADense (``base/kernel``
-    [+ ``lora_a``, ``lora_b``]); missing leaves are left out."""
+    """A Dense (``kernel`` [+ ``bias``]), a QuantDense (``kernel_q``,
+    ``kernel_scale``) or a LoRADense / QuantLoRADense (the same under
+    ``base`` [+ ``lora_a``, ``lora_b``]); missing leaves are left out."""
     if "base" in node:
         _dense(out, f"{prefix}.base", node["base"])
     if "kernel" in node:
         out[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).T)
+    if "kernel_q" in node:
+        out[f"{prefix}.kernel_q"] = _quant_codes(node["kernel_q"],
+                                                 node["kernel_scale"])
+        out[f"{prefix}.kernel_scale"] = _t(node["kernel_scale"])
     if "bias" in node:
         out[f"{prefix}.bias"] = _t(node["bias"])
     for leaf in ("lora_a", "lora_b"):

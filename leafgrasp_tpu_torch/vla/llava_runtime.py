@@ -1,26 +1,31 @@
-"""Serving glue for the LLaVA stack: the candidate scorer. Port of
-leafgrasp_tpu/vla/llava_runtime.py.
+"""Serving glue for the LLaVA stack: loader and candidate scorer. Port
+of leafgrasp_tpu/vla/llava_runtime.py.
 
 ``LlavaTorchScorer`` is the VLAProcessor backend that evaluates grasp
 candidates with a ``LlavaTorch`` model: the same prompt template and the
 same parse contract as the JAX scorer, every candidate of a frame in one
-left-padded batch. Loading a HuggingFace checkpoint directory
-(``load_llava_from_hf``) comes with the checkpoint reader's port.
+left-padded batch. ``load_llava_from_hf`` loads a HuggingFace checkpoint
+through transformers (the legacy path, for formats only transformers
+parses); ``vla/checkpoint_io.load_llava_checkpoint`` reads a checkpoint
+directory without it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List
 
 import numpy as np
 import torch
 
-from leafgrasp_tpu_torch.utils.device import host_read
+from leafgrasp_tpu_torch.utils.device import host_read, resolve_device
 from leafgrasp_tpu_torch.vla.llava_next import (CLIP_IMAGE_MEAN,
                                                 CLIP_IMAGE_STD,
                                                 pack_anyres_features_torch,
                                                 preprocess_anyres)
-from leafgrasp_tpu_torch.vla.llava_torch import greedy_generate_llava
+from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch, config_from_hf,
+                                                 convert_hf_llava_state_dict,
+                                                 greedy_generate_llava)
 from leafgrasp_tpu_torch.vla.processor import build_prompt, parse_score
 
 __all__ = ["LlavaTorchScorer", "CLIP_IMAGE_MEAN", "CLIP_IMAGE_STD",
@@ -44,13 +49,36 @@ def preprocess_image(image: np.ndarray, size: int) -> np.ndarray:
 
 
 def load_llava_from_hf(model_path: str, lora_rank: int = 0,
-                       dtype: str = "float32"):
-    raise NotImplementedError(
-        "loading a HuggingFace LLaVA checkpoint directory comes with the "
-        "port of vla/checkpoint_io.py (the next VLA slice); until then "
-        "build LlavaTorch from a state_dict with "
-        "convert_hf_llava_state_dict, or from JAX variables with "
-        "vla.convert.flax_to_torch_llava")
+                       dtype: str = "float32", device=None):
+    """Load a local HF LLaVA checkpoint VIA transformers (imported here;
+    the legacy path, for checkpoints only transformers can parse, such as
+    .bin pickles; ``load_llava_checkpoint`` reads the same directory
+    without it). Floating-point weights are cast to ``dtype`` and placed
+    on ``device`` (None means CUDA); with ``lora_rank > 0`` adapters are
+    drawn as ``load_llava_checkpoint`` draws them. Returns (LlavaTorch,
+    its state_dict, the HF tokenizer)."""
+    import dataclasses
+    from transformers import AutoTokenizer, LlavaForConditionalGeneration
+
+    if not os.path.isdir(model_path):
+        # a local directory only: never a hub id that transformers would
+        # try to download
+        raise FileNotFoundError(f"no checkpoint directory {model_path}")
+    dev = resolve_device(device)
+    cast = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    hf = LlavaForConditionalGeneration.from_pretrained(model_path,
+                                                       local_files_only=True)
+    cfg = dataclasses.replace(config_from_hf(hf.config), lora_rank=lora_rank)
+    state = {k: v.detach().to(
+                 device=dev, dtype=cast if v.is_floating_point() else v.dtype)
+             for k, v in convert_hf_llava_state_dict(hf.state_dict(),
+                                                     cfg).items()}
+    del hf
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = LlavaTorch.from_state(cfg, state, generator=gen)
+    return model, model.state_dict(), AutoTokenizer.from_pretrained(
+        model_path, local_files_only=True)
 
 
 class LlavaTorchScorer:
@@ -72,7 +100,8 @@ class LlavaTorchScorer:
 
     ``last`` holds what the newest ``score`` call measured: token
     counts, the generated tokens and, on a CUDA device, the split into
-    encode / prefill / decode milliseconds.
+    encode / prefill / decode milliseconds; ``scores``, the parsed
+    scores, only once the call has returned them.
     """
 
     def __init__(self, model, tokenizer, max_new_tokens: int = 10,
@@ -156,6 +185,7 @@ class LlavaTorchScorer:
         if timed and image is not None:
             e1.synchronize()
             self.last["encode_ms"] = e0.elapsed_time(e1)
+        self.last["scores"] = list(out)
         return out
 
     def _score_batch(self, rows, feats) -> List[float]:

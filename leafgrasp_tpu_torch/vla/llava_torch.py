@@ -11,6 +11,9 @@ multiplies by f32 cos/sin and rounds once; attention scores, softmax and
 their accumulation are f32, probabilities are cast to the layer input's
 type before the second product; ``lm_head`` and the LoRA projections
 have no compute type and work in the promoted type of input and weight.
+With ``quantized=True`` the language model's projections and ``lm_head``
+are the weight-only int8 / int4 layers of ``vla/quant.py``, which have
+the compute type, as in the JAX module.
 
 The prompt pass of a long batched prompt has three routes, chosen as the
 JAX module chooses: ``"flash"`` (the CUDA kernel of
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from leafgrasp_tpu_torch.kernels import flash_prefill as _fp
 from leafgrasp_tpu_torch.utils.device import resolve_device
 from leafgrasp_tpu_torch.vla.lora import LoRADense, linear_promoted
+from leafgrasp_tpu_torch.vla.quant import QuantDense, QuantLoRADense
 
 __all__ = ["LlavaTorchConfig", "LlavaTorch", "convert_hf_llava_state_dict",
            "config_from_hf", "attach_lora", "init_random_",
@@ -76,11 +80,13 @@ class LlavaTorchConfig:
     lora_rank: int = 0
     lora_alpha: float = 32.0
     lora_dropout: float = 0.0
-    # weight-only quantized serving is not ported yet: True raises
+    # weight-only quantized LM projections and lm_head (vla/quant.py); the
+    # state must come from quantize_llava_variables with the same bits
+    # and group. quant_bits: 8 (per-channel int8) or 4 (group-wise int4,
+    # quant_group input rows a scale; ignored for int8)
     quantized: bool = False
     quant_bits: int = 8
     quant_group: int = 128
-    quant_packed: bool = False
     # prompts longer than this compute attention in about this many query
     # rows at a time, so the f32 scores are (b, heads, chunk, total) and
     # not (b, heads, t, t). None disables chunking.
@@ -268,7 +274,18 @@ class _Dense(nn.Linear):
 
 def _proj(in_features: int, features: int, cfg: LlavaTorchConfig, **fk):
     """Language-model projection: a plain bias-free linear layer, or
-    LoRADense (frozen weight under ``base``) when a rank is configured."""
+    LoRADense (frozen weight under ``base``) when a rank is configured;
+    their int8 / int4 counterparts when ``cfg.quantized``."""
+    if cfg.quantized:
+        q = dict(dtype=cfg.torch_dtype, bits=cfg.quant_bits,
+                 group=cfg.quant_group, device=fk["device"])
+        if cfg.lora_rank > 0:
+            return QuantLoRADense(in_features, features, rank=cfg.lora_rank,
+                                  alpha=cfg.lora_alpha,
+                                  dropout=cfg.lora_dropout,
+                                  param_dtype=fk["dtype"],
+                                  dropout_in_training=False, **q)
+        return QuantDense(in_features, features, **q)
     if cfg.lora_rank > 0:
         # no dropout in training mode either: LlavaJax never passes
         # ``train`` to its LoRADense layers
@@ -430,11 +447,6 @@ class LlavaTorch(nn.Module):
     def __init__(self, cfg: LlavaTorchConfig, device=None,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.quantized:
-            raise NotImplementedError(
-                "weight-only quantized serving (leafgrasp_tpu/vla/quant.py) "
-                "is not ported yet: it comes with the next VLA slice of "
-                "the port; use quantized=False (bf16 or f32)")
         if cfg.prefill_attn_impl not in ("chunked", "flash"):
             raise ValueError(f"prefill_attn_impl {cfg.prefill_attn_impl!r}")
         self.cfg = cfg
@@ -446,8 +458,15 @@ class LlavaTorch(nn.Module):
         self.layers = nn.ModuleList(_MistralLayer(cfg, **fk)
                                     for _ in range(cfg.layers))
         self.norm = _RMSNorm(cfg.hidden, cfg.rms_eps, **fk)
-        self.lm_head = nn.Linear(cfg.hidden, cfg.vocab_size, bias=False,
-                                 **fk)
+        if cfg.quantized:
+            self.lm_head = QuantDense(cfg.hidden, cfg.vocab_size,
+                                      dtype=cfg.torch_dtype,
+                                      bits=cfg.quant_bits,
+                                      group=cfg.quant_group,
+                                      device=fk["device"])
+        else:
+            self.lm_head = nn.Linear(cfg.hidden, cfg.vocab_size, bias=False,
+                                     **fk)
         if cfg.image_grid_pinpoints:
             # LLaVA-NeXT: the embedding that ends every row of the
             # unpadded feature grid
@@ -455,6 +474,29 @@ class LlavaTorch(nn.Module):
         else:
             self.image_newline = None
         self.eval()
+
+    @classmethod
+    def from_state(cls, cfg: LlavaTorchConfig, state: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None
+                   ) -> "LlavaTorch":
+        """A model around the tensors of ``state`` as they are (no copy;
+        the model lives where they do). Adapter leaves that ``state``
+        lacks are drawn as ``attach_lora`` draws them, in f32 on that
+        device: ``lora_a`` normal(1 / rank) from ``generator``, ``lora_b``
+        zero. Raises for any other missing or unexpected key."""
+        model = cls(cfg, device="meta")
+        state = dict(state)
+        dev = state["embed_tokens.weight"].device
+        for name, p in model.named_parameters():
+            if name in state:
+                continue
+            if name.endswith(".lora_a"):
+                state[name] = torch.empty(p.shape, device=dev).normal_(
+                    0.0, 1.0 / cfg.lora_rank, generator=generator)
+            elif name.endswith(".lora_b"):
+                state[name] = torch.zeros(p.shape, device=dev)
+        model.load_state_dict(state, strict=True, assign=True)
+        return model
 
     @property
     def device(self) -> torch.device:
@@ -534,7 +576,8 @@ class LlavaTorch(nn.Module):
         if logits_last_only:
             # greedy decode reads the last position only
             x = x[:, -1:]
-        logits = linear_promoted(x, self.lm_head.weight)
+        logits = self.lm_head(x) if c.quantized \
+            else linear_promoted(x, self.lm_head.weight)
         return logits, (new_caches if caches is not None else None)
 
 

@@ -54,15 +54,18 @@ class LoRADense(nn.Module):
     def __init__(self, in_features: int, features: int, rank: int = 0,
                  alpha: float = 32.0, dropout: float = 0.0,
                  use_bias: bool = False, device=None,
-                 dtype=torch.float32, dropout_in_training: bool = True):
+                 dtype=torch.float32, dropout_in_training: bool = True,
+                 base: Optional[nn.Module] = None):
         super().__init__()
         self.rank = int(rank)
         self.alpha = float(alpha)
         self.dropout = float(dropout)      # applies in training only
         self.dropout_in_training = bool(dropout_in_training)
         self.generator: Optional[torch.Generator] = None
-        self.base = nn.Linear(in_features, features, bias=use_bias,
-                              device=device, dtype=dtype)
+        # ``base``: a frozen layer other than a plain linear one (the
+        # quantized base of ``QuantLoRADense``)
+        self.base = base if base is not None else nn.Linear(
+            in_features, features, bias=use_bias, device=device, dtype=dtype)
         if self.rank > 0:
             self.lora_a = nn.Parameter(torch.zeros(
                 (in_features, self.rank), device=device, dtype=dtype))
@@ -81,8 +84,11 @@ class LoRADense(nn.Module):
                           device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
+    def base_forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_promoted(x, self.base.weight, self.base.bias)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = linear_promoted(x, self.base.weight, self.base.bias)
+        y = self.base_forward(x)
         if self.rank > 0:
             h = x
             if self.training and self.dropout > 0 \

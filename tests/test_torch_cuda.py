@@ -941,3 +941,103 @@ def test_flash_route_gradients_on_card_equal_the_chunked_routes(cuda):
             assert float(g.abs().max()) > 0, name
         err = float((g - w).abs().max())
         assert err <= 1e-5 * float(w.norm()), (name, err)
+
+
+# ---- weight-only quantized serving (vla/quant.py, vla/checkpoint_io.py) --
+
+# |layer - plain| <= QUANT_TOL * (|plain| + the largest |plain| of the row):
+# f32 compute sums in another order (1e-5); bf16 int4's prompt-pass
+# formulation rounds the dequantized weight to bf16 before its product
+# (each term off by up to 2^-9) and the output once more, so two ulps of
+# the value and of the row's largest. bf16 int8 and int4's per-group
+# partials round once: within one_rounding_share's limit of the f64 product
+QUANT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _quant_layer(cuda, bits, dtype, n_in=512, n_out=384, group=128,
+                 threshold=256):
+    from leafgrasp_tpu_torch.vla.quant import QuantDense, quantize_kernel
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(bits)
+    w = 0.02 * torch.randn((n_in, n_out), generator=gen, device=cuda)
+    lay = QuantDense(n_in, n_out, dtype=dtype, bits=bits, group=group,
+                     dequant_threshold=threshold, device=cuda)
+    q, s = quantize_kernel(w, bits, group)
+    with torch.no_grad():
+        lay.kernel_q.copy_(q)
+        lay.kernel_scale.copy_(s)
+    return lay, gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,rows,threshold", [
+    (8, 5, 256), (8, 600, 256), (4, 5, 256), (4, 600, 256),
+    (4, 600, 10 ** 9)])
+def test_quant_dense_matches_plain_on_card(cuda, dtype, bits, rows,
+                                           threshold):
+    """QuantDense on CUDA tensors (int8; int4 by per-group partials at or
+    below the threshold and by the dequantized product above it) against
+    its plain f32 version on the same card (bf16 int8 and partials: one
+    rounding of the f64 product, which int8's bf16 product rounded before
+    its scale misses), and the card's codes and scales against the CPU
+    quantizer's (equal)."""
+    from leafgrasp_tpu_torch.vla.quant import (one_rounding_share,
+                                               quant_dense_exact,
+                                               quant_dense_plain,
+                                               quantize_kernel)
+    lay, gen = _quant_layer(cuda, bits, dtype, threshold=threshold)
+    x = torch.randn((rows, 512), generator=gen, device=cuda)
+    with torch.no_grad():
+        got = lay(x)
+        want = quant_dense_plain(lay, x)
+        exact = quant_dense_exact(lay, x)
+    assert got.dtype == dtype and got.shape == (rows, 384)
+    if dtype == torch.bfloat16 and (bits == 8 or rows <= threshold):
+        assert one_rounding_share(got, exact) <= 1.0
+        if bits == 8:       # the bf16 product rounded before its scale
+            twice = (torch.mm(x.to(dtype), lay.kernel_q.to(dtype)).float()
+                     * lay.kernel_scale).to(dtype)
+            assert one_rounding_share(twice, exact) > 1.0
+    else:
+        tol = QUANT_TOL[dtype]
+        bound = tol * (want.float().abs()
+                       + want.float().abs().amax(dim=-1, keepdim=True))
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+    w = 0.02 * torch.randn((512, 384), generator=gen, device=cuda)
+    for a, b in zip(quantize_kernel(w, bits), quantize_kernel(w.cpu(), bits)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_checkpoint_loads_onto_the_card(cuda, tmp_path):
+    """A tiny synthetic checkpoint loaded straight onto the card in bf16,
+    int8 and int4: the same tensors as the CPU load (the card quantizes
+    with the host's arithmetic), logits within 1e-4 of the CPU model's,
+    and the flash prefill launched by a long prompt."""
+    from leafgrasp_tpu_torch.vla.checkpoint_io import (
+        load_llava_checkpoint, write_synthetic_llava_checkpoint)
+    from leafgrasp_tpu_torch.vla.llava_torch import LlavaTorchConfig
+    cfg = LlavaTorchConfig(
+        vis_hidden=64, vis_intermediate=128, vis_layers=2, vis_heads=2,
+        image_size=28, patch_size=14, vocab_size=256, hidden=256,
+        intermediate=512, layers=2, heads=2, kv_heads=1,
+        image_token_index=200)
+    d = str(tmp_path / "ckpt")
+    write_synthetic_llava_checkpoint(d, cfg, seed=4, n_shards=3)
+    ids = torch.randint(0, 199, (2, 160), generator=torch.Generator()
+                        .manual_seed(4))
+    for kw in ({}, {"quantize": True}, {"quantize": True, "quant_bits": 4}):
+        card, cstate, _ = load_llava_checkpoint(d, dtype="bfloat16",
+                                                device=cuda, **kw)
+        host, hstate, _ = load_llava_checkpoint(d, dtype="bfloat16",
+                                                device="cpu", **kw)
+        assert card.device.type == "cuda" and set(cstate) == set(hstate)
+        for k, v in hstate.items():
+            assert torch.equal(cstate[k].cpu(), v), k
+        card.set_prefill_attn("flash")
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            got = card(ids.to(cuda))[0].float().cpu()
+            want = host(ids)[0].float()
+        assert kernels.launch_counts()["flash_prefill"] == cfg.layers
+        assert float((got - want).abs().max()) <= 1e-4 * max(
+            1.0, float(want.abs().max())), kw
