@@ -147,6 +147,27 @@ Phases, each a hard failure (non-zero exit):
    product rounded to bf16 before its scale shown to miss that limit),
    int4's dequantized product against its plain version, with the
    weight conversions eager torch materializes timed.
+10. the parallel layer (leafgrasp_tpu_torch/parallel/) on spawned ranks
+   (a file store under ``build/``, a group timeout and a join limit;
+   one rank over ``nccl``, two and four ranks sharing ``cuda:0`` over
+   ``gloo``, which nccl refuses): (a) ``make_sharded_frame_fn`` on the
+   three bench families in ``union`` and ``reference_self`` with the
+   CNN at 1080 x 1440, each frame against phase 3's ``make_frame_fn``
+   result (leaf, pixel, ``ml_used``, candidate pixels equal; 3D points
+   1e-6; fused scores 1e-4 relative), its wall time at 1, 2 and 4 ranks
+   (ranks sharing one card: not a multi-device speed) and the
+   collectives and bytes of a frame; (b) ``make_batched_frame_fn`` on 4
+   frames at 1 and 2 ranks, each frame against ``make_frame_fn``; (c)
+   on (2, 1) and (2, 2) meshes one train step of the standard CNN on a
+   corpus batch against the single-process step on the card (loss,
+   every gradient and the BatchNorm statistics within 3e-5, phase 7c's
+   bound), then
+   ``Trainer(mesh=...)`` on a 256-sample cut of the corpus for 2 epochs
+   (every rank the same, its losses beside the single-process fit's:
+   the fits part by more than rounding, see PAR_STEP_REL_TOL); (d)
+   ``GraspService(spatial_mesh=...)`` at 2 ranks on 8 frames, rank 0
+   publishing the unsharded service's messages. Each rank counts its
+   launches; their sum is the ``launches_parallel`` term.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -3393,6 +3414,437 @@ def run_phase_9(torch, dev, bf16_perf):
     return counts_a, counts_b, perf
 
 
+
+# --------------------------------------------------------------- phase 10 --
+PAR_MODES = ("union", "reference_self")
+PAR_WORLDS = {1: "nccl", 2: "gloo", 4: "gloo"}
+PAR_TIME_REPEATS = 5
+PAR_BATCH = 4
+PAR_TRAIN_SAMPLES = 256
+PAR_TRAIN_EPOCHS = 2
+PAR_TRAIN_MESHES = {2: (2, 1), 4: (2, 2)}
+PAR_SERVICE_WORLD = 2
+PAR_SERVICE_FRAMES = 8
+PAR_XYZ_TOL = 1e-6
+PAR_COMBINED_REL_TOL = 1e-4
+# one train step on the mesh against the single-process step on the same
+# global batch: loss and BatchNorm statistics relative, each gradient
+# against its tensor's norm (a BatchNorm-fed bias, whose exact gradient
+# is 0, against its layer's weight gradient); phase 7c's bound for the
+# card's step against the CPU's, another order of the same sums (cuDNN
+# picks other algorithms for a rank's half batch; read: 1.24e-5 on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+PAR_STEP_REL_TOL = TRAIN_GRAD_REL_TOL
+PAR_STEP_BATCH = 16
+# The 2-epoch fit is not held to the single-process fit's losses: Adam's
+# early steps normalise each gradient, so the rounding noise of a
+# near-zero gradient becomes a step of the learning rate, and a fit
+# whose sums run in another order (here: over shards) parts from the
+# single-process fit by far more than its rounding; the single-process
+# fit parts from itself the same way when only the order of its sums
+# changes. The run prints both fits' losses, and the single-process
+# fit's against itself with cuDNN's algorithms chosen by timing.
+PAR_RANK_TIMEOUT_S = 120.0
+PAR_JOIN_S = 420.0
+PAR_KERNELS = ("fused_score_maps", "minplus_pass2", "fused_attention_gate",
+               "attention_gate_backward")
+
+
+def _par_service_frames(mask, depth):
+    return [(np.roll(mask, 3 * i, axis=1), np.roll(depth, 3 * i, axis=1))
+            for i in range(PAR_SERVICE_FRAMES)]
+
+
+def _par_setup(device: str = "cuda") -> dict:
+    """What a phase-10 rank needs of this script's settings (a spawned
+    rank imports the script anew)."""
+    return {"device": device, "h": H, "w": W, "cam": (CX, CY, F),
+            "families": FAMILIES, "train_samples": PAR_TRAIN_SAMPLES}
+
+
+def _par_cut_n(n):
+    """The first ``n`` samples of the training corpus."""
+    return {k: v[:n] for k, v in _corpus().items()}
+
+
+def phase10_rank(rank, world, setup):
+    """One rank of phase 10 on ``cuda:0`` (or the CPU, to rehearse): the
+    sharded frame (10a), the batched frame (10b), the mesh fit (10c) and
+    the sharded service (10d), as ``world`` asks; returns the results on
+    the host and the rank's launch counts."""
+    import torch
+    dev = setup["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    h, w = setup["h"], setup["w"]
+    cx, cy, f = setup["cam"]
+    from leafgrasp_tpu_torch.config import (DEFAULT_CONFIG, FrameConfig,
+                                            GraspScoringConfig, ModelConfig,
+                                            TrainConfig)
+    from leafgrasp_tpu_torch.io.scenes import (default_projection,
+                                               make_leaf_scene)
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.kernels.build import load_library
+    from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                      init_random_)
+    from leafgrasp_tpu_torch.parallel import (make_batched_frame_fn,
+                                              make_mesh,
+                                              make_sharded_frame_fn)
+    from leafgrasp_tpu_torch.pipeline.ingest import GraspService
+    from leafgrasp_tpu_torch.training import Trainer
+    from leafgrasp_tpu_torch.utils.device import fetch_to_host
+
+    if dev == "cuda":
+        load_library()
+    scenes = {name: make_leaf_scene(h, w, num_leaves=n, seed=seed,
+                                    margin=margin)
+              for name, n, seed, margin in setup["families"]}
+    cnn = init_random_(GraspPointCNN(ModelConfig()), seed=0).to(dev).eval()
+    cfgs = {mode: DEFAULT_CONFIG.replace(
+        frame=FrameConfig(height=h, width=w),
+        grasp=GraspScoringConfig(isolation_context=mode))
+        for mode in PAR_MODES}
+    mesh = make_mesh(world, device=dev)
+    out = {"frames": {}, "calls": {}}
+    sync()
+    reset_launch_counts()
+
+    # 10a: the row-sharded frame
+    for mode in PAR_MODES:
+        fn = make_sharded_frame_fn(mesh, cfgs[mode], with_cnn=True)
+        for name in scenes:
+            fn.axis.reset_counts()
+            out["frames"][(mode, name)] = fetch_to_host(
+                fn(*scenes[name], cx, cy, f, cnn))
+            out["calls"][(mode, name)] = (fn.axis.calls, fn.axis.bytes)
+    times = []
+    for _ in range(PAR_TIME_REPEATS):
+        sync()
+        t0 = time.perf_counter()
+        fn(*scenes["sparse"], cx, cy, f, cnn)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["frame_ms"] = times
+
+    # 10b: the data-parallel batched frame
+    if world <= 2:
+        mask, depth = scenes["sparse"]
+        frames = _par_service_frames(mask, depth)[:PAR_BATCH]
+        bfn = make_batched_frame_fn(mesh, cfgs["union"], with_cnn=True)
+        out["batched"] = fetch_to_host(bfn(
+            np.stack([m for m, _ in frames]),
+            np.stack([d for _, d in frames]), cx, cy, f, cnn))
+
+    # 10c: the data- (and tensor-) parallel step and fit
+    if world in PAR_TRAIN_MESHES:
+        data, model_axis = PAR_TRAIN_MESHES[world]
+        fit_mesh = make_mesh(world, model_axis=model_axis, device=dev)
+        out["step"] = _par_step(torch, dev, fit_mesh)
+        ends = []
+        t0 = time.perf_counter()
+
+        def log_epoch(**_):
+            sync()
+            ends.append(time.perf_counter())
+        res = Trainer(ModelConfig(), TrainConfig(seed=TRAIN_SEED),
+                      mesh=fit_mesh).fit(_par_cut_n(setup["train_samples"]),
+                                         epochs=PAR_TRAIN_EPOCHS,
+                                         log_fn=log_epoch)
+        out["fit"] = {"train_loss": res.history["train_loss"],
+                      "weights_digest": float(sum(
+                          v.double().sum() for v in
+                          res.model.state_dict().values()
+                          if v.dtype.is_floating_point)),
+                      "val_loss": res.history["val_loss"],
+                      "epoch_s": [b - a for a, b in zip([t0] + ends[:-1],
+                                                        ends)]}
+
+    # 10d: the service over a row-sharded frame
+    if world == PAR_SERVICE_WORLD:
+        msgs, seen = [], []
+        svc = GraspService(cfgs["union"], cnn=cnn, publish=msgs.append,
+                           on_result=seen.append, min_interval_s=0.0,
+                           spatial_mesh=mesh)
+        svc.set_camera_params(default_projection())
+        for mask, depth in _par_service_frames(*scenes["sparse"]):
+            svc.process_frame(mask, depth)
+        out["service"] = {"published": msgs, "on_result": len(seen)}
+    sync()
+    out["launches"] = launch_counts()
+    return out
+
+
+def _par_step_batch(torch, dev):
+    """The first PAR_STEP_BATCH corpus samples as NHWC features."""
+    cut = _par_cut_n(PAR_STEP_BATCH)
+    feats = np.concatenate([cut["depth_patches"][..., None],
+                            cut["mask_patches"][..., None],
+                            np.moveaxis(cut["score_patches"], 1, -1)], -1)
+    return (torch.as_tensor(feats, dtype=torch.float32, device=dev),
+            torch.as_tensor(cut["labels"], dtype=torch.float32, device=dev))
+
+
+def _par_step(torch, dev, mesh=None):
+    """One seeded train step of the standard CNN (``init_random_`` seed 0)
+    on the corpus batch: on ``mesh`` (this rank's rows, the gradients of
+    sharded tensors gathered) or, without one, the single-process step.
+    Returns (loss, {name: grad}, {name: BatchNorm running stat}) on the
+    host."""
+    from leafgrasp_tpu_torch.config import ModelConfig, TrainConfig
+    from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                      init_random_)
+    from leafgrasp_tpu_torch.parallel.collectives import Axis
+    from leafgrasp_tpu_torch.training.train import (
+        make_optimizer, make_parallel_train_step, make_train_step,
+        parallelize_grasp_cnn)
+    tcfg = TrainConfig(seed=TRAIN_SEED, batch_size=PAR_STEP_BATCH)
+    model = init_random_(GraspPointCNN(ModelConfig()), seed=0).to(dev)
+    rows, sharded = slice(0, PAR_STEP_BATCH), set()
+    if mesh is None:
+        step = make_train_step(model, make_optimizer(model, tcfg), tcfg)
+    else:
+        model, sharded, rows = parallelize_grasp_cnn(model, mesh,
+                                                     PAR_STEP_BATCH)
+        step = make_parallel_train_step(model, make_optimizer(model, tcfg),
+                                        tcfg, mesh, sharded)
+    feats, labels = _par_step_batch(torch, dev)
+    torch.manual_seed(TRAIN_SEED)
+    loss, _ = step(feats[rows], labels[rows],
+                   torch.ones(rows.stop - rows.start, device=dev),
+                   float(tcfg.pos_weight))
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    if sharded:
+        tp = Axis(mesh, "model")
+        grads = {n: torch.cat(list(tp.gather(g))) if n in sharded else g
+                 for n, g in grads.items()}
+    return (float(loss), {n: g.cpu().numpy() for n, g in grads.items()},
+            {n: b.cpu().numpy() for n, b in model.named_buffers()
+             if "running" in n})
+
+
+def _par_check_step(tag, got, want):
+    """A mesh step against the single-process step (PAR_STEP_REL_TOL)."""
+    from leafgrasp_tpu_torch.config import ModelConfig
+    from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                      batchnorm_fed_biases)
+    bn_fed = batchnorm_fed_biases(GraspPointCNN(ModelConfig()))
+    errs = {"loss": abs(got[0] - want[0]) / abs(want[0])}
+    for name, g in want[1].items():
+        scale = np.linalg.norm(want[1][name[:-len("bias")] + "weight"]) \
+            if name in bn_fed else np.linalg.norm(g)
+        errs[name] = float(np.linalg.norm(got[1][name] - g)
+                           / max(scale, 1e-30))
+    for name, b in want[2].items():
+        errs[name] = float(np.abs(got[2][name] - b).max()
+                           / max(np.abs(b).max(), 1e-30))
+    worst = max(errs, key=errs.get)
+    if errs[worst] > PAR_STEP_REL_TOL:
+        raise RuntimeError(f"{tag}: one step differs from the "
+                           f"single-process step by {errs[worst]:.2e} "
+                           f"({worst})")
+    return errs[worst], worst
+
+
+def _par_check_frame(tag, got, want):
+    """A sharded or batched frame against ``make_frame_fn``'s."""
+    if int(got.leaf_id) != int(want.leaf_id) \
+            or not np.array_equal(got.grasp_uv, want.grasp_uv) \
+            or bool(got.ml_used) != bool(want.ml_used) \
+            or not np.array_equal(got.candidates.x, want.candidates.x) \
+            or not np.array_equal(got.candidates.y, want.candidates.y):
+        raise RuntimeError(f"{tag}: leaf {int(got.leaf_id)} pixel "
+                           f"{got.grasp_uv} ml {bool(got.ml_used)} != "
+                           f"{int(want.leaf_id)} {want.grasp_uv} "
+                           f"{bool(want.ml_used)}")
+    xyz = max(float(np.abs(got.grasp_xyz - want.grasp_xyz).max()),
+              float(np.abs(got.pre_grasp_xyz - want.pre_grasp_xyz).max()))
+    comb = float(np.abs(got.fusion.combined - want.fusion.combined).max()
+                 / max(np.abs(want.fusion.combined).max(), 1e-30))
+    if xyz > PAR_XYZ_TOL or comb > PAR_COMBINED_REL_TOL:
+        raise RuntimeError(f"{tag}: 3D points differ by {xyz}, fused "
+                           f"scores by {comb} relative")
+    return xyz, comb
+
+
+def run_phase_10(torch, results, cfgs, model, setup=None):
+    """Phase 10: the parallel layer on 1, 2 and 4 ranks of one card
+    (``setup``: ``_par_setup``'s, on the card by default)."""
+    setup = setup or _par_setup()
+    dev = setup["device"]
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    from leafgrasp_tpu_torch.config import ModelConfig, TrainConfig
+    from leafgrasp_tpu_torch.io.scenes import (default_projection,
+                                               make_leaf_scene)
+    from leafgrasp_tpu_torch.parallel.launch import run_ranks
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    from leafgrasp_tpu_torch.pipeline.ingest import GraspService
+    from leafgrasp_tpu_torch.training import Trainer
+    from leafgrasp_tpu_torch.utils.device import fetch_to_host
+
+    t_start = time.perf_counter()
+    want = {key: fetch_to_host(res) for key, res in results.items()
+            if key[0] in PAR_MODES}
+    _, n, seed, margin = setup["families"][0]
+    mask, depth = make_leaf_scene(setup["h"], setup["w"], num_leaves=n,
+                                  seed=seed, margin=margin)
+    frames = _par_service_frames(mask, depth)
+    single = make_frame_fn(cfgs["union"], with_cnn=True, device=dev)
+    want_batch = [fetch_to_host(single(m, d, *setup["cam"], model))
+                  for m, d in frames[:PAR_BATCH]]
+    msgs = []
+    svc = GraspService(cfgs["union"], cnn=model, publish=msgs.append,
+                       min_interval_s=0.0, device=dev)
+    svc.set_camera_params(default_projection())
+    for m, d in frames:
+        svc.process_frame(m, d)
+    ends = []
+    t0 = time.perf_counter()
+
+    def log_epoch(**_):
+        sync()
+        ends.append(time.perf_counter())
+    ref_fit = Trainer(ModelConfig(), TrainConfig(seed=TRAIN_SEED),
+                      device=dev).fit(_par_cut_n(setup["train_samples"]),
+                                      epochs=PAR_TRAIN_EPOCHS,
+                                      log_fn=log_epoch)
+    ref_epoch_s = [b - a for a, b in zip([t0] + ends[:-1], ends)]
+    ref_step = _par_step(torch, dev)
+    # the same fit with cuDNN choosing its algorithms by timing: the
+    # same arithmetic, other orders of its sums
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        alt_fit = Trainer(ModelConfig(), TrainConfig(seed=TRAIN_SEED),
+                          device=dev).fit(
+            _par_cut_n(setup["train_samples"]), epochs=PAR_TRAIN_EPOCHS)
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    self_rel = [abs(a - b) / abs(b) for a, b in zip(
+        alt_fit.history["train_loss"], ref_fit.history["train_loss"])]
+    log(f"phase 10c: the single-process fit against itself with cuDNN's "
+        f"algorithms chosen by timing: train loss "
+        f"{ref_fit.history['train_loss']} and "
+        f"{alt_fit.history['train_loss']} (relative {self_rel})")
+    log(f"phase 10: references on the card in "
+        f"{time.perf_counter() - t_start:.1f} s (single-process fit "
+        f"{ref_epoch_s} s an epoch)")
+
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_par_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    launches, perf = {}, {"frame_ms": {}, "collectives": {}}
+    for world, backend in PAR_WORLDS.items():
+        if dev == "cpu":
+            backend = "gloo"
+        t0 = time.perf_counter()
+        outs = run_ranks(phase10_rank, world, store, setup, backend=backend,
+                         timeout_s=PAR_RANK_TIMEOUT_S, join_s=PAR_JOIN_S,
+                         threads=2)
+        spawn_s = time.perf_counter() - t0
+        errs = []
+        for rank, out in enumerate(outs):
+            for name, n in out["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            for key, got in out["frames"].items():
+                errs.append(_par_check_frame(
+                    f"phase 10a {world} ranks, rank {rank} {key}", got,
+                    want[key]))
+            if "batched" in out:
+                for i, w in enumerate(want_batch):
+                    got = type(w)(*[_par_index(x, i) for x in
+                                    out["batched"]])
+                    errs.append(_par_check_frame(
+                        f"phase 10b {world} ranks, rank {rank} frame {i}",
+                        got, w))
+            if "step" in out:
+                step_err, step_worst = _par_check_step(
+                    f"phase 10c {world} ranks, rank {rank}", out["step"],
+                    ref_step)
+                _par_check_fit(world, rank, out["fit"], outs[0]["fit"])
+            if "service" in out:
+                want_pub = msgs if rank == 0 else []
+                got_pub = out["service"]["published"]
+                if len(got_pub) != len(want_pub) or not all(
+                        _same_message(a, b, SERVICE_FLOAT_TOL)
+                        for a, b in zip(got_pub, want_pub)) \
+                        or out["service"]["on_result"] != len(want_pub):
+                    raise RuntimeError(f"phase 10d rank {rank}: published "
+                                       f"{got_pub}, want {want_pub}")
+        perf["frame_ms"][world] = statistics.median(outs[0]["frame_ms"])
+        perf["collectives"][world] = {f"{m}/{n}": c for (m, n), c
+                                      in outs[0]["calls"].items()}
+        log(f"phase 10 {world} rank(s) over {backend} on {dev}: "
+            f"{spawn_s:.1f} s; frames match make_frame_fn (3D points within "
+            f"{max(e[0] for e in errs):.2e}, fused scores within "
+            f"{max(e[1] for e in errs):.2e} relative); sharded frame "
+            f"(union, sparse) wall ms {outs[0]['frame_ms']}; collectives "
+            f"and bytes a frame {json.dumps(perf['collectives'][world])}")
+        if "fit" in outs[0]:
+            fit = outs[0]["fit"]
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(fit["train_loss"], ref_fit.history["train_loss"])]
+            perf.setdefault("fit", {})[world] = dict(
+                fit, single_train_loss=ref_fit.history["train_loss"],
+                single_val_loss=ref_fit.history["val_loss"],
+                single_epoch_s=ref_epoch_s, train_loss_rel=rel,
+                single_self_rel=self_rel,
+                step_err=step_err, step_worst=step_worst)
+            log(f"phase 10c mesh {PAR_TRAIN_MESHES[world]}: one step "
+                f"matches the single-process step within {step_err:.2e} "
+                f"(largest: {step_worst}); "
+                f"fit train loss {fit['train_loss']} (single-process "
+                f"{ref_fit.history['train_loss']}, relative {rel}), val "
+                f"loss {fit['val_loss']} (single-process "
+                f"{ref_fit.history['val_loss']}); seconds an epoch "
+                f"{fit['epoch_s']}")
+    if os.path.exists(store):
+        os.remove(store)
+    missing = [k for k in PAR_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise RuntimeError(f"phase 10: the parallel paths launched no "
+                           f"{missing}")
+    perf["seconds"] = time.perf_counter() - t_start
+    log(f"phase 10: sharded frame wall ms, median of {PAR_TIME_REPEATS} "
+        f"(1080x1440, union, CNN; ranks sharing one card, gloo through the "
+        f"host at 2 and 4: not a multi-device speed) "
+        f"{json.dumps(perf['frame_ms'])}; {card_line()}")
+    log(f"phase 10: launches over every rank {json.dumps(launches)}; "
+        f"{perf['seconds']:.1f} s")
+    return launches, perf
+
+
+def _par_index(x, i):
+    """Frame ``i`` of a batched result leaf (nested named tuples too)."""
+    if isinstance(x, tuple):
+        return type(x)(*[_par_index(y, i) for y in x])
+    return x[i]
+
+
+def _par_check_fit(world, rank, fit, first):
+    """Every rank's fit is rank 0's (the results are replicated) and its
+    losses are finite. The fit is not held to the single-process fit's
+    losses: the fit turns rounding into differences of its own (see
+    PERF.md), so the step above is the equivalence check."""
+    same = fit["train_loss"] == first["train_loss"] \
+        and fit["val_loss"] == first["val_loss"] \
+        and fit["weights_digest"] == first["weights_digest"]
+    if not same or not np.all(np.isfinite(fit["train_loss"]
+                                          + fit["val_loss"])):
+        raise RuntimeError(f"phase 10c {world} ranks, rank {rank}: fit "
+                           f"{fit['train_loss']} / {fit['val_loss']} vs "
+                           f"rank 0's {first['train_loss']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3494,11 +3946,16 @@ def main() -> int:
         f"({quant_perf['resident_gib']:.2f} GiB resident, rerank "
         f"{quant_perf['rerank_wall_ms']:.1f} ms)")
 
+    par_counts, par_perf = run_phase_10(torch, results, cfgs, model)
+    log(f"phase 10: the parallel layer ran on 1, 2 and 4 ranks "
+        f"({par_perf['seconds']:.1f} s)")
+
     phases = {"frames": counts, "service": service_counts,
               "vla_service": vla_counts, "teacher": teacher_counts,
               "train": train_counts, "vla_train": vla_train_counts,
               "vla_train_bf16": vla_bf16_counts,
-              "checkpoint_serve": ckpt_counts, "int8_serve": int8_counts}
+              "checkpoint_serve": ckpt_counts, "int8_serve": int8_counts,
+              "parallel": par_counts}
     for rec in records:
         for phase, cnt in phases.items():
             rec[f"launches_{phase}"] = cnt.get(rec["name"], 0)

@@ -22,7 +22,8 @@ from typing import NamedTuple
 import torch
 
 from leafgrasp_tpu_torch.config import GraspScoringConfig
-from leafgrasp_tpu_torch.kernels.scoring import fused_score_maps
+from leafgrasp_tpu_torch.kernels.scoring import (_f32, _pixel_grids,
+                                                fused_score_maps)
 from leafgrasp_tpu_torch.ops.conv import gradient_magnitude
 from leafgrasp_tpu_torch.ops.edt import (directional_seed_dist_1d, edt,
                                         edt_batch, edt_max_argmax,
@@ -37,7 +38,9 @@ from leafgrasp_tpu_torch.ops.pca import mask_orientation, min_area_rect
 from leafgrasp_tpu_torch.utils.device import host_read
 
 __all__ = ["GraspScores", "SCORE_CHANNELS", "compute_grasp_scores",
-           "stem_penalty_map", "tip_penalty_map"]
+           "sdf_score_map", "approach_score_map", "isolation_score_map",
+           "accessibility_score_map", "combine_traditional",
+           "valid_region_mask", "stem_penalty_map", "tip_penalty_map"]
 
 # Channel order consumed by the CNN (grasp_point_selector.py:95-99).
 SCORE_CHANNELS = ("sdf_score", "approach_score", "flatness_map",
@@ -76,15 +79,149 @@ def tip_penalty_map(leaf_mask: torch.Tensor,
     return penalty * m.to(torch.float32)
 
 
-def stem_penalty_map(leaf_mask: torch.Tensor,
-                     cfg: GraspScoringConfig) -> torch.Tensor:
-    """Dilated bottom-third intersection (grasp_point_selector.py:688-701)."""
+def stem_penalty_map(leaf_mask: torch.Tensor, cfg: GraspScoringConfig,
+                     row0: int = 0, frame_height: int | None = None,
+                     dilate_fn=None) -> torch.Tensor:
+    """Dilated bottom-third intersection (grasp_point_selector.py:688-701).
+
+    Row-sharded callers pass their block's ``row0``, the
+    ``frame_height`` and a halo-exchanging ``dilate_fn``."""
     m = leaf_mask.to(torch.bool)
     h, _ = m.shape
-    rows = torch.arange(h, device=m.device)[:, None]
-    bottom = rows >= (h - h // 3)
-    stem = dilate(m & bottom, elliptical_kernel(cfg.stem_kernel)) & m
+    fh = h if frame_height is None else frame_height
+    dilate_fn = dilate if dilate_fn is None else dilate_fn
+    rows = row0 + torch.arange(h, device=m.device)[:, None]
+    bottom = rows >= (fh - fh // 3)
+    stem = dilate_fn(m & bottom, elliptical_kernel(cfg.stem_kernel)) & m
     return stem.to(torch.float32)
+
+
+# The unfused score maps (the JAX package's oracle composition, which
+# kernels/scoring.py's plain version is built from). ``row0`` is the
+# frame row of the first row of the fields given, ``frame_height`` the
+# frame's, and the ``*_max``/``norm_max`` normalizers the frame-wide
+# maxima; the defaults serve a whole frame.
+
+def sdf_score_map(leaf_mask: torch.Tensor, camera_cx, camera_cy,
+                  cfg: GraspScoringConfig, dist_inside=None,
+                  dist_outside=None, row0: int = 0, norm_max=None,
+                  orientation=None) -> torch.Tensor:
+    """Ridge-SDF + camera-alignment score
+    (grasp_point_selector.py:526-567); ``orientation`` defaults to the
+    moment PCA of the mask, as in JAX."""
+    m = leaf_mask.to(torch.bool)
+    h, w = m.shape
+    dev = m.device
+    if dist_inside is None:
+        dist_inside = edt(~m)
+    if dist_outside is None:
+        dist_outside = edt(m)
+    sdf = dist_inside - dist_outside
+    opt = cfg.optimal_edge_distance
+    interior = torch.exp(-((dist_inside - opt) ** 2) / (2.0 * opt * opt))
+    if norm_max is None:
+        norm_max = sdf.abs().max()
+    sdf = sdf / torch.clamp(_f32(norm_max, dev), min=1e-30)
+    ys, xs = _pixel_grids(h, w, dev, row0)
+    vx = xs - _f32(camera_cx, dev)
+    vy = ys - _f32(camera_cy, dev)
+    norm = torch.sqrt(vx * vx + vy * vy)
+    norm = torch.where(norm == 0, torch.ones_like(norm), norm)
+    ux, uy = vx / norm, vy / norm
+    o = mask_orientation(m) if orientation is None else orientation
+    angle = _f32(o.angle, dev)
+    alignment = torch.abs(ux * torch.sin(angle) - uy * torch.cos(angle))
+    alignment = torch.where(torch.as_tensor(o.valid, device=dev),
+                            alignment, torch.ones_like(alignment))
+    return (cfg.sdf_interior_weight * interior
+            + cfg.sdf_alignment_weight * alignment
+            + cfg.sdf_raw_weight * sdf) * m.to(torch.float32)
+
+
+def approach_score_map(leaf_mask: torch.Tensor, camera_cx, camera_cy,
+                       f_norm, row0: int = 0) -> torch.Tensor:
+    """|dot(unit ray, z)| = f / ||(x-cx, y-cy, f)||
+    (grasp_point_selector.py:569-593)."""
+    m = leaf_mask.to(torch.float32)
+    h, w = m.shape
+    dev = m.device
+    cx, cy, f = (_f32(v, dev) for v in (camera_cx, camera_cy, f_norm))
+    ys, xs = _pixel_grids(h, w, dev, row0)
+    norm = torch.sqrt((xs - cx) ** 2 + (ys - cy) ** 2 + f * f)
+    return (f / norm) * m
+
+
+def isolation_score_map(leaf_mask: torch.Tensor, all_mask,
+                        cfg: GraspScoringConfig, dist_close=None,
+                        dist_wide=None, row0: int = 0,
+                        frame_height: int | None = None, close_max=None,
+                        wide_max=None) -> torch.Tensor:
+    """Distance-from-interference blend x top-down height preference
+    (grasp_point_selector.py:595-633). ``all_mask`` is read only to
+    compute the fields that are not given."""
+    m = leaf_mask.to(torch.bool)
+    h, w = m.shape
+    dev = m.device
+    fh = h if frame_height is None else frame_height
+    if dist_close is None or dist_wide is None:
+        other = all_mask.to(torch.bool) & ~m
+        if dist_close is None:
+            dist_close = edt(dilate(other, elliptical_kernel(
+                cfg.isolation_close_kernel)))
+        if dist_wide is None:
+            dist_wide = edt(dilate(other, elliptical_kernel(
+                cfg.isolation_wide_kernel)))
+    if close_max is None:
+        close_max = dist_close.max()
+    if wide_max is None:
+        wide_max = dist_wide.max()
+    score = (cfg.isolation_close_weight * dist_close
+             / (_f32(close_max, dev) + 1e-6)
+             + cfg.isolation_wide_weight * dist_wide
+             / (_f32(wide_max, dev) + 1e-6))
+    # np.linspace(1.0, 0.2, h) row preference (grasp_point_selector.py:623)
+    ys, _ = _pixel_grids(h, w, dev, row0)
+    pref = cfg.height_pref_top + (cfg.height_pref_bottom
+                                  - cfg.height_pref_top) * ys / (fh - 1)
+    return score * pref * m.to(torch.float32)
+
+
+def accessibility_score_map(leaf_mask: torch.Tensor, camera_cx, camera_cy,
+                            cfg: GraspScoringConfig, row0: int = 0,
+                            frame_height: int | None = None) -> torch.Tensor:
+    """0.7 * (1 - r/max) + 0.3 * cos(theta), masked
+    (grasp_point_selector.py:502-524)."""
+    m = leaf_mask.to(torch.float32)
+    h, w = m.shape
+    dev = m.device
+    fh = h if frame_height is None else frame_height
+    ys, xs = _pixel_grids(h, w, dev, row0)
+    dx = xs - _f32(camera_cx, dev)
+    dy = ys - _f32(camera_cy, dev)
+    dist = torch.sqrt(dx * dx + dy * dy)
+    max_dist = torch.sqrt(torch.tensor(float(w * w + fh * fh),
+                                       dtype=torch.float32, device=dev))
+    access = 1.0 - dist / max_dist
+    forward = torch.cos(torch.atan2(dy, dx))
+    return (cfg.access_distance_weight * access
+            + cfg.access_direction_weight * forward) * m
+
+
+def combine_traditional(approach, sdf, flatness, accessibility, stem,
+                        cfg: GraspScoringConfig) -> torch.Tensor:
+    """Weighted traditional score (grasp_point_selector.py:272-277, the
+    code's weights)."""
+    return (cfg.approach_weight * approach
+            + cfg.sdf_weight * sdf
+            + cfg.flatness_weight * flatness
+            + cfg.accessibility_weight * accessibility) * (1.0 - stem)
+
+
+def valid_region_mask(distance, leaf_mask, stem,
+                      cfg: GraspScoringConfig) -> torch.Tensor:
+    """Pixels eligible as candidates (grasp_point_selector.py:282-288)."""
+    return (distance > cfg.min_edge_distance) & leaf_mask.to(torch.bool) \
+        & (stem < cfg.stem_penalty_cutoff)
 
 
 def _leaf_fields(g2s: torch.Tensor, m: torch.Tensor, bbox,

@@ -54,14 +54,22 @@ class PreGrasp(NamedTuple):
 
 def pre_grasp_point(grasp_point_3d: torch.Tensor, leaf_mask: torch.Tensor,
                     camera_cx, camera_cy, f_norm,
-                    cfg: PreGraspConfig = PreGraspConfig()) -> PreGrasp:
+                    cfg: PreGraspConfig = PreGraspConfig(), row0: int = 0,
+                    frame_height: int | None = None,
+                    any_reduce=None) -> PreGrasp:
     """March 5..10 cm back along the camera ray at constant Z; take the
     first test point inside the image, clear of the 15 px-dilated leaf
     mask and >= min_distance from the grasp, else the max-distance point.
-    Only the test pixels' SE windows are read (no full-frame dilation)."""
+    Only the test pixels' SE windows are read (no full-frame dilation).
+
+    Row-sharded callers pass their block of the mask with its ``row0``,
+    the ``frame_height`` and ``any_reduce`` (a cross-shard SUM of the
+    int32 per-step cover counts): each window cell is read by the one
+    shard that holds its row, so the summed cover is the frame's."""
     g = grasp_point_3d.to(torch.float32)
     m = leaf_mask.to(torch.bool)
     h, w = m.shape
+    fh = h if frame_height is None else frame_height
     dev = m.device
     direction = g / torch.clamp(torch.linalg.vector_norm(g), min=1e-30)
     k = 2 * cfg.clearance_px + 1
@@ -73,20 +81,23 @@ def pre_grasp_point(grasp_point_3d: torch.Tensor, leaf_mask: torch.Tensor,
                        g[1] - direction[1] * dists,
                        g[2].expand(n_steps)], dim=1)            # (S, 3)
     us, vs = project_to_2d(pts, camera_cx, camera_cy, f_norm)
-    in_bounds = (us >= 0) & (us < w) & (vs >= 0) & (vs < h)
+    in_bounds = (us >= 0) & (us < w) & (vs >= 0) & (vs < fh)
     uc = torch.clamp(us, 0, w - 1)
-    vc = torch.clamp(vs, 0, h - 1)
+    vc = torch.clamp(vs, 0, fh - 1)
 
     se = torch.as_tensor(elliptical_kernel(k, k), device=dev).to(torch.bool)
     offs = torch.arange(k, device=dev) - k // 2
     grows = vc[:, None] + offs[None, :]                         # (S, k)
     gcols = uc[:, None] + offs[None, :]
-    rows_ok = (grows >= 0) & (grows < h)
+    rows_ok = (grows >= 0) & (grows < fh) & (grows >= row0) \
+        & (grows < row0 + h)
     cols_ok = (gcols >= 0) & (gcols < w)
-    window = m[torch.clamp(grows, 0, h - 1)[:, :, None],
+    window = m[torch.clamp(grows - row0, 0, h - 1)[:, :, None],
                torch.clamp(gcols, 0, w - 1)[:, None, :]]        # (S, k, k)
     valid = rows_ok[:, :, None] & cols_ok[:, None, :]
     cover = (window & valid & se[None]).flatten(1).any(dim=1)
+    if any_reduce is not None:
+        cover = any_reduce(cover.to(torch.int32)) > 0
     far_enough = torch.linalg.vector_norm(pts - g[None, :], dim=1) \
         >= cfg.min_distance_m
     ok = in_bounds & ~cover & far_enough

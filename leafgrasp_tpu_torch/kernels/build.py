@@ -26,6 +26,7 @@ in the ``libcuda.so.1`` that PyTorch has loaded.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -113,13 +114,24 @@ def _digest(sources) -> str:
 
 
 def build_library(verbose: bool = False) -> Path:
-    """Compile (if needed) and return the path of the shared library."""
+    """Compile (if needed) and return the path of the shared library.
+    Processes building at once (the ranks of a parallel program) take
+    turns on a file lock: the first builds, the others find the library
+    and load it."""
     sources = _sources()
     tag = _digest(sources)
     out = BUILD_DIR / f"libleafgrasp_kernels_{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"build_{tag}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(sources, tag, out, verbose)
+    return out
+
+
+def _compile(sources, tag: str, out: Path, verbose: bool) -> None:
     nvcc = _nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
     procs = []
@@ -147,7 +159,6 @@ def build_library(verbose: bool = False) -> Path:
     if res.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
     os.replace(tmp, out)
-    return out
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

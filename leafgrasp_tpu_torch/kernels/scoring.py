@@ -6,10 +6,10 @@ magnitude, leaf mask and stem mask to the 7 score maps, the traditional
 score and the valid mask (grasp_point_selector.py:256-288, 502-701).
 It replaces the TPU kernel ``fused_score_maps``
 (leafgrasp_tpu/ops/pallas_scoring.py:130); the kernel source, with its
-bound and design, is ``csrc/scoring.cu``. The plain version is the
-unfused composition of leafgrasp_tpu/geometry/grasp_scorer.py
-(``sdf_score_map`` ... ``valid_region_mask``), which the JAX package
-holds its own kernel against; the two agree to ~1e-6 (f32 rounding of
+bound and design, is ``csrc/scoring.cu``. The plain version composes
+the unfused maps of geometry/grasp_scorer.py (``sdf_score_map`` ...
+``valid_region_mask``, ported from the JAX package's, which it holds
+its own kernel against); the two agree to ~1e-6 (f32 rounding of
 algebraically equal forms), and the valid mask exactly.
 """
 
@@ -48,74 +48,32 @@ def fused_score_maps_plain(din, dout, dclose, dwide, grad_mag, leaf_mask,
                            cfg: GraspScoringConfig = GraspScoringConfig(),
                            row0=0, frame_height: int | None = None,
                            max_sdf=None, max_close=None, max_wide=None):
-    """Plain PyTorch version: the JAX package's unfused composition.
-    Returns (sdf, approach, flatness, isolation, distance,
+    """Plain PyTorch version: the unfused maps of
+    geometry/grasp_scorer.py, composed as the JAX package composes its
+    own. Returns (sdf, approach, flatness, isolation, distance,
     accessibility, stem, traditional, valid)."""
+    from leafgrasp_tpu_torch.geometry import grasp_scorer as gs
+    from leafgrasp_tpu_torch.ops.pca import Orientation
+
     dev = din.device
-    h, w = din.shape
-    fh = h if frame_height is None else frame_height
-    m = leaf_mask.to(torch.float32)
+    m = leaf_mask.to(torch.bool)
     stem = stem.to(torch.float32)
-    cx, cy, f = (_f32(v, dev) for v in (camera_cx, camera_cy, f_norm))
-    ys, xs = _pixel_grids(h, w, dev, row0)
-
-    # sdf_score (grasp_point_selector.py:526-567)
-    opt = cfg.optimal_edge_distance
-    sdf = din - dout
-    interior = torch.exp(-((din - opt) ** 2) / (2.0 * opt * opt))
-    if max_sdf is None:
-        max_sdf = sdf.abs().max()
-    sdf = sdf / torch.clamp(_f32(max_sdf, dev), min=1e-30)
-    vx = xs - cx
-    vy = ys - cy
-    norm = torch.sqrt(vx * vx + vy * vy)
-    norm = torch.where(norm == 0, torch.ones_like(norm), norm)
-    ux, uy = vx / norm, vy / norm
     angle = _f32(angle, dev)
-    alignment = torch.abs(ux * torch.sin(angle) - uy * torch.cos(angle))
-    alignment = torch.where(torch.as_tensor(angle_valid, device=dev),
-                            alignment, torch.ones_like(alignment))
-    sdf_score = (cfg.sdf_interior_weight * interior
-                 + cfg.sdf_alignment_weight * alignment
-                 + cfg.sdf_raw_weight * sdf) * m
-
-    # approach (grasp_point_selector.py:569-593)
-    norm3 = torch.sqrt((xs - cx) ** 2 + (ys - cy) ** 2 + f * f)
-    approach = (f / norm3) * m
-
+    orient = Orientation(angle=angle, major_axis=angle, minor_axis=angle,
+                         center=angle, valid=angle_valid)
+    sdf_score = gs.sdf_score_map(m, camera_cx, camera_cy, cfg, din, dout,
+                                 row0, max_sdf, orient)
+    approach = gs.approach_score_map(m, camera_cx, camera_cy, f_norm, row0)
     # flatness (grasp_point_selector.py:635-657)
     flatness = torch.exp(-grad_mag * cfg.flatness_gradient_scale)
-
-    # isolation (grasp_point_selector.py:595-633)
-    if max_close is None:
-        max_close = dclose.max()
-    if max_wide is None:
-        max_wide = dwide.max()
-    score = (cfg.isolation_close_weight * dclose
-             / (_f32(max_close, dev) + 1e-6)
-             + cfg.isolation_wide_weight * dwide
-             / (_f32(max_wide, dev) + 1e-6))
-    pref = cfg.height_pref_top + (cfg.height_pref_bottom
-                                  - cfg.height_pref_top) * ys / (fh - 1)
-    isolation = score * pref * m
-
-    distance = din * m
-
-    # accessibility (grasp_point_selector.py:502-524)
-    dist = torch.sqrt(vx * vx + vy * vy)
-    max_dist = torch.sqrt(torch.tensor(float(w * w + fh * fh),
-                                       dtype=torch.float32, device=dev))
-    access = 1.0 - dist / max_dist
-    forward = torch.cos(torch.atan2(vy, vx))
-    accessibility = (cfg.access_distance_weight * access
-                     + cfg.access_direction_weight * forward) * m
-
-    traditional = (cfg.approach_weight * approach
-                   + cfg.sdf_weight * sdf_score
-                   + cfg.flatness_weight * flatness
-                   + cfg.accessibility_weight * accessibility) * (1.0 - stem)
-    valid = (distance > cfg.min_edge_distance) & leaf_mask.to(torch.bool) \
-        & (stem < cfg.stem_penalty_cutoff)
+    isolation = gs.isolation_score_map(m, None, cfg, dclose, dwide, row0,
+                                       frame_height, max_close, max_wide)
+    distance = din * m.to(torch.float32)
+    accessibility = gs.accessibility_score_map(m, camera_cx, camera_cy, cfg,
+                                               row0, frame_height)
+    traditional = gs.combine_traditional(approach, sdf_score, flatness,
+                                         accessibility, stem, cfg)
+    valid = gs.valid_region_mask(distance, m, stem, cfg)
     return (sdf_score, approach, flatness, isolation, distance,
             accessibility, stem, traditional, valid)
 

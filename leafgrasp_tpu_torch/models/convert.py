@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["flax_to_torch_grasp_cnn"]
+__all__ = ["flax_to_torch_grasp_cnn", "grasp_cnn_flax_name"]
 
 
 def _t(a) -> torch.Tensor:
@@ -56,3 +56,31 @@ def flax_to_torch_grasp_cnn(variables_np: dict) -> dict:
             _bn(out, f"dense_bn.{d}", params[f"BatchNorm_{d}"],
                 stats[f"BatchNorm_{d}"])
     return out
+
+
+_FLAX_LEAF = {"running_mean": "mean", "running_var": "var"}
+
+
+def grasp_cnn_flax_name(key: str, n_hidden: int = 3) -> str:
+    """The Flax path (``a/b/leaf``) of a GraspPointCNN ``state_dict`` key,
+    the inverse of the map above; ``n_hidden`` is the number of hidden
+    dense layers (the head is ``Dense_{n_hidden}``)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if parts[0] == "blocks":                    # blocks.b.conv0 / bn1
+        layer = parts[2]
+        kind = "Conv" if layer.startswith("conv") else "BatchNorm"
+        path = [f"_EncoderBlock_{parts[1]}", f"{kind}_{layer[-1]}"]
+    elif parts[0] == "attention":
+        path = ["attention"]
+    elif parts[0] == "dense":
+        path, kind = [f"Dense_{parts[1]}"], "Dense"
+    elif parts[0] == "dense_bn":
+        path, kind = [f"BatchNorm_{parts[1]}"], "BatchNorm"
+    elif parts[0] == "head":
+        path, kind = [f"Dense_{n_hidden}"], "Dense"
+    else:
+        raise KeyError(f"unknown GraspPointCNN entry {key!r}")
+    if leaf == "weight" and parts[0] != "attention":
+        leaf = "scale" if kind == "BatchNorm" else "kernel"
+    return "/".join(path + [_FLAX_LEAF.get(leaf, leaf)])

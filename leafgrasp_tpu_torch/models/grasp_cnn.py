@@ -41,15 +41,29 @@ class _FlaxBatchNorm:
     """Train-mode statistics of ``flax.linen.BatchNorm``: the batch mean
     and the biased variance ``E[x^2] - E[x]^2`` (clipped at 0) normalize
     the batch and update the running averages with Flax's momentum. Eval
-    mode is torch's, on the running statistics."""
+    mode is torch's, on the running statistics.
+
+    ``batch_axis``: set by the data-parallel trainer to the mesh's data
+    axis (``parallel.collectives.Axis``), whose ranks each hold an equal
+    slice of the batch; the statistics are then the global batch's, from
+    summed moments, as GSPMD takes them over a sharded batch."""
+
+    batch_axis = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        if self.batch_axis is None:
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        else:
+            n = x.numel() // x.shape[1] * self.batch_axis.size
+            moments = self.batch_axis.differentiable_sum(
+                torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]))
+            mean = moments[0] / n
+            var = torch.clamp(moments[1] / n - mean * mean, min=0.0)
         with torch.no_grad():
             for avg, stat in ((self.running_mean, mean),
                               (self.running_var, var)):

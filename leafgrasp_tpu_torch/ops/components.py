@@ -52,16 +52,26 @@ def _segment_sum(ids: torch.Tensor, values: torch.Tensor,
 
 
 def masked_median(depth: torch.Tensor, ids: torch.Tensor,
-                  counts: torch.Tensor, num: int,
-                  iters: int = 18) -> torch.Tensor:
+                  counts: torch.Tensor, num: int, iters: int = 18,
+                  reduce_fn=None, depth_range=None) -> torch.Tensor:
     """Per-segment median of ``depth`` grouped by ``ids`` by vectorized
     bisection on [min(depth), max(depth)] (numpy semantics: the average
-    of the two middle order statistics for even counts)."""
+    of the two middle order statistics for even counts).
+
+    Row-sharded callers pass ``reduce_fn`` (a cross-shard SUM, applied
+    to every round's counts) and the frame's ``depth_range`` (dmin,
+    dmax), globally reduced; ``counts`` are then the global counts."""
     cnt = counts.to(torch.int64)
     # 0-based order statistics to extract, stacked (2, num)
     ks = torch.stack([torch.clamp(cnt - 1, min=0) // 2, cnt // 2])
-    lo = depth.min().to(torch.float32).expand(2, num).clone()
-    hi = depth.max().to(torch.float32).expand(2, num).clone()
+    if depth_range is None:
+        dmin, dmax = depth.min(), depth.max()
+    else:
+        dmin, dmax = depth_range
+    lo = torch.as_tensor(dmin, device=depth.device) \
+        .to(torch.float32).expand(2, num).clone()
+    hi = torch.as_tensor(dmax, device=depth.device) \
+        .to(torch.float32).expand(2, num).clone()
     ids = ids.to(torch.int64)
     # one integer segment count per round over both statistics: the
     # segment of pixel p for statistic s is ids[p] + s * num
@@ -71,6 +81,8 @@ def masked_median(depth: torch.Tensor, ids: torch.Tensor,
         mid = 0.5 * (lo + hi)                                 # (2, num)
         le = depth2 <= mid.reshape(-1)[both]
         cnt_le = _segment_sum(both, le.to(torch.int64), 2 * num)
+        if reduce_fn is not None:
+            cnt_le = reduce_fn(cnt_le)
         go_left = cnt_le.reshape(2, num) >= ks + 1
         hi = torch.where(go_left, mid, hi)
         lo = torch.where(go_left, lo, mid)
@@ -79,7 +91,9 @@ def masked_median(depth: torch.Tensor, ids: torch.Tensor,
 
 def leaf_stats(mask_ids: torch.Tensor, depth: torch.Tensor,
                max_leaves: int, camera_cx, camera_cy, f_norm,
-               hist_median: bool = False) -> LeafStats:
+               hist_median: bool = False, reduce_fn=None, row0: int = 0,
+               frame_height: int | None = None,
+               depth_range=None) -> LeafStats:
     """All per-leaf statistics of an (H, W) instance map (0 = background,
     ids above ``max_leaves`` go to an overflow bucket) and f32 depth.
     ``camera_cx/cy``/``f_norm`` are f32 0-dim tensors or numbers.
@@ -88,22 +102,37 @@ def leaf_stats(mask_ids: torch.Tensor, depth: torch.Tensor,
     (ops/median.py, two launches of the segment histogram kernel)
     instead of the 18-round bisection; the two agree within
     range / 256^2, not bit for bit, so the bisection is the default (the
-    counterpart of the JAX package's ``use_pallas`` argument here)."""
+    counterpart of the JAX package's ``use_pallas`` argument here).
+
+    Row-sharded callers (parallel/spatial_frame.py) pass the block of
+    rows they hold with ``reduce_fn`` (a cross-shard SUM of every
+    per-leaf partial sum: the float64 sums, then every bisection
+    round's counts), ``row0`` (the frame row of the block's first row),
+    ``frame_height`` (for the bottom-border row) and ``depth_range``
+    (the frame's (dmin, dmax), globally reduced, required with
+    ``reduce_fn``). The float64 partial sums round once to float32
+    after the reduction, so a sharded mean equals the unsharded one
+    unless the sums' order moves a float64 rounding across a float32
+    one."""
     h, w = mask_ids.shape
     dev = mask_ids.device
+    fh = h if frame_height is None else frame_height
     num_seg = max_leaves + 2  # 0 = background, 1..L = leaves, L+1 overflow
+    if reduce_fn is not None and (depth_range is None or hist_median):
+        raise ValueError("reduce_fn needs depth_range and the bisection "
+                         "median")
 
     ids = mask_ids.to(torch.int64)
     ids = torch.where(ids > max_leaves, torch.full_like(ids, max_leaves + 1),
                       torch.clamp(ids, min=0))
     depth = depth.to(torch.float32)
 
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    ys = (row0 + torch.arange(h, dtype=torch.float32, device=dev))[:, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
     ray_norm = torch.sqrt((xs - camera_cx) ** 2 + (ys - camera_cy) ** 2
                           + f_norm * f_norm)
-    ys_i = torch.arange(h, device=dev)[:, None]
-    border = ((ys_i == 0) | (ys_i == h - 1)).expand(h, w).clone()
+    ys_i = row0 + torch.arange(h, device=dev)[:, None]
+    border = ((ys_i == 0) | (ys_i == fh - 1)).expand(h, w).clone()
     border[:, 0] = True
     border[:, -1] = True
 
@@ -111,18 +140,19 @@ def leaf_stats(mask_ids: torch.Tensor, depth: torch.Tensor,
         return _segment_sum(ids, values.expand(h, w).to(torch.float64),
                             num_seg)
 
-    area_all = seg_sum(torch.ones_like(depth))
-    sum_x = seg_sum(xs)
-    sum_y = seg_sum(ys)
-    sum_depth = seg_sum(depth)
-    sum_ray = seg_sum(ray_norm)
-    border_counts = seg_sum(border)
+    sums = torch.stack([seg_sum(v) for v in (
+        torch.ones_like(depth), xs, ys, depth, ray_norm, border)])
+    if reduce_fn is not None:
+        sums = reduce_fn(sums)
+    area_all, sum_x, sum_y, sum_depth, sum_ray, border_counts = sums
     area_f = area_all.to(torch.float32)
     safe_area = torch.clamp(area_f, min=1.0)
     if hist_median:
         median_all = masked_median_hist(depth, ids, area_all, num_seg)
     else:
-        median_all = masked_median(depth, ids, area_all, num_seg)
+        median_all = masked_median(depth, ids, area_all, num_seg,
+                                   reduce_fn=reduce_fn,
+                                   depth_range=depth_range)
 
     sl = slice(1, max_leaves + 1)
     area = area_all[sl].to(torch.int32)

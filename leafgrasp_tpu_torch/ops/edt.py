@@ -108,20 +108,27 @@ def squared_edt_full(seeds: torch.Tensor | None,
 
 
 def squared_edt(seeds: torch.Tensor | None, g2: torch.Tensor | None = None,
-                band_mask: torch.Tensor | None = None) -> torch.Tensor:
+                band_mask: torch.Tensor | None = None,
+                big: float | None = None) -> torch.Tensor:
     """Exact squared EDT by the BANDED min-plus sweep (see the JAX
     ``squared_edt`` for the exactness argument): an upper bound U from
     sparse true candidates sizes a band of ``ceil(sqrt(max U)/128)+1``
     128-column chunks (the kernel's ``BAND_COLS``); past half the width
     the full sweep runs instead. With ``band_mask`` the band is sized
     over the masked pixels only (exact there, an overestimate elsewhere,
-    as in JAX)."""
+    as in JAX).
+
+    ``big`` is the sentinel, ``(H + W)^2`` of ``g2`` by default. A
+    row-sharded caller sweeping a block of the frame's rows passes the
+    frame's ``(H + W)^2``: its pass-1 field holds the frame's sentinel,
+    which the block's own can be smaller than."""
     if g2 is None:
         if seeds is None:
             raise ValueError("squared_edt needs seeds or g2")
         g2 = _pass1_g2(seeds)
     h, w = g2.shape
-    big = float((h + w) * (h + w))
+    if big is None:
+        big = float((h + w) * (h + w))
 
     chunk = BAND_COLS
     n_chunks = -(-w // chunk)
@@ -145,8 +152,8 @@ def squared_edt(seeds: torch.Tensor | None, g2: torch.Tensor | None = None,
     if 2 * max_off + 1 < n_chunks:
         band = torch.full((-(-h // BAND_ROWS), n_chunks), max_off,
                           dtype=torch.int32, device=g2.device)
-        return _pass2(g2, h, band=band)
-    return _pass2(g2, h)
+        return minplus_pass2(g2.contiguous(), g2_max=int(big), band=band)
+    return minplus_pass2(g2.contiguous(), g2_max=int(big))
 
 
 def edt(seeds: torch.Tensor) -> torch.Tensor:

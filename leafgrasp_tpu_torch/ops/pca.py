@@ -36,21 +36,29 @@ class Orientation(NamedTuple):
     valid: torch.Tensor       # bool
 
 
-def mask_orientation(mask: torch.Tensor) -> Orientation:
-    """Major-axis angle / extents / centroid by centered second moments."""
+def mask_orientation(mask: torch.Tensor, reduce_fn=None,
+                     row0: int = 0) -> Orientation:
+    """Major-axis angle / extents / centroid by centered second moments.
+
+    Row-sharded callers pass ``reduce_fn`` (a cross-shard SUM of each
+    stacked moment round) and ``row0`` (the frame row of the block's
+    first row); the moments stay centered (two rounds), as in JAX."""
     m = mask.to(torch.float32)
     h, w = m.shape
     dev = m.device
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    reduce_fn = reduce_fn or (lambda x: x)
+    ys = (row0 + torch.arange(h, dtype=torch.float32, device=dev))[:, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    total = m.sum()
+    total, sx, sy = reduce_fn(torch.stack([m.sum(), (m * xs).sum(),
+                                           (m * ys).sum()]))
     valid = total > 0
     safe_total = torch.clamp(total, min=1.0)
-    mx = (m * xs).sum() / safe_total
-    my = (m * ys).sum() / safe_total
-    dx2 = (m * (xs - mx) ** 2).sum() / safe_total
-    dy2 = (m * (ys - my) ** 2).sum() / safe_total
-    dxy = (m * (xs - mx) * (ys - my)).sum() / safe_total
+    mx = sx / safe_total
+    my = sy / safe_total
+    second = reduce_fn(torch.stack([(m * (xs - mx) ** 2).sum(),
+                                    (m * (ys - my) ** 2).sum(),
+                                    (m * (xs - mx) * (ys - my)).sum()]))
+    dx2, dy2, dxy = second / safe_total
     angle = 0.5 * torch.atan2(2.0 * dxy, dx2 - dy2)
     common = torch.sqrt(torch.clamp((dx2 - dy2) ** 2 / 4.0 + dxy ** 2,
                                     min=0.0))
@@ -97,9 +105,18 @@ def _largest_component_extremes(m: torch.Tensor, rpr: int,
     """Per-row [xmin, xmax] of the largest 8-connected component, and
     the validity flag (False on run overflow or an empty mask)."""
     xl, xr, nrow = _mask_row_runs(m, rpr)
+    return _largest_component_extremes_from_runs(xl, xr, nrow, m.shape[1],
+                                                 max_runs)
+
+
+def _largest_component_extremes_from_runs(xl, xr, nrow, w: int,
+                                          max_runs: int = 512):
+    """The frame-wide half of ``_largest_component_extremes``: run-graph
+    labels and the winner's per-row extremes from the per-row runs of
+    ``_mask_row_runs`` (a row-sharded frame gathers them from its
+    shards)."""
     h, rpr = xl.shape
-    w = m.shape[1]
-    dev = m.device
+    dev = xl.device
     inval = w + 1
     run_ok = xl < inval
     overflow = (nrow > rpr).any()

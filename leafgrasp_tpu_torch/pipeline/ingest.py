@@ -134,8 +134,13 @@ class GraspService:
         bisection. Default False: the two agree within 1e-5 m, not bit
         for bit.
 
-    Row-sharding one frame over several devices (the JAX package's
-    ``spatial_mesh`` argument) is not ported.
+    spatial_mesh : optional (data, model) mesh (parallel.make_mesh):
+        each frame's rows are sharded over its data axis
+        (parallel/spatial_frame.py). Every rank of the mesh builds the
+        service with the same arguments and takes the same frames; only
+        rank 0 publishes, records and calls ``on_result``. The service
+        runs on the mesh's device. A VLA re-pick runs the selector on
+        rank 0 and broadcasts its leaf.
     """
 
     def __init__(self, cfg: PipelineConfig = DEFAULT_CONFIG,
@@ -147,8 +152,26 @@ class GraspService:
                  pipeline_depth: int = 0,
                  record_path: Optional[str] = None,
                  cnn_norm_stats=None, device=None,
-                 hist_median: bool = False):
-        self.device = resolve_device(device)
+                 hist_median: bool = False, spatial_mesh=None):
+        self.mesh = spatial_mesh
+        self._rank0 = True
+        if spatial_mesh is None:
+            self.device = resolve_device(device)
+        else:
+            import torch.distributed as dist
+            from leafgrasp_tpu_torch.parallel.mesh import mesh_device
+            self.device = mesh_device(spatial_mesh)
+            if device is not None and \
+                    resolve_device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{self.device}")
+            if cnn is not None and \
+                    cfg.fusion.patch_normalization == "train_stats":
+                raise ValueError(
+                    "patch_normalization='train_stats' is not plumbed "
+                    "through the row-sharded path; use the single-device "
+                    "frame fn or patch_normalization='reference_minmax'")
+            self._rank0 = dist.get_rank() == 0
         if cnn is not None:
             if cnn.training:
                 raise ValueError("the CNN must be in eval mode (cnn.eval())")
@@ -159,7 +182,7 @@ class GraspService:
         self.pipeline_depth = pipeline_depth
         self._inflight: List[tuple] = []
         self._recorder = None
-        if record_path is not None:
+        if record_path is not None and self._rank0:
             from leafgrasp_tpu_torch.io.framelog import FrameLogWriter
             self._recorder = FrameLogWriter(record_path, cfg.frame.height,
                                             cfg.frame.width)
@@ -174,10 +197,16 @@ class GraspService:
 
         self.bus = FrameBus(cfg.frame.height, cfg.frame.width,
                             prefer_native=prefer_native_bus)
-        self._fn = make_frame_fn(cfg, with_cnn=cnn is not None,
-                                 device=self.device,
-                                 norm_stats=cnn_norm_stats,
-                                 hist_median=hist_median)
+        if spatial_mesh is not None:
+            from leafgrasp_tpu_torch.parallel.spatial_frame import \
+                make_sharded_frame_fn
+            self._fn = make_sharded_frame_fn(spatial_mesh, cfg,
+                                             with_cnn=cnn is not None)
+        else:
+            self._fn = make_frame_fn(cfg, with_cnn=cnn is not None,
+                                     device=self.device,
+                                     norm_stats=cnn_norm_stats,
+                                     hist_median=hist_median)
         self._last_processed = 0.0
         self._latest_rgb = None
         self._frames = 0
@@ -269,21 +298,34 @@ class GraspService:
             res = fetch_to_host(res)
         vla_choice = None
         if self.hybrid_selector is not None and bool(res.found):
-            with self.timer.stage("vla_rerank"):
-                vla_choice = self._vla_rerank(res, mask16, depth)
-            if vla_choice is not None and \
-                    vla_choice["leaf_id"] != int(res.leaf_id):
+            if self._rank0:
+                with self.timer.stage("vla_rerank"):
+                    vla_choice = self._vla_rerank(res, mask16, depth)
+            leaf_id = self._repick_leaf(vla_choice, int(res.leaf_id))
+            if leaf_id is not None:
                 # re-run pixel selection on the VLA-chosen leaf
                 with self.timer.stage("vla_reselect"):
                     res = fetch_to_host(
-                        self._reselect(mask16, depth,
-                                       vla_choice["leaf_id"]))
+                        self._reselect(mask16, depth, leaf_id))
         return self._finalize(res, mask_stamp, depth_stamp, frame_index,
                               vla_choice)
 
+    def _repick_leaf(self, vla_choice, leaf_id: int):
+        """The leaf to re-run pixel selection on, when the VLA chose
+        another than the frame's; else None. Over a mesh rank 0's choice
+        is broadcast, so every rank runs the same sharded re-pick."""
+        chosen = -1 if vla_choice is None else int(vla_choice["leaf_id"])
+        if self.mesh is not None:
+            import torch
+            from leafgrasp_tpu_torch.parallel.collectives import Axis
+            chosen = int(Axis(self.mesh, "data").broadcast(
+                torch.tensor([chosen], device=self.device)).item())
+        return chosen if chosen >= 0 and chosen != leaf_id else None
+
     def _finalize(self, res, mask_stamp, depth_stamp, frame_index,
                   vla_choice=None):
-        """Materialize a frame result and publish it (host side)."""
+        """Materialize a frame result and publish it (host side; over a
+        mesh, rank 0 only)."""
         with self.timer.stage("finalize"):
             found = bool(res.found)
             msg = None
@@ -291,13 +333,13 @@ class GraspService:
                 msg = format_result_message(np.asarray(res.grasp_uv),
                                             np.asarray(res.grasp_xyz),
                                             np.asarray(res.pre_grasp_xyz))
-                if self.publish:
+                if self.publish and self._rank0:
                     self.publish(msg)
             out = dict(result=res, message=msg, found=found,
                        degenerate=bool(res.degenerate), vla=vla_choice,
                        mask_stamp=mask_stamp, depth_stamp=depth_stamp,
                        frame_index=frame_index)
-            if self.on_result:
+            if self.on_result and self._rank0:
                 self.on_result(out)
         return out
 

@@ -17,6 +17,19 @@ Faithful to the JAX package:
 
 The dataset lives on the device for the whole fit; loss accumulates on
 the device, and an epoch reads back once (``utils.device.fetch_to_host``).
+
+``Trainer(mesh=...)`` fits over a (data, model) mesh, one process a
+rank (parallel/mesh.py), and computes what the single-process fit
+computes at the same global batch: every rank draws the same epoch
+sample and the same global dropout masks and takes its slice of the
+batch; the loss is the global mean, the gradients are summed over
+``data``, and the BatchNorm statistics are the global batch's (summed
+over ``data``, as GSPMD takes them); with a model axis above 1 the
+dense layers are column-sharded by parallel/sharding.py's rule.
+Evaluation is replicated. A step's floats differ from the
+single-process step's by the order of the sums only; over a fit Adam
+carries such differences far beyond rounding, as it does when only the
+order of the single-process fit's own sums changes.
 Draws (split, sampling, dropout) come from torch generators seeded with
 ``TrainConfig.seed``, not JAX's PRNG, so a fit is not equal to the JAX
 package's fit step for step.
@@ -31,15 +44,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import Shard
+
 from leafgrasp_tpu_torch.config import ModelConfig, TrainConfig
+from leafgrasp_tpu_torch.models.convert import grasp_cnn_flax_name
 from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                  _FlaxBatchNorm,
                                                   init_like_flax_)
+from leafgrasp_tpu_torch.parallel.collectives import Axis
+from leafgrasp_tpu_torch.parallel.mesh import mesh_device
+from leafgrasp_tpu_torch.parallel.sharding import (ColumnParallelLinear,
+                                                   shard_variables)
 from leafgrasp_tpu_torch.utils.device import fetch_to_host, resolve_device
 
 __all__ = ["NormStats", "normalize_dataset", "bce_with_logits",
            "analyze_predictions", "make_optimizer", "optimizer_step",
-           "make_train_step",
-           "make_eval_step", "PlateauSchedule", "Trainer", "TrainResult"]
+           "make_train_step", "make_parallel_train_step",
+           "parallelize_grasp_cnn", "gather_grasp_cnn",
+           "GlobalBatchDropout", "make_eval_step", "PlateauSchedule",
+           "Trainer", "TrainResult"]
 
 
 class NormStats(NamedTuple):
@@ -164,6 +187,151 @@ def make_eval_step(model: GraspPointCNN):
     return step
 
 
+class GlobalBatchDropout(torch.nn.Module):
+    """``nn.Dropout`` for a data-parallel rank holding rows ``lo`` ... of a
+    global batch of ``n_global``: it draws the whole batch's mask, as the
+    single-process model's dropout does from the same generator state
+    (same function, shape, memory format and device: the same draws, in
+    memory order), and keeps its own rows."""
+
+    def __init__(self, p: float, n_global: int, lo: int):
+        super().__init__()
+        self.p, self.n_global, self.lo = p, n_global, lo
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        # the convolutions keep the NHWC input's channels-last layout
+        fmt = torch.channels_last if x.dim() == 4 and not x.is_contiguous() \
+            and x.is_contiguous(memory_format=torch.channels_last) \
+            else torch.contiguous_format
+        ones = torch.ones((self.n_global, *x.shape[1:]), dtype=x.dtype,
+                          device=x.device).contiguous(memory_format=fmt)
+        mask = F.dropout(ones, self.p, True)
+        return x * mask[self.lo:self.lo + x.shape[0]]
+
+
+def _replace_modules(model: torch.nn.Module, kind, make) -> None:
+    """Replace every submodule of type ``kind`` by ``make(name, mod)``."""
+    for name, mod in list(model.named_modules()):
+        if isinstance(mod, kind):
+            parent_name, _, leaf = name.rpartition(".")
+            parent = model.get_submodule(parent_name)
+            if isinstance(parent, torch.nn.ModuleList):
+                parent[int(leaf)] = make(name, mod)
+            else:
+                setattr(parent, leaf, make(name, mod))
+
+
+def parallelize_grasp_cnn(model: GraspPointCNN, mesh, batch_size: int):
+    """The single-process model (on this rank's device, with the weights
+    every rank holds) for the data-parallel fit over ``mesh``: global
+    batch statistics and dropout masks over ``data``, and over ``model``
+    the column-sharded dense layers of parallel/sharding.py's rule.
+    Returns (model, the set of sharded ``state_dict`` keys, the slice of
+    each global batch this rank takes)."""
+    data, tp = Axis(mesh, "data"), Axis(mesh, "model")
+    if batch_size % data.size:
+        raise ValueError(f"batch size {batch_size} does not divide the "
+                         f"data axis of {data.size}")
+    n = batch_size // data.size
+    lo = data.index * n
+    if data.size > 1:
+        for mod in model.modules():
+            if isinstance(mod, _FlaxBatchNorm):
+                mod.batch_axis = data
+        _replace_modules(model, torch.nn.Dropout,
+                         lambda _, d: GlobalBatchDropout(d.p, batch_size,
+                                                         lo))
+    sharded = set()
+    if tp.size > 1:
+        n_hidden = len(model.dense)
+        local, placements = shard_variables(
+            model.state_dict(), mesh,
+            lambda key: grasp_cnn_flax_name(key, n_hidden))
+        sharded = {k for k, p in placements.items()
+                   if isinstance(p[1], Shard)}
+
+        def column(name, lin):
+            bias = local[f"{name}.bias"].to_local() \
+                if lin.bias is not None else None
+            return ColumnParallelLinear(
+                local[f"{name}.weight"].to_local(), bias, tp)
+        _replace_modules(model, torch.nn.Linear,
+                         lambda name, lin: column(name, lin)
+                         if f"{name}.weight" in sharded else lin)
+    return model, sharded, slice(lo, lo + n)
+
+
+def gather_grasp_cnn(model: torch.nn.Module, mesh, sharded: set,
+                     model_cfg: ModelConfig) -> GraspPointCNN:
+    """A plain GraspPointCNN in eval mode holding the full weights of a
+    model that ``parallelize_grasp_cnn`` made (every rank gets them)."""
+    tp = Axis(mesh, "model")
+    state = {k: torch.cat(list(tp.gather(v)), dim=0) if k in sharded else v
+             for k, v in model.state_dict().items()}
+    dev = next(model.parameters()).device
+    plain = GraspPointCNN(model_cfg).to(dev)
+    plain.load_state_dict(state)
+    return plain.eval()
+
+
+def make_parallel_train_step(model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer,
+                             cfg: TrainConfig, mesh, sharded: set):
+    """``make_train_step`` for a model from ``parallelize_grasp_cnn``, fed
+    this rank's slice of the global batch: the loss is this slice's share
+    of the global mean; the gradients and the loss are summed over
+    ``data`` in one collective; over ``model`` the replicated tensors'
+    gradients and the loss are rank 0's (one broadcast); the clip's
+    global norm counts each sharded dense layer's shards once (their
+    squares summed over ``model``). Returns (global loss, None)."""
+    data, tp = Axis(mesh, "data"), Axis(mesh, "model")
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    params = [model.get_parameter(n) for n in names]
+    is_sharded = [n in sharded for n in names]
+    replicated = [i for i, sh in enumerate(is_sharded) if not sh]
+
+    def step(feats, labels, mask, pos_weight):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(feats)
+        loss = bce_with_logits(logits, labels, pos_weight, mask) / data.size
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        sizes = [g.numel() for g in grads]
+        flat = data.sum(torch.cat([g.reshape(-1) for g in grads]
+                                  + [loss.detach().reshape(1)]))
+        parts, total = list(flat[:-1].split(sizes)), flat[-1]
+        if tp.size > 1:
+            # the model axis' ranks hold one replica of each replicated
+            # tensor, but cuDNN's weight gradients may differ in their
+            # last bits from rank to rank (atomic sums): all take rank
+            # 0's, and its loss
+            rep = tp.broadcast(torch.cat([parts[i] for i in replicated]
+                                         + [total.reshape(1)]))
+            for i, part in zip(replicated, rep[:-1].split(
+                    [sizes[i] for i in replicated])):
+                parts[i] = part
+            total = rep[-1]
+        for p, part in zip(params, parts):
+            p.grad = part.view_as(p)
+        if tp.size == 1:
+            optimizer_step(optimizer, params, cfg)
+        else:
+            norms = torch.stack([torch.linalg.vector_norm(p.grad)
+                                 for p in params]) ** 2
+            flags = torch.tensor(is_sharded, device=norms.device)
+            norm = torch.sqrt(norms[~flags].sum()
+                              + tp.sum(norms[flags].sum()))
+            coef = torch.clamp(cfg.grad_clip / (norm + 1e-6), max=1.0)
+            torch._foreach_mul_([p.grad for p in params], coef)
+            optimizer.step()
+        return total, None
+    return step
+
+
 class PlateauSchedule:
     """The JAX package's hand loop (train.py:307-329), not torch's
     ``ReduceLROnPlateau`` (whose relative threshold of 1e-4 cuts at other
@@ -236,13 +404,24 @@ def _batch_pad_mask(n: int, bs: int, device) -> torch.Tensor:
 class Trainer:
     """Host-side training loop (epochs, plateau learning rate, early
     stop) driving the train and eval steps on one device. ``device=None``
-    means CUDA (raises if absent)."""
+    means CUDA (raises if absent). With ``mesh`` (parallel.make_mesh)
+    every rank of it calls ``fit`` with the same dataset and the fit is
+    data- (and tensor-) parallel, on the mesh's device; every rank
+    returns the same result, with the full weights."""
 
     def __init__(self, model_cfg: ModelConfig = ModelConfig(),
-                 cfg: TrainConfig = TrainConfig(), device=None):
+                 cfg: TrainConfig = TrainConfig(), device=None, mesh=None):
         self.cfg = cfg
         self.model_cfg = model_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh_device(mesh)
+            if device is not None and \
+                    resolve_device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{self.device}")
 
     def fit(self, dataset: Dict[str, np.ndarray],
             epochs: Optional[int] = None, log_fn=None) -> TrainResult:
@@ -286,12 +465,20 @@ class Trainer:
         model = GraspPointCNN(self.model_cfg)
         init_like_flax_(model, gen_cpu)
         model.to(dev)
+        bs = cfg.batch_size
+        rows = slice(0, bs)     # this rank's rows of each batch
+        if self.mesh is not None:
+            model, sharded, rows = parallelize_grasp_cnn(model, self.mesh,
+                                                         bs)
         optimizer = make_optimizer(model, cfg)
-        train_step = make_train_step(model, optimizer, cfg)
+        if self.mesh is None:
+            train_step = make_train_step(model, optimizer, cfg)
+        else:
+            train_step = make_parallel_train_step(model, optimizer, cfg,
+                                                  self.mesh, sharded)
         eval_step = make_eval_step(model)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
-        bs = cfg.batch_size
         steps = max(1, -(-n_train // bs))
         sched = PlateauSchedule(cfg)
         # as in JAX: without any improvement the initial weights return
@@ -305,7 +492,7 @@ class Trainer:
         n_va = va_feats.shape[0]
         va_mask = _batch_pad_mask(n_va, bs, dev)
         va_feats_p, va_labels_p = _pad(va_feats, bs), _pad(va_labels, bs)
-        ones = torch.ones(bs, device=dev)
+        ones = torch.ones(rows.stop - rows.start, device=dev)
         va_labels_np = va_labels.cpu().numpy()
         pos_w = float(cfg.pos_weight)
         for epoch in range(epochs):
@@ -317,7 +504,7 @@ class Trainer:
                                     generator=gen)
             ep_loss = torch.zeros((), device=dev)
             for s in range(steps):
-                b = idx[s * bs:(s + 1) * bs]
+                b = idx[s * bs:(s + 1) * bs][rows]
                 loss, _ = train_step(tr_feats[b], tr_labels[b], ones, pos_w)
                 ep_loss = ep_loss + loss
 
@@ -362,6 +549,9 @@ class Trainer:
 
         model.load_state_dict(best_state)
         model.eval()
+        if self.mesh is not None:
+            model = gather_grasp_cnn(model, self.mesh, sharded,
+                                     self.model_cfg)
         return TrainResult(model=model, norm_stats=norm_stats,
                            best_val_loss=sched.best,
                            best_epoch=best_epoch,

@@ -1041,3 +1041,65 @@ def test_checkpoint_loads_onto_the_card(cuda, tmp_path):
         assert kernels.launch_counts()["flash_prefill"] == cfg.layers
         assert float((got - want).abs().max()) <= 1e-4 * max(
             1.0, float(want.abs().max())), kw
+
+
+def _sharded_frame_rank(rank, world):
+    """A rank of the row-sharded frame and of a data-parallel train step
+    on the card (gloo: the ranks share cuda:0): the kernels each launched,
+    the sharded frame and the unsharded one."""
+    from leafgrasp_tpu_torch.config import (FrameConfig, LeafSelectionConfig,
+                                            ModelConfig, PipelineConfig,
+                                            TrainConfig)
+    from leafgrasp_tpu_torch.models.grasp_cnn import (GraspPointCNN,
+                                                      init_random_)
+    from leafgrasp_tpu_torch.parallel import make_mesh, make_sharded_frame_fn
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    from leafgrasp_tpu_torch.training.train import (make_optimizer,
+                                                    make_parallel_train_step,
+                                                    parallelize_grasp_cnn)
+    from leafgrasp_tpu_torch.utils.device import fetch_to_host
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh()
+    cfg = PipelineConfig(frame=FrameConfig(height=192, width=256,
+                                           max_leaves=8),
+                         leaf=LeafSelectionConfig(min_leaf_area=300))
+    mask, depth = make_leaf_scene(192, 256, num_leaves=4, seed=3, margin=30)
+    cnn = init_random_(GraspPointCNN(ModelConfig()), seed=0).cuda().eval()
+    cam = (np.float32(128.0), np.float32(96.0), np.float32(300.0))
+    fn = make_sharded_frame_fn(mesh, cfg, with_cnn=True)
+    kernels.reset_launch_counts()
+    sharded = fetch_to_host(fn(mask, depth, *cam, cnn))
+    counts = kernels.launch_counts()
+    single = fetch_to_host(make_frame_fn(cfg, with_cnn=True)(mask, depth,
+                                                              *cam, cnn))
+    model, names, rows = parallelize_grasp_cnn(
+        init_random_(GraspPointCNN(ModelConfig()), seed=0).cuda(), mesh, 8)
+    step = make_parallel_train_step(
+        model, make_optimizer(model, TrainConfig(batch_size=8)),
+        TrainConfig(batch_size=8), mesh, names)
+    kernels.reset_launch_counts()
+    loss, _ = step(torch.ones((8, 32, 32, 9), device="cuda")[rows],
+                   torch.ones(8, device="cuda")[rows],
+                   torch.ones(rows.stop - rows.start, device="cuda"), 2.0)
+    train_counts = kernels.launch_counts()
+    return counts, sharded, single, train_counts, float(loss)
+
+
+def test_sharded_frame_and_train_step_launch_kernels_on_card(cuda,
+                                                             tmp_path):
+    from leafgrasp_tpu_torch.parallel.launch import run_ranks
+    outs = run_ranks(_sharded_frame_rank, 2, str(tmp_path / "store"),
+                     timeout_s=120.0, join_s=300.0, threads=0)
+    for counts, sharded, single, train_counts, loss in outs:
+        for name in ("fused_score_maps", "minplus_pass2",
+                     "fused_attention_gate"):
+            assert counts[name] > 0, name
+        assert train_counts["attention_gate_backward"] > 0
+        assert np.isfinite(loss) and loss == outs[0][4]
+        assert int(sharded.leaf_id) == int(single.leaf_id)
+        np.testing.assert_array_equal(sharded.grasp_uv, single.grasp_uv)
+        assert bool(sharded.ml_used) == bool(single.ml_used)
+        np.testing.assert_allclose(sharded.fusion.combined,
+                                   single.fusion.combined, rtol=1e-4,
+                                   atol=1e-5)
