@@ -168,6 +168,27 @@ Phases, each a hard failure (non-zero exit):
    ``GraspService(spatial_mesh=...)`` at 2 ranks on 8 frames, rank 0
    publishing the unsharded service's messages. Each rank counts its
    launches; their sum is the ``launches_parallel`` term.
+11. the pipeline- and tensor-parallel LLaVA (leafgrasp_tpu_torch/parallel/
+   pipeline.py and ``tensor_parallel_``) on ranks sharing ``cuda:0`` as
+   in phase 10: (a) ``make_pp_llava_forward`` over 4 stages of the
+   7B-width model (32 layers, bf16, seed 0, flash prefill; each rank
+   draws only its stage and the replicated rest), 5 microbatches of one
+   row of t = 2400 (packed anyres features), last-position logits, and
+   again with 1 stage on 1 rank over nccl, each row against
+   ``LlavaTorch.forward`` of that row alone (equal, or within phase
+   6.2's bound), every rank's peak memory below the whole model's and
+   the flash prefill launched 8 x 8 times a rank; (b) 2 stages x 2-way
+   tensor parallelism on the same rows (phase 6.2's bound); (c)
+   tensor-parallel generate from phase 9a's checkpoint on 2 ranks in
+   bf16, int8 and int4 (first-step logits within phase 6.2's bound of
+   the single-process model's, tokens' agreement printed, the flash
+   prefill once a layer a prefill); (d) the pipelined LoRA step at the
+   7B widths cut to 4 layers (one a stage, remat, t = 642): each
+   adapter gradient within 1e-3 of its norm of the single-process
+   step's, the flash prefill and both its backward kernels launched;
+   (e) the tensor-parallel TinyVLA LoRA step on 2 ranks against the
+   single-process step. Each rank counts its launches; their sum is the
+   ``launches_pipeline`` term.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -3845,6 +3866,588 @@ def _par_check_fit(world, rank, fit, first):
                            f"rank 0's {first['train_loss']}")
 
 
+# --------------------------------------------------------------- phase 11 --
+# The pipeline- and tensor-parallel LLaVA (parallel/pipeline.py,
+# parallel/sharding.py's tensor_parallel_) on ranks that share cuda:0, as
+# phase 10's (one rank over nccl, two and four over gloo; gloo copies
+# through the host, so no time here is a multi-device speed).
+# (a) the GPipe forward of the 7B-width model (32 layers, bf16, seed 0,
+# flash prefill) over PIPE_STAGES stages and PIPE_MICRO microbatches,
+# logits_last_only, on PIPE_ROWS equal-length rows of packed anyres
+# features; again with one stage on one rank; each row's logits against
+# LlavaTorch.forward of that row alone on the same weights. The stage
+# layers run the microbatches at the shapes of a row alone, so the layers
+# agree to the bit, and the head takes the five rows in one product
+# where the reference takes one: equal, or within VLA_MAX_LOGIT_DELTA of
+# the logits' deviation (phase 6.2's bound), the reading printed.
+# Every rank computes every step of the schedule (the bubble steps too,
+# as the JAX package does), so a forward launches the flash prefill
+# layers / S x (M + S - 1) times a rank: 8 x 8 = 64, 256 over the four
+# (160 at S = 1); each of (a) and (b) runs PIPE_FORWARDS forwards.
+# (b) pipeline x tensor parallel: two stages of 16 layers, each layer
+# Megatron-split over two ranks (dense attention over the local heads,
+# as the JAX function): within VLA_MAX_LOGIT_DELTA of the same reference.
+# (c) tensor-parallel generate on two ranks from phase 9a's checkpoint
+# (7B widths, 2 decoder layers) in bf16, int8 and int4 (group 128): the
+# first-step logits within VLA_MAX_LOGIT_DELTA of the single-process
+# model's from the same file and mode, the tokens' agreement printed, the
+# flash prefill once a layer a prefill on each rank.
+# (d) the pipeline-parallel LoRA step at the 7B widths cut to
+# PIPE_LORA_LAYERS layers, one a stage, remat, rank-8 f32 adapters with a
+# non-zero lora_b (so that lora_a has a gradient too), t = 642 as in phase
+# 8b, flash route: each adapter gradient within TRAIN_ROUTE_REL_TOL of its
+# norm of the single-process step's (phase 8b's bound).
+# (e) dryrun path 3, the TinyVLA LoRA step with its projections and head
+# tensor-parallel, on two ranks at the TinyVLA's default widths: loss and
+# every gradient (a sharded one against its columns) within
+# TRAIN_GRAD_REL_TOL of the single-process step's (another order of the
+# same sums).
+PIPE_STAGES = 4
+PIPE_MICRO = 5
+PIPE_ROWS = 5
+PIPE_TP = 2
+PIPE_TEXT = N_TEXT
+PIPE_LORA_LAYERS = 4
+PIPE_LORA_RANK = 8
+PIPE_LORA_T = 642            # phase 8b's tokens
+PIPE_LORA_B_STD = 0.02
+PIPE_GEN_TOKENS = 8
+PIPE_FORWARDS = 2            # (a) and (b) run twice: the second is warm
+PIPE_SEED = 0
+PIPE_RANK_TIMEOUT_S = 300.0
+PIPE_JOIN_S = 600.0
+PIPE_WORLDS = {4: "gloo", 1: "nccl", 2: "gloo"}
+
+
+def _pipe_setup(device: str = "cuda") -> dict:
+    """What a phase-11 rank needs (a spawned rank imports this script
+    anew): the model's fields, the TinyVLA's and the checkpoint's."""
+    return {"device": device,
+            "llava": dict(dtype="bfloat16", prefill_attn_impl="flash",
+                          image_grid_pinpoints=VLA_PINPOINTS),
+            "vla": dict(lora_rank=8, lora_alpha=32.0),
+            "ckpt": CKPT_DIR, "quant_group": QUANT_GROUP}
+
+
+def _pipe_state(torch, cfg, keep, dev, lora_rank=0):
+    """The seed-PIPE_SEED weights of ``LlavaTorch(cfg)`` in bf16 for the
+    keys ``keep`` takes (``random_llava_state``: the others are drawn and
+    dropped), and every other key on the meta device. With ``lora_rank``
+    the adapters are f32 and drawn after the base, every layer's in the
+    model's order: lora_a normal(1 / rank), lora_b normal(PIPE_LORA_B_STD)."""
+    from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                     random_llava_state)
+    from leafgrasp_tpu_torch.vla.lora import is_lora_key
+    gen = torch.Generator(device=dev).manual_seed(PIPE_SEED)
+    state = random_llava_state(cfg, gen, lambda k: keep(k)
+                               and not is_lora_key(k), device=dev,
+                               param_dtype=torch.bfloat16)
+    meta = LlavaTorch(cfg, device="meta", param_dtype=torch.bfloat16)
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(PIPE_SEED + 1)
+    for key, p in meta.state_dict().items():
+        if is_lora_key(key):
+            std = 1.0 / lora_rank if key.endswith("lora_a") \
+                else PIPE_LORA_B_STD
+            t = torch.empty(p.shape, device=dev).normal_(0.0, std,
+                                                         generator=gen)
+            out[key] = t if keep(key) else t.to("meta")
+        else:
+            out[key] = state.get(key, p)
+    return out
+
+
+def _pipe_stage_keep(layers: int, n_stages: int, index: int):
+    """The keys of stage ``index`` of ``n_stages`` and of the rest."""
+    per = layers // n_stages
+
+    def keep(key):
+        if not key.startswith("layers."):
+            return True
+        return index * per <= int(key.split(".")[1]) < (index + 1) * per
+    return keep
+
+
+def _pipe_inputs(torch, setup):
+    """The rows of (a)-(c): ids (PIPE_ROWS, n_img + PIPE_TEXT) of a BOS,
+    n_img image tokens and seeded text, and the packed features repeated
+    for each row (the prompt layout of the rerank without a left pad)."""
+    feats = setup["feats"]
+    n_img = feats.shape[0]
+    cfg = setup["cfg"]
+    rng = np.random.default_rng(PIPE_SEED + 2)
+    text = rng.integers(3, cfg.image_token_index - 1000,
+                        (PIPE_ROWS, PIPE_TEXT - 1))
+    ids = np.concatenate([np.ones((PIPE_ROWS, 1), np.int64),
+                          np.full((PIPE_ROWS, n_img), cfg.image_token_index),
+                          text], axis=1)
+    return ids, feats
+
+
+def _pipe_forward(torch, dev, mesh, setup, n_stages, tp_axis=None):
+    """One rank of (a) or (b): its stage drawn (and TP-sliced), the
+    pipelined forward of every row; returns logits, memory and time."""
+    from leafgrasp_tpu_torch.parallel import (make_pp_llava_forward,
+                                              shard_stage_params,
+                                              split_decoder_stages)
+    from leafgrasp_tpu_torch.parallel.collectives import Axis
+    from leafgrasp_tpu_torch.vla.llava_torch import LlavaTorch
+    cfg = setup["cfg"]
+    pp = Axis(mesh, "data")
+    _reset_peak(torch, dev)
+    state = _pipe_state(torch, cfg, _pipe_stage_keep(cfg.layers, n_stages,
+                                                     pp.index), dev)
+    stages, rest = split_decoder_stages(state, cfg, n_stages)
+    local = shard_stage_params(mesh, stages, tp_axis=tp_axis)
+    del state, stages
+    meta = LlavaTorch(cfg, device="meta")
+    fn = make_pp_llava_forward(mesh, meta, PIPE_MICRO,
+                               logits_last_only=True, tp_axis=tp_axis)
+    resident = _allocated(torch, dev)
+    ids, feats = _pipe_inputs(torch, setup)
+    ids = torch.as_tensor(ids, device=dev)
+    feats = feats.to(dev).repeat(PIPE_ROWS, 1)
+    times = []
+    for _ in range(PIPE_FORWARDS):
+        fn.axis.reset_counts()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = fn(rest, local, ids, image_features=feats)
+        _sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+    return {"logits": logits.float().cpu(), "resident_gib": resident,
+            "peak_gib": _peak(torch, dev), "seconds": times,
+            "hand_offs": (fn.axis.calls, fn.axis.bytes)}
+
+
+def _pipe_lora_model(torch, dev, setup, keep):
+    """(d)'s model state: the 7B widths cut to PIPE_LORA_LAYERS layers,
+    bf16 base, f32 adapters."""
+    import dataclasses
+    cfg = dataclasses.replace(setup["cfg"], layers=PIPE_LORA_LAYERS,
+                              lora_rank=PIPE_LORA_RANK,
+                              image_grid_pinpoints=None)
+    return cfg, _pipe_state(torch, cfg, keep, dev, PIPE_LORA_RANK)
+
+
+def _pipe_lora_batch(torch, dev, cfg):
+    """PIPE_LORA_LAYERS rows of t = PIPE_LORA_T (a BOS, one tile's image
+    tokens, seeded text), their pixels and next-token targets."""
+    rng = np.random.default_rng(PIPE_SEED + 3)
+    b = PIPE_LORA_LAYERS
+    text = rng.integers(3, cfg.image_token_index - 1000,
+                        (b, PIPE_LORA_T - 1 - cfg.num_patches))
+    ids = np.concatenate([np.ones((b, 1), np.int64),
+                          np.full((b, cfg.num_patches),
+                                  cfg.image_token_index), text], axis=1)
+    px = rng.standard_normal((b, cfg.image_size, cfg.image_size, 3)).astype(
+        np.float32)
+    ids = torch.as_tensor(ids, device=dev)
+    return ids, torch.as_tensor(px, device=dev), torch.roll(ids, -1, 1)
+
+
+def _pipe_nll(torch, logits, tgt):
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(lp, -1, tgt[..., None])[..., 0].mean()
+
+
+def _pipe_lora(torch, dev, mesh, setup):
+    """One rank of (d): its layer's adapter gradients through the
+    pipelined step with remat."""
+    from leafgrasp_tpu_torch.parallel import (make_pp_llava_forward,
+                                              shard_stage_params,
+                                              split_decoder_stages)
+    from leafgrasp_tpu_torch.parallel.collectives import Axis
+    from leafgrasp_tpu_torch.vla.llava_torch import LlavaTorch
+    from leafgrasp_tpu_torch.vla.lora import is_lora_key
+    pp = Axis(mesh, "data")
+    cfg, state = _pipe_lora_model(torch, dev, setup, _pipe_stage_keep(
+        PIPE_LORA_LAYERS, PIPE_LORA_LAYERS, pp.index))
+    stages, rest = split_decoder_stages(state, cfg, PIPE_LORA_LAYERS)
+    local = shard_stage_params(mesh, stages)
+    del state, stages
+    for p in rest.parameters():
+        p.requires_grad_(False)
+    names = [n for n, _ in local.named_parameters()]
+    for n, p in local.named_parameters():
+        p.requires_grad_(is_lora_key(n))
+    fn = make_pp_llava_forward(mesh, LlavaTorch(cfg, device="meta"),
+                               PIPE_LORA_LAYERS, remat=True)
+    ids, px, tgt = _pipe_lora_batch(torch, dev, cfg)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    loss = _pipe_nll(torch, fn(rest, local, ids, px), tgt)
+    params = [local.get_parameter(n) for n in names if is_lora_key(n)]
+    grads = torch.autograd.grad(loss, params)
+    _sync(torch, dev)
+    layer = pp.index                      # one layer a stage
+    return {"loss": float(loss.detach()),
+            "seconds": time.perf_counter() - t0,
+            "grads": {f"layers.{layer}.{n.split('.', 1)[1]}": g.cpu()
+                      for n, g in zip([n for n in names if is_lora_key(n)],
+                                      grads)}}
+
+
+def _pipe_vla_grads(torch, dev, setup, mesh=None):
+    """(e): one TinyVLA LoRA step's loss and adapter gradients at the
+    TinyVLA's default widths, tensor-parallel over ``mesh`` or
+    single-process; a sharded gradient is this rank's columns."""
+    from leafgrasp_tpu_torch.parallel import tensor_parallel_
+    from leafgrasp_tpu_torch.vla.convert import torch_to_flax_tiny_vla
+    from leafgrasp_tpu_torch.vla.lm import VLAModelConfig
+    from leafgrasp_tpu_torch.vla.trainer import (VLATrainer,
+                                                 make_synthetic_vla_dataset,
+                                                 ranking_to_targets,
+                                                 set_trainable)
+    trainer = VLATrainer(cfg=VLAModelConfig(**setup["vla"]), device=dev)
+    if mesh is not None:
+        state = trainer.model.state_dict()
+        tensor_parallel_(trainer.model, mesh, lambda k: next(iter(
+            torch_to_flax_tiny_vla({k: state[k]}))))
+    samples = make_synthetic_vla_dataset(2, seed=PIPE_SEED)
+    examples = [trainer._example(s, i, v) for s in samples
+                for i, v in ranking_to_targets(s["ranking"]).items()]
+    batch = trainer._pad_batch(examples, max(len(e[0]) for e in examples))
+    set_trainable(trainer.model, full=False)
+    loss = trainer._loss(*batch)
+    loss.backward()
+    return float(loss.detach()), {
+        n.replace(".inner", ""): p.grad.cpu()
+        for n, p in trainer.model.named_parameters() if p.grad is not None}
+
+
+def _pipe_generate(torch, dev, setup, mode, mesh=None):
+    """(c): the checkpoint model in ``mode``, tensor-parallel over
+    ``mesh`` or single-process: its first-step logits and greedy tokens
+    on the rows of (a), and the flash launches of one prefill."""
+    from leafgrasp_tpu_torch.kernels import launch_counts
+    from leafgrasp_tpu_torch.parallel import tensor_parallel_
+    from leafgrasp_tpu_torch.vla.checkpoint_io import load_llava_checkpoint
+    from leafgrasp_tpu_torch.vla.convert import llava_flax_name
+    from leafgrasp_tpu_torch.vla.llava_torch import greedy_generate_llava
+    flag, bits = QUANT_MODES[mode]
+    model, _, _ = load_llava_checkpoint(
+        setup["ckpt"], dtype="bfloat16", quantize=flag != "none",
+        quant_bits=bits, quant_group=setup["quant_group"], device=dev)
+    model.set_prefill_attn("flash")
+    if mesh is not None:
+        tensor_parallel_(model, mesh, llava_flax_name)
+    ids, feats = _pipe_inputs(torch, setup)
+    ids = torch.as_tensor(ids, device=dev)
+    feats = feats.to(dev).repeat(PIPE_ROWS, 1)
+    before = launch_counts()["flash_prefill"]
+    with torch.no_grad():
+        logits = model(ids, image_features=feats, logits_last_only=True)[0]
+    prefill = launch_counts()["flash_prefill"] - before
+    toks = greedy_generate_llava(model, ids, image_features=feats,
+                                 max_new_tokens=PIPE_GEN_TOKENS)
+    return {"logits": logits.float().cpu(), "tokens": toks.cpu(),
+            "prefill_flash": prefill, "layers": model.cfg.layers}
+
+
+def _sync(torch, dev):
+    if dev != "cpu":
+        torch.cuda.synchronize()
+
+
+def _free(torch, dev):
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+
+
+def _reset_peak(torch, dev):
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _allocated(torch, dev):
+    return torch.cuda.memory_allocated() / 2 ** 30 if dev != "cpu" else 0.0
+
+
+def _peak(torch, dev):
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if dev != "cpu" \
+        else 0.0
+
+
+def phase11_rank(rank, world, setup):
+    """One rank of phase 11 on ``cuda:0`` (or the CPU, to rehearse): (a),
+    (b) and (d) on four ranks, (a) with one stage on one, (c) and (e) on
+    two; returns its results on the host and its launch counts."""
+    import torch
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.kernels.build import load_library
+    from leafgrasp_tpu_torch.parallel import make_mesh
+    dev = setup["device"]
+    if dev == "cuda":
+        # the single-process side computes without TF32 (main), so do
+        # the ranks: the TinyVLA's convolutions too
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        load_library()
+    out = {"launches": {}}
+
+    def part(name, fn):
+        _sync(torch, dev)
+        reset_launch_counts()
+        out[name] = fn()
+        _sync(torch, dev)
+        out["launches"][name] = launch_counts()
+
+    if world == PIPE_STAGES:
+        data = make_mesh(world, model_axis=1, device=dev)
+        part("pp", lambda: _pipe_forward(torch, dev, data, setup, world))
+        tp = make_mesh(world, model_axis=PIPE_TP, device=dev)
+        part("pptp", lambda: _pipe_forward(torch, dev, tp, setup,
+                                           world // PIPE_TP, "model"))
+        part("lora", lambda: _pipe_lora(torch, dev, data, setup))
+    elif world == 1:
+        mesh = make_mesh(1, device=dev)
+        part("pp1", lambda: _pipe_forward(torch, dev, mesh, setup, 1))
+    else:
+        mesh = make_mesh(world, model_axis=world, device=dev)
+        for mode in QUANT_MODES:
+            part(f"gen_{mode}", lambda mode=mode: _pipe_generate(
+                torch, dev, setup, mode, mesh))
+        part("vla", lambda: _pipe_vla_grads(torch, dev, setup, mesh))
+    return out
+
+
+def _pipe_share(got, want) -> float:
+    """max |got - want| over the deviation of ``want`` (phase 6.2's)."""
+    return float((got - want).abs().max() / want.std())
+
+
+def _pipe_reference(torch, dev, setup):
+    """The single-process side of phase 11, on the card before the ranks
+    start (the model freed after each): (a)'s packed features and each
+    row's logits alone, (c)'s logits and tokens per mode, (d)'s adapter
+    gradients, (e)'s step."""
+    from leafgrasp_tpu_torch.vla.llava_next import (
+        pack_anyres_features_torch, preprocess_anyres)
+    from leafgrasp_tpu_torch.vla.llava_torch import LlavaTorch
+    cfg = setup["cfg"]
+    ref = {}
+    t0 = time.perf_counter()
+    state = _pipe_state(torch, cfg, lambda k: True, dev)
+    model = LlavaTorch.from_state(cfg, state)
+    del state
+    rgb = np.random.default_rng(PIPE_SEED + 4).integers(
+        0, 256, (setup["frame"][0], setup["frame"][1], 3), dtype=np.uint8)
+    with torch.no_grad():
+        tiles, hw = preprocess_anyres(rgb, cfg.image_grid_pinpoints, cfg,
+                                      device=dev)
+        feats = pack_anyres_features_torch(
+            model.vision_project(tiles), hw, cfg.image_grid_pinpoints, cfg,
+            model.image_newline)
+    setup["feats"] = feats.cpu()
+    ids, _ = _pipe_inputs(torch, setup)
+    rows = []
+    with torch.no_grad():
+        for r in range(PIPE_ROWS):
+            rows.append(model(torch.as_tensor(ids[r:r + 1], device=dev),
+                              image_features=feats,
+                              logits_last_only=True)[0].float().cpu())
+    ref["logits"] = torch.cat(rows)
+    ref["model_gib"] = sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 2 ** 30
+    del model, tiles
+    _free(torch, dev)
+    ref["t"] = ids.shape[1]
+
+    lcfg, lstate = _pipe_lora_model(torch, dev, setup, lambda k: True)
+    lmodel = LlavaTorch.from_state(lcfg, lstate)
+    del lstate
+    for n, p in lmodel.named_parameters():
+        p.requires_grad_(n.endswith(("lora_a", "lora_b")))
+    lids, px, tgt = _pipe_lora_batch(torch, dev, lcfg)
+    loss = _pipe_nll(torch, lmodel(lids, px)[0], tgt)
+    names = [n for n, p in lmodel.named_parameters() if p.requires_grad]
+    grads = torch.autograd.grad(loss, [lmodel.get_parameter(n)
+                                       for n in names])
+    ref["lora_loss"] = float(loss.detach())
+    ref["lora_grads"] = {n: g.cpu() for n, g in zip(names, grads)}
+    del lmodel, grads, loss
+    _free(torch, dev)
+
+    ref["gen"] = {mode: _pipe_generate(torch, dev, setup, mode)
+                  for mode in QUANT_MODES}
+    ref["vla"] = _pipe_vla_grads(torch, dev, setup)
+    _free(torch, dev)
+    ref["seconds"] = time.perf_counter() - t0
+    return ref
+
+
+def run_phase_11(torch, setup=None):
+    """Phase 11: the pipeline- and tensor-parallel LLaVA on 4, 1 and 2
+    ranks of one card (``setup``: ``_pipe_setup``'s plus the frame size
+    and config, on the card by default)."""
+    from leafgrasp_tpu_torch.parallel.launch import run_ranks
+    from leafgrasp_tpu_torch.vla.llava_torch import LlavaTorchConfig
+    setup = dict(setup or _pipe_setup())
+    setup.setdefault("frame", (H, W))
+    setup["cfg"] = LlavaTorchConfig(**setup["llava"])
+    dev = setup["device"]
+    _free(torch, dev)
+    t_start = time.perf_counter()
+    ref = _pipe_reference(torch, dev, setup)
+    log(f"phase 11: references in {ref['seconds']:.1f} s: {PIPE_ROWS} rows "
+        f"of t = {ref['t']} ({setup['feats'].shape[0]} packed anyres rows), "
+        f"the whole model {ref['model_gib']:.2f} GiB")
+
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_pipe_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    launches, outs, perf = {}, {}, {"spawn_s": {}}
+    for world, backend in PIPE_WORLDS.items():
+        t0 = time.perf_counter()
+        outs[world] = run_ranks(phase11_rank, world, store, setup,
+                                backend="gloo" if dev == "cpu" else backend,
+                                timeout_s=PIPE_RANK_TIMEOUT_S,
+                                join_s=PIPE_JOIN_S, threads=2)
+        perf["spawn_s"][world] = time.perf_counter() - t0
+        for out in outs[world]:
+            for counts in out["launches"].values():
+                for name, n in counts.items():
+                    launches[name] = launches.get(name, 0) + n
+    if os.path.exists(store):
+        os.remove(store)
+
+    # (a) and (b): every rank's logits against each row alone
+    want = ref["logits"]
+    for tag, world, key in (("a", 4, "pp"), ("a", 1, "pp1"),
+                            ("b", 4, "pptp")):
+        res = [o[key] for o in outs[world]]
+        for rank, r in enumerate(res):
+            if not torch.equal(r["logits"], res[0]["logits"]):
+                raise RuntimeError(f"phase 11{tag} {key}: rank {rank}'s "
+                                   f"logits differ from rank 0's")
+        got = res[0]["logits"]
+        equal = torch.equal(got, want)
+        share = _pipe_share(got, want)
+        flash = [o["launches"][key].get("flash_prefill", 0)
+                 for o in outs[world]]
+        perf[key] = {"equal": equal, "share": share, "flash": flash,
+                     "resident_gib": [r["resident_gib"] for r in res],
+                     "peak_gib": [r["peak_gib"] for r in res],
+                     "seconds": [r["seconds"] for r in res],
+                     "hand_offs": res[0]["hand_offs"]}
+        log(f"phase 11{tag} {key} on {world} rank(s): logits bit-equal to "
+            f"each row alone: {equal}; largest difference / deviation "
+            f"{share:.3e}; flash launches a rank {flash}; per-rank "
+            f"resident {perf[key]['resident_gib']} GiB, peak "
+            f"{perf[key]['peak_gib']} GiB (the whole model "
+            f"{ref['model_gib']:.2f}); forward seconds "
+            f"{perf[key]['seconds']}; collectives on the pipeline axis "
+            f"{res[0]['hand_offs']}")
+        if share > VLA_MAX_LOGIT_DELTA:
+            raise RuntimeError(f"phase 11{tag} {key}: logits differ by "
+                               f"{share} of their deviation")
+    n_steps = PIPE_MICRO + PIPE_STAGES - 1
+    per = setup["cfg"].layers // PIPE_STAGES
+    want_pp = per * n_steps * PIPE_FORWARDS
+    want_pp1 = setup["cfg"].layers * PIPE_MICRO * PIPE_FORWARDS
+    if dev != "cpu" and (perf["pp"]["flash"] != [want_pp] * PIPE_STAGES
+                         or perf["pp1"]["flash"] != [want_pp1]):
+        raise RuntimeError(f"phase 11a: flash launches {perf['pp']['flash']}"
+                           f" and {perf['pp1']['flash']} in "
+                           f"{PIPE_FORWARDS} forwards, not {want_pp} a rank "
+                           f"and {want_pp1}")
+    if max(perf["pp"]["peak_gib"]) >= ref["model_gib"] and dev != "cpu":
+        raise RuntimeError(f"phase 11a: a rank's peak "
+                           f"{perf['pp']['peak_gib']} GiB is not below the "
+                           f"whole model's {ref['model_gib']:.2f}")
+
+    # (c) tensor-parallel generate
+    for mode in QUANT_MODES:
+        w = ref["gen"][mode]
+        for rank, out in enumerate(outs[2]):
+            g = out[f"gen_{mode}"]
+            share = _pipe_share(g["logits"], w["logits"])
+            agree = float((g["tokens"] == w["tokens"]).float().mean())
+            log(f"phase 11c {mode} rank {rank}: first-step logits within "
+                f"{share:.3e} of their deviation, tokens agree "
+                f"{agree:.3f}, flash launches of a prefill "
+                f"{g['prefill_flash']}")
+            if share > VLA_MAX_LOGIT_DELTA \
+                    or (dev != "cpu" and g["prefill_flash"] != g["layers"]):
+                raise RuntimeError(f"phase 11c {mode} rank {rank}: logits "
+                                   f"{share}, {g['prefill_flash']} flash "
+                                   f"launches a prefill")
+        perf[f"gen_{mode}"] = share
+
+    # (d) the pipeline-parallel LoRA step
+    errs = {}
+    for rank, out in enumerate(outs[4]):
+        r = out["lora"]
+        if abs(r["loss"] - ref["lora_loss"]) > 1e-3 * abs(ref["lora_loss"]):
+            raise RuntimeError(f"phase 11d rank {rank}: loss {r['loss']} "
+                               f"against {ref['lora_loss']}")
+        for name, g in r["grads"].items():
+            errs[name] = _rel_err(g, ref["lora_grads"][name])
+    if set(errs) != set(ref["lora_grads"]):
+        raise RuntimeError("phase 11d: the ranks' adapters are not the "
+                           "model's")
+    worst = max(errs, key=errs.get)
+    lora_flash = {k: [o["launches"]["lora"].get(k, 0) for o in outs[4]]
+                  for k in ("flash_prefill", "flash_prefill_bwd_dq",
+                            "flash_prefill_bwd_dkv")}
+    perf["lora"] = {"worst": errs[worst], "worst_name": worst,
+                    "loss": ref["lora_loss"], "flash": lora_flash,
+                    "seconds": [o["lora"]["seconds"] for o in outs[4]]}
+    log(f"phase 11d: the pipelined LoRA step ({PIPE_LORA_LAYERS} layers, "
+        f"remat, t = {PIPE_LORA_T}) loss {outs[4][0]['lora']['loss']:.6f} "
+        f"(single-process {ref['lora_loss']:.6f}); adapter gradients within "
+        f"{errs[worst]:.2e} of their norm ({worst}); launches a rank "
+        f"{json.dumps(lora_flash)}; seconds {perf['lora']['seconds']}")
+    if errs[worst] > TRAIN_ROUTE_REL_TOL or (
+            dev != "cpu" and min(min(v) for v in lora_flash.values()) == 0):
+        raise RuntimeError(f"phase 11d: gradient {errs[worst]} ({worst}), "
+                           f"launches {lora_flash}")
+
+    # (e) the tensor-parallel TinyVLA step
+    loss_ref, g_ref = ref["vla"]
+    for rank, out in enumerate(outs[2]):
+        loss, grads = out["vla"]
+        idx = rank % 2
+        worst_e = abs(loss - loss_ref) / abs(loss_ref)
+        for name, g in grads.items():
+            w = g_ref[name]
+            if g.shape != w.shape:
+                dim = [a != b for a, b in zip(g.shape, w.shape)].index(True)
+                w = w.chunk(2, dim)[idx]
+            worst_e = max(worst_e, _rel_err(g, w))
+        if set(grads) != set(g_ref) or worst_e > TRAIN_GRAD_REL_TOL:
+            raise RuntimeError(f"phase 11e rank {rank}: step differs by "
+                               f"{worst_e}")
+        perf["vla"] = worst_e
+    log(f"phase 11e: the tensor-parallel TinyVLA step matches the "
+        f"single-process step within {perf['vla']:.2e}")
+
+    missing = [k for k in ("flash_prefill", "flash_prefill_bwd_dq",
+                           "flash_prefill_bwd_dkv")
+               if launches.get(k, 0) == 0]
+    if missing and dev != "cpu":
+        raise RuntimeError(f"phase 11: the pipeline paths launched no "
+                           f"{missing}")
+    # the f32 forward's share of the flash launches: 11c computes in f32,
+    # and 11d's residual stream is f32 from its first adapter on
+    perf["f32_flash"] = sum(
+        o["launches"][k].get("flash_prefill", 0) for o in outs[2] + outs[4]
+        for k in o["launches"] if k.startswith("gen_") or k == "lora")
+    perf["seconds"] = time.perf_counter() - t_start
+    bubble = (PIPE_STAGES - 1) / n_steps
+    log(f"phase 11: bubble (S - 1) / (M + S - 1) = {bubble:.3f}; spawns "
+        f"{json.dumps(perf['spawn_s'])} s (ranks sharing one card, gloo "
+        f"through the host at 2 and 4: not a multi-device speed); launches "
+        f"over every rank {json.dumps(launches)}; {perf['seconds']:.1f} s; "
+        f"{card_line() if dev != 'cpu' else 'cpu'}")
+    return launches, perf
+
+
 def main() -> int:
     try:
         import torch
@@ -3950,12 +4553,16 @@ def main() -> int:
     log(f"phase 10: the parallel layer ran on 1, 2 and 4 ranks "
         f"({par_perf['seconds']:.1f} s)")
 
+    pipe_counts, pipe_perf = run_phase_11(torch)
+    log(f"phase 11: the pipeline- and tensor-parallel LLaVA ran on 4, 1 "
+        f"and 2 ranks ({pipe_perf['seconds']:.1f} s)")
+
     phases = {"frames": counts, "service": service_counts,
               "vla_service": vla_counts, "teacher": teacher_counts,
               "train": train_counts, "vla_train": vla_train_counts,
               "vla_train_bf16": vla_bf16_counts,
               "checkpoint_serve": ckpt_counts, "int8_serve": int8_counts,
-              "parallel": par_counts}
+              "parallel": par_counts, "pipeline": pipe_counts}
     for rec in records:
         for phase, cnt in phases.items():
             rec[f"launches_{phase}"] = cnt.get(rec["name"], 0)
@@ -3963,10 +4570,11 @@ def main() -> int:
                               for cnt in phases.values())
         if rec["launches"] == 0:
             raise RuntimeError(f"no path launched {rec['name']}")
-    # the f32 forward runs on the f32 LoRA step's path (phase 8b) and in
-    # the checkpoint's f32-compute serving (phase 9a)
+    # the f32 forward runs on the f32 LoRA step's path (phase 8b), in the
+    # checkpoint's f32-compute serving (phase 9a) and in phase 11's
+    # tensor-parallel generate and pipelined LoRA step (11c, 11d)
     f32["launches"] = vla_train_counts["flash_prefill"] \
-        + ckpt_counts["flash_prefill"]
+        + ckpt_counts["flash_prefill"] + pipe_perf["f32_flash"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": records}), flush=True)

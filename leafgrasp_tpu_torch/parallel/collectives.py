@@ -12,7 +12,12 @@ int32. ``Axis`` counts the collectives it issues and their payload
 bytes, so a run can report what a frame or a step moved.
 
 ``AllReduceSum``, ``CopyToAxis`` and ``GatherFromAxis`` are the
-differentiable forms the data- and tensor-parallel trainer needs.
+differentiable forms the data- and tensor-parallel trainer needs;
+``ReduceFromAxis``, ``ShiftAlongAxis`` and ``BroadcastFromAxis`` those
+of the pipeline (``parallel/pipeline.py``). Every form but
+``AllReduceSum`` takes the loss to be replicated: every rank computes the
+same loss from the same replicated tensors and it counts once, so a
+gradient that arrives on every rank is not summed again.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["Axis", "AllReduceSum", "CopyToAxis", "GatherFromAxis"]
+__all__ = ["Axis", "AllReduceSum", "CopyToAxis", "GatherFromAxis",
+           "ReduceFromAxis", "ShiftAlongAxis", "BroadcastFromAxis"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
@@ -81,6 +87,15 @@ class Axis:
         """``sum`` with the gradient of a sum (``AllReduceSum``)."""
         return AllReduceSum.apply(t, self)
 
+    def shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """The ``t`` of the rank ``step`` places before this one on the
+        ring of the axis (index ``(index - step) % size``): one list
+        ``all_gather``, as gloo has no ``send`` / ``recv`` for CUDA
+        tensors."""
+        if self.size == 1:
+            return t.detach().clone(memory_format=torch.contiguous_format)
+        return self.gather(t)[(self.index - step) % self.size]
+
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """A copy of the ``t`` of the rank at index ``src`` of the axis."""
         out = t.detach().clone(memory_format=torch.contiguous_format)
@@ -138,3 +153,49 @@ class GatherFromAxis(torch.autograd.Function):
     def backward(ctx, grad):
         lo = ctx.axis.index * ctx.width
         return grad[..., lo:lo + ctx.width].contiguous(), None
+
+
+class ReduceFromAxis(torch.autograd.Function):
+    """Megatron's "g": sum the partial outputs of a row-sharded layer over
+    the axis; the gradient passes as it is, since each rank's partial
+    output feeds the one replicated loss once."""
+
+    @staticmethod
+    def forward(ctx, t, axis: Axis):
+        return axis.sum(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class ShiftAlongAxis(torch.autograd.Function):
+    """The ring permutation ``[(i, (i + 1) % size)]`` (JAX's ``ppermute``
+    of a pipeline stage's output): rank ``i`` takes rank ``i - 1``'s
+    tensor. Its transpose is the reverse ring: rank ``i`` takes rank
+    ``i + 1``'s gradient."""
+
+    @staticmethod
+    def forward(ctx, t, axis: Axis):
+        ctx.axis = axis
+        return axis.shift(t, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.shift(grad, -1), None
+
+
+class BroadcastFromAxis(torch.autograd.Function):
+    """The ``t`` of the rank at index ``src`` on every rank of the axis
+    (JAX: ``psum`` of ``where(index == src, t, 0)``). The replicated
+    output feeds the replicated loss once, so ``src`` takes its own
+    gradient and the other ranks' ``t`` take none: no collective."""
+
+    @staticmethod
+    def forward(ctx, t, axis: Axis, src: int):
+        ctx.keep = axis.index == src
+        return axis.broadcast(t, src)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.keep else torch.zeros_like(grad)), None, None

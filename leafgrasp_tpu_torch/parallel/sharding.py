@@ -12,10 +12,14 @@ orientation.
 
 Placements are ``torch.distributed.tensor`` ones over the (data, model)
 mesh. DTensors describe the layout; the port's layers compute on plain
-local tensors (``ColumnParallelLinear``), so no DTensor reaches a
-hand-written kernel's wrapper. Where GSPMD inserts an all-gather after
-a column-sharded product, ``ColumnParallelLinear`` gathers its output
-into a replicated plain tensor.
+local tensors (``ColumnParallelLinear``, ``ColumnParallel``), so no
+DTensor reaches a hand-written kernel's wrapper. Where GSPMD inserts an
+all-gather after a column-sharded product, these layers gather their
+output into a replicated plain tensor. ``tensor_parallel_`` puts a whole
+model (``LlavaTorch``, ``TinyVLA``) into that form, the counterpart of
+``shard_variables`` and ``jit`` of the JAX package's forward, generate
+and training step: everything else of the model runs as it is, on every
+rank.
 """
 
 from __future__ import annotations
@@ -30,9 +34,11 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from leafgrasp_tpu_torch.parallel.collectives import (Axis, CopyToAxis,
                                                       GatherFromAxis)
 from leafgrasp_tpu_torch.parallel.mesh import data_sharding, mesh_shape
+from leafgrasp_tpu_torch.vla.lora import LoRADense
+from leafgrasp_tpu_torch.vla.quant import QuantDense
 
 __all__ = ["infer_param_shardings", "shard_variables", "shard_batch",
-           "ColumnParallelLinear"]
+           "ColumnParallelLinear", "ColumnParallel", "tensor_parallel_"]
 
 
 # Modules whose 2D kernels shard column-wise over the model axis:
@@ -145,3 +151,83 @@ class ColumnParallelLinear(nn.Module):
     def forward(self, x):
         y = F.linear(CopyToAxis.apply(x, self.axis), self.weight, self.bias)
         return GatherFromAxis.apply(y, self.axis)
+
+
+class ColumnParallel(nn.Module):
+    """A projection whose output features are sharded over a mesh axis,
+    around ``inner``: this rank's slice of the layer it replaces, of the
+    same class (a linear layer with or without a compute type, an int8 or
+    int4 ``QuantDense``, a ``LoRADense`` or ``QuantLoRADense``). It
+    computes this rank's columns on the replicated input (whose gradient
+    sums over the axis) and gathers every rank's columns into a
+    replicated plain tensor. An adapter's ``lora_b`` is sliced with its
+    base; ``lora_a`` stays whole on every rank, each rank's columns give
+    part of its gradient, and that gradient sums over the axis."""
+
+    def __init__(self, inner: nn.Module, axis: Axis):
+        super().__init__()
+        self.inner = inner
+        self.axis = axis
+
+    def forward(self, x):
+        x = CopyToAxis.apply(x, self.axis)
+        inner = self.inner
+        if isinstance(inner, LoRADense) and inner.rank > 0:
+            y = inner.base_forward(x) + inner.adapter_delta(
+                x, CopyToAxis.apply(inner.lora_a, self.axis))
+        else:
+            y = inner(x)
+        return GatherFromAxis.apply(y, self.axis)
+
+
+def _main_weight(name: str, module: nn.Module) -> Optional[str]:
+    """The ``state_dict`` key whose placement decides a projection's: its
+    weight, its quantized codes, or those of a LoRA layer's base."""
+    if isinstance(module, LoRADense):
+        base = module.base
+        return f"{name}.base." + ("kernel_q" if isinstance(base, QuantDense)
+                                  else "weight")
+    if isinstance(module, QuantDense):
+        return f"{name}.kernel_q"
+    if isinstance(module, nn.Linear):
+        return f"{name}.weight"
+    return None
+
+
+def tensor_parallel_(model: nn.Module, mesh,
+                     flax_name: Optional[Callable[[str], str]] = None
+                     ) -> list:
+    """Replace, in place, every projection of ``model`` whose weight the
+    rule (``infer_param_shardings``, with ``flax_name``) shards over the
+    model axis by a ``ColumnParallel`` around this rank's columns of it:
+    the weight's (and bias's, codes' and scales') slice, cloned so that
+    the full tensors can go. Everything else stays as it is, replicated,
+    and every rank runs the model's own forward and generate. Its
+    ``state_dict`` keys gain ``.inner`` at each replaced layer. Returns
+    the names of the replaced layers."""
+    tp = Axis(mesh, "model")
+    specs = infer_param_shardings(model.state_dict(), mesh, flax_name)
+    replaced = []
+    for name, module in list(model.named_modules()):
+        if any(name.startswith(r + ".") for r in replaced):
+            continue
+        key = _main_weight(name, module)
+        if key is None or not isinstance(specs[key][1], Shard):
+            continue
+        for pname, p in list(module.named_parameters()):
+            full = f"{name}.{pname}"
+            if pname.endswith("lora_a") or not isinstance(specs[full][1],
+                                                          Shard):
+                continue
+            owner, _, leaf = pname.rpartition(".")
+            setattr(module.get_submodule(owner), leaf, nn.Parameter(
+                _local_shard(p.detach(), specs[full], mesh).clone(),
+                requires_grad=p.requires_grad))
+        for sub in module.modules():
+            if isinstance(sub, nn.Linear):
+                sub.out_features = sub.weight.shape[0]
+            elif isinstance(sub, QuantDense):
+                sub.features = sub.kernel_q.shape[1]
+        model.set_submodule(name, ColumnParallel(module, tp))
+        replaced.append(name)
+    return replaced

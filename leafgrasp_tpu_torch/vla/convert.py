@@ -10,11 +10,14 @@ transposes: Dense kernels (in, out) -> (out, in), convolution kernels
 nibble-packed) and ``kernel_scale`` keep the JAX orientation. Reads no
 files itself and imports neither JAX nor Flax.
 
-The other way, ``torch_to_flax_tiny_vla`` and ``torch_to_flax_llava_adapter``
-give the flat ``"a/b/c"`` keys and orientation of the JAX package's
-``.npz`` files (``flax.traverse_util.flatten_dict`` joined by ``/``):
-what the JAX trainers' ``save_adapter`` and ``run_vla_sweep``'s
-``pretrained_base.npz`` hold, so that either package loads the other's.
+The other way, ``torch_to_flax_tiny_vla``, ``torch_to_flax_llava`` and
+``torch_to_flax_llava_adapter`` give the flat ``"a/b/c"`` keys and
+orientation of the JAX package's ``.npz`` files
+(``flax.traverse_util.flatten_dict`` joined by ``/``): what the JAX
+trainers' ``save_adapter`` and ``run_vla_sweep``'s ``pretrained_base.npz``
+hold, so that either package loads the other's. ``llava_flax_name`` is
+the key map alone, which the tensor-parallel rule reads
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from leafgrasp_tpu_torch.vla.quant import pack_nibbles
 
 __all__ = ["unflatten_tree", "flax_to_torch_tiny_vla",
            "flax_to_torch_llava", "torch_to_flax_tiny_vla",
+           "torch_to_flax_llava", "llava_flax_name",
            "torch_to_flax_llava_adapter"]
 
 
@@ -220,6 +224,55 @@ def torch_to_flax_tiny_vla(state: Mapping[str, torch.Tensor]
             raise KeyError(f"unknown TinyVLA entry {key!r}")
         leaf, a = _leaf_to_flax(parts, value)
         out["/".join(path + [leaf])] = a
+    return out
+
+
+# a ``weight`` leaf -> its Flax leaf, by the module that holds it: the
+# LayerNorms' scale, the embedding table, the RMSNorms' weight; a kernel
+# everywhere else
+_LAYER_NORMS = ("pre_layrnorm", "layer_norm1", "layer_norm2")
+_RMS_NORMS = ("input_layernorm", "post_attention_layernorm", "norm")
+
+
+def llava_flax_name(key: str) -> str:
+    """A ``LlavaTorch.state_dict()`` key -> the flat Flax path of the same
+    variable in ``LlavaJax``: ``layers.3.self_attn.q_proj.base.weight`` ->
+    ``layer_3/self_attn/q_proj/base/kernel``,
+    ``vision_tower.layers.0.layer_norm1.weight`` ->
+    ``vision_tower/layer_0/layer_norm1/scale``; plain, LoRA (``base``,
+    ``lora_a``, ``lora_b``) and quantized (``kernel_q``,
+    ``kernel_scale``) keys alike."""
+    parts = key.split(".")
+    path = []
+    i = 0
+    while i < len(parts) - 1:
+        if parts[i] == "layers":
+            path.append(f"layer_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    leaf = parts[-1]
+    if leaf == "weight":
+        owner = path[-1]
+        leaf = ("scale" if owner in _LAYER_NORMS
+                else "embedding" if owner == "embed_tokens"
+                else "weight" if owner in _RMS_NORMS else "kernel")
+    return "/".join(path + [leaf])
+
+
+def torch_to_flax_llava(state: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, np.ndarray]:
+    """``LlavaTorch.state_dict()`` entries -> the flat Flax keys of
+    ``LlavaJax``'s params, kernels in the Flax orientation (the inverse
+    of ``flax_to_torch_llava``; int4 codes stay nibble-packed)."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        name = llava_flax_name(key)
+        a = _np(value)
+        if name.endswith("/kernel"):
+            a = np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a.T
+        out[name] = a
     return out
 
 

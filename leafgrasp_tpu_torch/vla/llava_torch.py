@@ -37,12 +37,12 @@ import torch.nn.functional as F
 
 from leafgrasp_tpu_torch.kernels import flash_prefill as _fp
 from leafgrasp_tpu_torch.utils.device import resolve_device
-from leafgrasp_tpu_torch.vla.lora import LoRADense, linear_promoted
+from leafgrasp_tpu_torch.vla.lora import LoRADense, PromotedLinear
 from leafgrasp_tpu_torch.vla.quant import QuantDense, QuantLoRADense
 
 __all__ = ["LlavaTorchConfig", "LlavaTorch", "convert_hf_llava_state_dict",
            "config_from_hf", "attach_lora", "init_random_",
-           "greedy_generate_llava"]
+           "random_llava_state", "causal_mask", "greedy_generate_llava"]
 
 FLASH_MIN_TOKENS = 128
 
@@ -139,10 +139,20 @@ def config_from_hf(hf_config) -> "LlavaTorchConfig":
 
 # ------------------------------------------------------ typed primitives --
 
-def _dense(x, lin: nn.Linear, dt: torch.dtype):
-    """A linear layer with compute type ``dt``."""
-    bias = None if lin.bias is None else lin.bias.to(dt)
-    return F.linear(x.to(dt), lin.weight.to(dt), bias)
+class _Dense(nn.Linear):
+    """A projection with a compute type (Flax's ``nn.Dense(dtype=dt)``):
+    input, weight and bias cast to it. The language model's are
+    bias-free."""
+
+    def __init__(self, in_features, features, dt, bias: bool = False,
+                 **fk):
+        super().__init__(in_features, features, bias=bias, **fk)
+        self.compute_dtype = dt
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 def _layer_norm(x, ln: nn.LayerNorm, dt: torch.dtype):
@@ -176,27 +186,27 @@ class _ClipAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.vis_hidden
-        self.q_proj = nn.Linear(d, d, **fk)
-        self.k_proj = nn.Linear(d, d, **fk)
-        self.v_proj = nn.Linear(d, d, **fk)
-        self.out_proj = nn.Linear(d, d, **fk)
+        dt = cfg.torch_dtype
+        self.q_proj = _Dense(d, d, dt, bias=True, **fk)
+        self.k_proj = _Dense(d, d, dt, bias=True, **fk)
+        self.v_proj = _Dense(d, d, dt, bias=True, **fk)
+        self.out_proj = _Dense(d, d, dt, bias=True, **fk)
 
     def forward(self, x):
         c = self.cfg
         hd = c.vis_hidden // c.vis_heads
-        dt = c.torch_dtype
         b, t = x.shape[:2]
 
         def split(a):
             return a.reshape(b, t, c.vis_heads, hd)
 
-        q = split(_dense(x, self.q_proj, dt)) / math.sqrt(hd)
-        k = split(_dense(x, self.k_proj, dt))
-        v = split(_dense(x, self.v_proj, dt))
+        q = split(self.q_proj(x)) / math.sqrt(hd)
+        k = split(self.k_proj(x))
+        v = split(self.v_proj(x))
         scores = _matmul_f32("bthd,bshd->bhts", q, k)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = _einsum_promoted("bhts,bshd->bthd", probs, v)
-        return _dense(out.reshape(b, t, c.vis_hidden), self.out_proj, dt)
+        return self.out_proj(out.reshape(b, t, c.vis_hidden))
 
 
 class _ClipLayer(nn.Module):
@@ -206,15 +216,17 @@ class _ClipLayer(nn.Module):
         self.layer_norm1 = nn.LayerNorm(cfg.vis_hidden, eps=1e-5, **fk)
         self.self_attn = _ClipAttention(cfg, **fk)
         self.layer_norm2 = nn.LayerNorm(cfg.vis_hidden, eps=1e-5, **fk)
-        self.fc1 = nn.Linear(cfg.vis_hidden, cfg.vis_intermediate, **fk)
-        self.fc2 = nn.Linear(cfg.vis_intermediate, cfg.vis_hidden, **fk)
+        dt = cfg.torch_dtype
+        self.fc1 = _Dense(cfg.vis_hidden, cfg.vis_intermediate, dt,
+                          bias=True, **fk)
+        self.fc2 = _Dense(cfg.vis_intermediate, cfg.vis_hidden, dt,
+                          bias=True, **fk)
 
     def forward(self, x):
         dt = self.cfg.torch_dtype
         x = x + self.self_attn(_layer_norm(x, self.layer_norm1, dt))
         h = _layer_norm(x, self.layer_norm2, dt)
-        h = _quick_gelu(_dense(h, self.fc1, dt))
-        return x + _dense(h, self.fc2, dt)
+        return x + self.fc2(_quick_gelu(self.fc1(h)))
 
 
 class ClipVisionTower(nn.Module):
@@ -260,17 +272,6 @@ class ClipVisionTower(nn.Module):
 
 
 # -------------------------------------------------------------- Mistral --
-
-class _Dense(nn.Linear):
-    """Bias-free projection with the config's compute type."""
-
-    def __init__(self, in_features, features, dt, **fk):
-        super().__init__(in_features, features, bias=False, **fk)
-        self.compute_dtype = dt
-
-    def forward(self, x):
-        return _dense(x, self, self.compute_dtype)
-
 
 def _proj(in_features: int, features: int, cfg: LlavaTorchConfig, **fk):
     """Language-model projection: a plain bias-free linear layer, or
@@ -452,8 +453,10 @@ class LlavaTorch(nn.Module):
         self.cfg = cfg
         fk = dict(device=resolve_device(device), dtype=param_dtype)
         self.vision_tower = ClipVisionTower(cfg, **fk)
-        self.mm_linear_1 = nn.Linear(cfg.vis_hidden, cfg.hidden, **fk)
-        self.mm_linear_2 = nn.Linear(cfg.hidden, cfg.hidden, **fk)
+        dt = cfg.torch_dtype
+        self.mm_linear_1 = _Dense(cfg.vis_hidden, cfg.hidden, dt, bias=True,
+                                  **fk)
+        self.mm_linear_2 = _Dense(cfg.hidden, cfg.hidden, dt, bias=True, **fk)
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden, **fk)
         self.layers = nn.ModuleList(_MistralLayer(cfg, **fk)
                                     for _ in range(cfg.layers))
@@ -465,8 +468,8 @@ class LlavaTorch(nn.Module):
                                       group=cfg.quant_group,
                                       device=fk["device"])
         else:
-            self.lm_head = nn.Linear(cfg.hidden, cfg.vocab_size, bias=False,
-                                     **fk)
+            self.lm_head = PromotedLinear(cfg.hidden, cfg.vocab_size,
+                                          bias=False, **fk)
         if cfg.image_grid_pinpoints:
             # LLaVA-NeXT: the embedding that ends every row of the
             # unpadded feature grid
@@ -518,21 +521,15 @@ class LlavaTorch(nn.Module):
     def vision_project(self, pixel_values):
         """(B, H, W, 3) pixel values -> (B, N, hidden) projected vision
         features."""
-        dt = self.cfg.torch_dtype
         feats = self.vision_tower(pixel_values)
-        h = F.gelu(_dense(feats, self.mm_linear_1, dt))
-        return _dense(h, self.mm_linear_2, dt)
+        return self.mm_linear_2(F.gelu(self.mm_linear_1(feats)))
 
-    def forward(self, input_ids, pixel_values=None, positions=None,
-                mask=None, caches=None, image_features=None,
-                logits_last_only: bool = False, pad=None):
-        """input_ids: (B, T); pixel_values: (B, H, W, 3) or None.
-        Image-token rows of the text embedding are replaced by projected
-        vision features, the k-th image token of the flattened batch by
-        the k-th feature row; ``image_features`` (.., hidden) may be
-        given instead of pixels. ``mask`` None means causal (with the
-        sliding window, if any). ``pad``: see ``_MistralAttention``.
-        Returns (logits (B, T, vocab), caches)."""
+    def embed(self, input_ids, pixel_values=None, image_features=None):
+        """(B, T) ids -> (B, T, hidden) text embedding in the compute type
+        with the image-token rows replaced by projected vision features:
+        the k-th image token of the flattened batch by the k-th feature
+        row. ``image_features`` (.., hidden) may be given instead of
+        pixels."""
         c = self.cfg
         x = F.embedding(input_ids, self.embed_tokens.weight) \
             .to(c.torch_dtype)
@@ -548,23 +545,32 @@ class LlavaTorch(nn.Module):
                 .reshape(x.shape)
             pt = torch.promote_types(take.dtype, x.dtype)
             x = torch.where(is_img[..., None], take.to(pt), x.to(pt))
+        return x
 
+    def head(self, x, logits_last_only: bool = False):
+        """The final norm and ``lm_head`` over the decoder's output; with
+        ``logits_last_only`` the last position only (greedy decode reads
+        no other)."""
+        x = self.norm(x)
+        if logits_last_only:
+            x = x[:, -1:]
+        return self.lm_head(x)
+
+    def forward(self, input_ids, pixel_values=None, positions=None,
+                mask=None, caches=None, image_features=None,
+                logits_last_only: bool = False, pad=None):
+        """input_ids: (B, T); pixel_values: (B, H, W, 3) or None (see
+        ``embed``). ``mask`` None means causal (with the sliding window,
+        if any). ``pad``: see ``_MistralAttention``.
+        Returns (logits (B, T, vocab), caches)."""
+        c = self.cfg
+        x = self.embed(input_ids, pixel_values, image_features)
         b, t = input_ids.shape
         dev = input_ids.device
         if positions is None:
             positions = torch.arange(t, device=dev).expand(b, t)
         if mask is None:
-            mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
-                                         device=dev))
-            if c.sliding_window is not None:
-                qi = torch.arange(t, device=dev)[:, None]
-                ki = torch.arange(t, device=dev)[None, :]
-                mask = mask & (qi - ki < c.sliding_window)
-            mask = mask[None, None]
-            if c.sliding_window is None or t <= c.sliding_window:
-                pad = torch.zeros((b,), dtype=torch.int32, device=dev)
-            else:
-                pad = None
+            mask, pad = causal_mask(c, b, t, dev)
 
         rope = _rope_tables(positions, c.head_dim, c.rope_theta)
         new_caches = []
@@ -572,13 +578,24 @@ class LlavaTorch(nn.Module):
             cache = caches[i] if caches is not None else None
             x, nc = layer(x, rope, mask, cache, pad)
             new_caches.append(nc)
-        x = self.norm(x)
-        if logits_last_only:
-            # greedy decode reads the last position only
-            x = x[:, -1:]
-        logits = self.lm_head(x) if c.quantized \
-            else linear_promoted(x, self.lm_head.weight)
+        logits = self.head(x, logits_last_only)
         return logits, (new_caches if caches is not None else None)
+
+
+def causal_mask(c: LlavaTorchConfig, b: int, t: int, dev):
+    """The prompt pass's default mask, (1, 1, t, t) causal with the
+    sliding window if any, and its ``pad``: (b,) zeros where the mask is
+    purely causal (no window, or ``t`` within it), which lets the flash
+    route run; None otherwise."""
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))
+    if c.sliding_window is not None:
+        qi = torch.arange(t, device=dev)[:, None]
+        ki = torch.arange(t, device=dev)[None, :]
+        mask = mask & (qi - ki < c.sliding_window)
+    pad = None
+    if c.sliding_window is None or t <= c.sliding_window:
+        pad = torch.zeros((b,), dtype=torch.int32, device=dev)
+    return mask[None, None], pad
 
 
 # ------------------------------------------------------------ weights ----
@@ -597,13 +614,46 @@ def init_random_(model: LlavaTorch, generator: torch.Generator,
     same tokens whatever its text; at unit gain activations have the
     scale of a trained model's and the text decides."""
     with torch.no_grad():
-        for module in model.modules():
-            for name, p in module.named_parameters(recurse=False):
-                p.normal_(0.0, std, generator=generator)
-                if name == "weight" and isinstance(
-                        module, (_RMSNorm, nn.LayerNorm)):
-                    p.add_(1.0)
+        for _, module, name, p in _init_order(model):
+            _draw_(p, module, name, generator, std)
     return model
+
+
+def _init_order(model: nn.Module):
+    """(key, module, leaf name, parameter) in the order ``init_random_``
+    draws them."""
+    for prefix, module in model.named_modules():
+        for name, p in module.named_parameters(recurse=False):
+            yield (f"{prefix}.{name}" if prefix else name), module, name, p
+
+
+def _draw_(t, module, name: str, generator, std: float) -> None:
+    t.normal_(0.0, std, generator=generator)
+    if name == "weight" and isinstance(module, (_RMSNorm, nn.LayerNorm)):
+        t.add_(1.0)
+
+
+def random_llava_state(cfg: LlavaTorchConfig, generator: torch.Generator,
+                       keep, device=None,
+                       param_dtype: torch.dtype = torch.float32,
+                       std: float = 0.02) -> Dict[str, torch.Tensor]:
+    """The entries of the ``state_dict`` that ``init_random_`` gives
+    ``LlavaTorch(cfg, device, param_dtype)`` from ``generator``, for the
+    keys where ``keep(key)`` is true. Every other parameter is drawn into
+    a scratch tensor and dropped, so the generator advances as under
+    ``init_random_`` and the kept tensors equal its, while the whole
+    model never exists: a pipeline rank draws its own stage and the
+    replicated rest this way. ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    meta = LlavaTorch(cfg, device="meta", param_dtype=param_dtype)
+    out = {}
+    with torch.no_grad():
+        for key, module, name, p in _init_order(meta):
+            t = torch.empty(p.shape, dtype=p.dtype, device=dev)
+            _draw_(t, module, name, generator, std)
+            if keep(key):
+                out[key] = t
+    return out
 
 
 def convert_hf_llava_state_dict(sd: Dict[str, Any],

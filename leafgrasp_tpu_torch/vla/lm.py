@@ -20,7 +20,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from leafgrasp_tpu_torch.utils.device import resolve_device
-from leafgrasp_tpu_torch.vla.lora import LoRADense, linear_promoted
+from leafgrasp_tpu_torch.vla.lora import LoRADense, PromotedLinear
 
 __all__ = ["VLAModelConfig", "ByteTokenizer", "TinyVLA", "greedy_generate",
            "init_vla"]
@@ -210,8 +210,8 @@ class TinyVLA(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, device=device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, device=device)
-        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False,
-                                 device=device)
+        self.lm_head = PromotedLinear(cfg.dim, cfg.vocab_size, bias=False,
+                                      device=device)
 
     def forward(self, tokens, image=None, positions=None, mask=None,
                 caches=None):
@@ -232,7 +232,7 @@ class TinyVLA(nn.Module):
             cache = caches[i] if caches is not None else None
             x, nc = layer(x, positions, mask, cache)
             new_caches.append(nc)
-        logits = linear_promoted(self.final_norm(x), self.lm_head.weight)
+        logits = self.lm_head(self.final_norm(x))
         return logits, (new_caches if caches is not None else None)
 
 

@@ -48,6 +48,14 @@ def linear_promoted(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(x.to(dt), weight.to(dt), bias)
 
 
+class PromotedLinear(nn.Linear):
+    """A linear layer without a compute type (``linear_promoted``): the
+    language models' unquantized ``lm_head``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_promoted(x, self.weight, self.bias)
+
+
 class LoRADense(nn.Module):
     """Linear layer with an optional rank-``rank`` adapter (0: none)."""
 
@@ -90,14 +98,20 @@ class LoRADense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.base_forward(x)
         if self.rank > 0:
-            h = x
-            if self.training and self.dropout > 0 \
-                    and self.dropout_in_training:
-                h = self._dropped(x)
-            dt = torch.promote_types(h.dtype, self.lora_a.dtype)
-            delta = (h.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
-            y = y + (self.alpha / self.rank) * delta
+            y = y + self.adapter_delta(x, self.lora_a)
         return y
+
+    def adapter_delta(self, x: torch.Tensor,
+                      lora_a: torch.Tensor) -> torch.Tensor:
+        """(alpha / r) (dropout(x) A) B with the ``A`` given: the layer's
+        own, or the tensor-parallel form's (parallel/sharding.py), whose
+        gradient sums over the model axis."""
+        h = x
+        if self.training and self.dropout > 0 and self.dropout_in_training:
+            h = self._dropped(x)
+        dt = torch.promote_types(h.dtype, lora_a.dtype)
+        delta = (h.to(dt) @ lora_a.to(dt)) @ self.lora_b.to(dt)
+        return (self.alpha / self.rank) * delta
 
 
 def set_dropout_generator(model: nn.Module,

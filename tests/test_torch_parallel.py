@@ -27,6 +27,14 @@ VLA_CFG = dict(dim=32, n_layers=1, n_heads=2, n_kv_heads=1, mlp_hidden=64,
                vision_tokens=2, vision_patch=16, lora_rank=4)
 BATCH = 8
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DRYRUN_PATHS = ("CNN dp+tp train step", "dp batched pipeline",
+                "row-sharded full-frame pipeline", "tp VLA LoRA step",
+                "tp LLaVA forward", "tp LLaVA padded-batch generate",
+                "tp int8-quantized LLaVA generate",
+                "tp int4 group-quantized LLaVA generate",
+                "pp LLaVA forward (2 stages", "pp x tp LLaVA forward",
+                "pp LoRA training step (2 stages, remat)",
+                "tp anyres LLaVA-NeXT generate")
 
 
 def _scene(h, w, n, seed, margin):
@@ -261,5 +269,9 @@ def test_dryrun_tool_runs_on_four_cpu_ranks():
          "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
         timeout=240)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    last = proc.stdout.strip().splitlines()[-1]
-    assert '"ok": true' in last, proc.stdout[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert '"ok": true' in lines[-1], proc.stdout[-3000:]
+    # one line a path of dryrun_multichip, 1 to 11, in its order
+    for line, words in zip(lines[:-1], DRYRUN_PATHS):
+        assert line.endswith("OK") and words in line, (line, words)
+    assert len(lines) == len(DRYRUN_PATHS) + 1, proc.stdout[-3000:]
