@@ -189,6 +189,26 @@ Phases, each a hard failure (non-zero exit):
    (e) the tensor-parallel TinyVLA LoRA step on 2 ranks against the
    single-process step. Each rank counts its launches; their sum is the
    ``launches_pipeline`` term.
+12. the evaluation, parity and training tools (``tools/*_torch.py``)
+   through their ``main``s, launches counted over the phase (the
+   ``launches_tools`` term; K1, K3 and K2 must launch, and K2's
+   backward in the training CLIs): (a) parity, the 26 golden scenes
+   (270 x 360) and the 16 production ones (1080 x 1440), every row's
+   leaf, pixel, flag and message equal to PARITY.json /
+   PARITY_production.json and the oracle's pixel where it matched
+   there; (b) the fuzzer's 100 draws at 540 x 720, its found and
+   degenerate counts equal to artifacts/fuzz_parity.json's and its
+   first 10 cases equal to the port's CPU path; (c) the system accuracy
+   with the converted CNNs (artifacts/torch/): the standard CNN on the
+   record's 18 scenes, the hard corpus's ``deep`` CNN with
+   ``train_stats`` on 30 hard scenes, each row's leaves, pixels and
+   teacher point equal to the committed record; (d) the VLA evaluation
+   through two services, 26 hard scenes: every row and column equal to
+   the port's CPU record, the geometric columns equal to the JAX
+   tool's (the grafted reference and the committed record), the VLA
+   columns to the grafted reference wherever the scorer's prompts print
+   what JAX's printed; (e) each training CLI once at the cut
+   TOOLS_TRAIN_CUTS.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -4448,6 +4468,228 @@ def run_phase_11(torch, setup=None):
     return launches, perf
 
 
+# --------------------------------------------------------------- phase 12 --
+
+# the evaluation, parity and training tools (tools/*_torch.py) run through
+# their ``main``s: the evaluations at the committed records' scenes and
+# sizes, the training CLIs at a cut size (TOOLS_TRAIN_CUTS)
+TOOLS_OUT = os.path.join("build", "chip_smoke_tools")
+TOOLS_FUZZ_CROSS_CHECK = 10
+TOOLS_HARD = ["--hard", "--arch", "deep", "--ckpt",
+              os.path.join("artifacts", "torch", "grasp_cnn_hard",
+                           "best_model")]
+# (name, --check record, flags) of the system-accuracy runs: each
+# record's scenes (the plain record holds seeds 100-117, 14 of them live:
+# it was made with --scenes 18; the hard one with the default 30). The
+# hard record with the per-patch min-max (artifacts/
+# system_accuracy_hard.json) is left out for time: 26/26 in my first
+# call of PR 14, 31.9 s
+TOOLS_ACCURACY = (
+    ("system_accuracy", "artifacts/system_accuracy.json",
+     ["--scenes", "18"]),
+    ("system_accuracy_hard_trainstats",
+     "artifacts/system_accuracy_hard_trainstats.json",
+     TOOLS_HARD + ["--norm", "train_stats"]))
+# the VLA record of today's JAX tool with the pretrained base grafted into
+# its scorer and the prompts it printed (tests/test_torch_tools_vla.py);
+# the committed record's scorer ran on freshly initialized decoder
+# projections (ROADMAP C), so only its geometric columns are held
+TOOLS_VLA_RECORD = os.path.join("artifacts", "torch", "reference",
+                                "system_accuracy_vla.json")
+TOOLS_VLA_COMMITTED = os.path.join("artifacts", "system_accuracy_vla.json")
+# the port's own answers on the CPU (tools/eval_vla_system_torch.py
+# --device cpu): the card must give every row and column of them
+TOOLS_VLA_PORT_CPU = os.path.join("artifacts", "torch", "reference",
+                                  "system_accuracy_vla_port_cpu.json")
+TOOLS_TRAIN_CUTS = {
+    "train_reference_model_torch": ["--frames", "4", "--epochs", "2"],
+    "make_training_corpus_torch": ["--frames", "4", "--fresh"],
+    "train_best_config_torch": ["--data", TRAIN_CORPUS, "--arch", "deep",
+                                "--epochs", "2"],
+    "run_cnn_sweep_torch": ["--data", TRAIN_CORPUS, "--limit", "2",
+                            "--epochs", "1"],
+    "train_vla_sweep_torch": ["--num-train", "8", "--num-eval", "4",
+                              "--pretrain-epochs", "1"]}
+TOOLS_KERNELS = ("fused_score_maps", "minplus_pass2", "fused_attention_gate")
+TOOLS_DEVICE = "cuda"
+
+
+def _tool(torch, perf, name, module, argv):
+    """One tool's ``main`` on the card: its summary; its wall time and
+    launches go into ``perf``."""
+    import importlib
+    from leafgrasp_tpu_torch.kernels import launch_counts
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = importlib.import_module(f"tools.{module}").main(argv)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    perf[name] = {"s": time.perf_counter() - t0,
+                  "launches": {k: after[k] - before.get(k, 0)
+                               for k in after if after[k] - before.get(k, 0)}}
+    log(f"phase 12 {name}: {perf[name]['s']:.1f} s, launches "
+        f"{json.dumps(perf[name]['launches'])}")
+    return out
+
+
+def _tool_check(name, ok, what) -> None:
+    if not ok:
+        raise RuntimeError(f"phase 12 {name}: {what}")
+
+
+def _phase12_parity(torch, perf):
+    """12a: parity against PARITY.json and PARITY_production.json."""
+    for scale, n in (("golden", 26), ("production", 16)):
+        out = _tool(torch, perf, f"parity_{scale}", "parity_report_torch",
+                    ["--scale", scale, "--out",
+                     os.path.join(TOOLS_OUT, f"parity_{scale}.json")])
+        eq = [out[k] for k in ("leaf_equal", "uv_equal", "degenerate_equal",
+                               "message_equal")]
+        _tool_check(f"parity_{scale}", out["mismatches"] == 0
+                    and out["scenes"] == n and eq == [n] * 4
+                    and out["oracle_uv_equal"] == out["oracle_uv_rows"],
+                    json.dumps(out)[:600])
+        log(f"phase 12a parity {scale}: {n} scenes at {out['frame']}: leaf, "
+            f"pixel, flag, message equal to JAX's record {eq}; the oracle's "
+            f"pixel {out['oracle_uv_equal']}/{out['oracle_uv_rows']}; "
+            f"{out['degenerate_scenes']} degenerate")
+
+
+def _phase12_fuzz(torch, perf):
+    """12b: the fuzzer's counts against artifacts/fuzz_parity.json's, its
+    first cases against the port's CPU path."""
+    out = _tool(torch, perf, "fuzz", "fuzz_parity_torch",
+                ["--cross-check", str(TOOLS_FUZZ_CROSS_CHECK), "--out",
+                 os.path.join(TOOLS_OUT, "fuzz.json")])
+    _tool_check("fuzz", out["mismatch_count"] == 0 and out["stats_compared"]
+                and out["cross_checked"] == TOOLS_FUZZ_CROSS_CHECK,
+                json.dumps(out)[:600])
+    log(f"phase 12b fuzz: {out['stats']} against the record's "
+        f"{out['record_stats']}; {out['cross_checked']} cases equal to the "
+        f"CPU path (found, degenerate, leaf, pixel, message)")
+
+
+def _phase12_accuracy(torch, perf):
+    """12c: the system accuracy, plain and hard, with the converted
+    CNNs."""
+    for name, record, extra in TOOLS_ACCURACY:
+        with open(record) as f:
+            n = len(json.load(f)["rows"])
+        out = _tool(torch, perf, name, "eval_system_accuracy_torch",
+                    extra + ["--check", record, "--out",
+                             os.path.join(TOOLS_OUT, f"{name}.json")])
+        _tool_check(name, not out["mismatches"] and out["scenes"] == n
+                    and out["rows_equal"] == n, json.dumps(out)[:800])
+        log(f"phase 12c {name}: {out['rows_equal']}/{n} rows equal to "
+            f"{record} ({out['cnn_source']}, {out['patch_normalization']}; "
+            f"leaf agreement {out['leaf_agreement']}, px shift mean "
+            f"{out['px_shift_mean']})")
+
+
+def _phase12_vla(torch, perf):
+    """12d: the VLA system evaluation through two GraspServices, held to
+    the port's CPU record on every row and column, to today's JAX tool
+    (grafted) on the geometric columns and on the VLA columns wherever
+    the scorer's prompts print what JAX's printed, and to the committed
+    record on the geometric columns."""
+    from tools._torch_eval import compare_rows
+    from tools.eval_vla_system_torch import check_rows
+    path = os.path.join(TOOLS_OUT, "system_accuracy_vla.json")
+    out = _tool(torch, perf, "vla_system", "eval_vla_system_torch",
+                ["--check", TOOLS_VLA_PORT_CPU, "--out", path])
+    _tool_check("vla_system", not out["mismatches"]
+                and out["rows_equal"] == out["rows_compared"]
+                == out["rows_vla_compared"] == out["scenes"]
+                and out["prompts_equal"] == out["prompts_compared"],
+                json.dumps(out)[:800])
+    with open(path) as f:
+        mine = json.load(f)
+    with open(TOOLS_VLA_RECORD) as f:
+        jax_ref = json.load(f)
+    vs_jax = check_rows(mine["rows"], mine["prompts"], jax_ref,
+                        range(100, 100 + 26))
+    _tool_check("vla_system", not vs_jax["mismatches"],
+                f"against {TOOLS_VLA_RECORD}: {vs_jax}")
+    with open(TOOLS_VLA_COMMITTED) as f:
+        committed = json.load(f)["rows"]
+    common = {r["seed"] for r in mine["rows"]} & {r["seed"]
+                                                  for r in committed}
+    rows = [r for r in mine["rows"] if r["seed"] in common]
+    geo = compare_rows(rows, committed, common, ("leaf_geo", "uv_geo"))
+    vla = compare_rows(rows, committed, common,
+                       ("leaf_vla", "strategy", "vla_leaf"))
+    _tool_check("vla_system", not geo, f"geometric columns differ from "
+                f"{TOOLS_VLA_COMMITTED}: {geo}")
+    log(f"phase 12d vla_system: {out['rows_equal']}/{out['scenes']} rows "
+        f"equal to the port's CPU record {TOOLS_VLA_PORT_CPU}, every "
+        f"column; against {TOOLS_VLA_RECORD}: {vs_jax['rows_equal']} of "
+        f"{vs_jax['rows_compared']} common rows equal, the geometric "
+        f"columns all, the VLA columns on the {vs_jax['rows_vla_compared']} "
+        f"whose prompts print what JAX's printed "
+        f"({vs_jax['prompts_equal']}/{vs_jax['prompts_compared']} reranked "
+        f"frames; the others part in a centroid's last bit, ROADMAP C); "
+        f"against {TOOLS_VLA_COMMITTED} (a scorer with untrained "
+        f"projections): {len(common)} common scenes, geometric columns "
+        f"equal, {len(vla)} VLA fields differ; "
+        f"{out['strategy_distribution']}")
+
+
+def _phase12_train(torch, perf):
+    """12e: each training CLI once at a cut size; returns the gate's
+    backward launches."""
+    from leafgrasp_tpu_torch.kernels import launch_counts
+    log(f"phase 12e cuts: {json.dumps(TOOLS_TRAIN_CUTS)}")
+    before = launch_counts()["attention_gate_backward"]
+    for module, cut in TOOLS_TRAIN_CUTS.items():
+        out = _tool(torch, perf, module, module,
+                    cut + ["--out", os.path.join(TOOLS_OUT, module)])
+        log(f"phase 12e {module}: {json.dumps(out)[:400]}")
+        if "experiments" in out:
+            ok = len(out["experiments"]) == 4 and all(
+                np.isfinite(r["final_loss"]) for r in out["experiments"])
+        elif "runs" in out:
+            ok = out["runs"] == 2 and out["best_f1"] is not None
+        elif "best_val_loss" in out:
+            ok = np.isfinite(out["best_val_loss"]) and os.path.exists(
+                out["checkpoint"]) and out["device"] == TOOLS_DEVICE
+        else:
+            ok = out["samples"] > 0 and out["device"] == TOOLS_DEVICE
+        _tool_check(module, ok, json.dumps(out)[:600])
+    return launch_counts()["attention_gate_backward"] - before
+
+
+def run_phase_12(torch):
+    """Phase 12: the port's evaluation, parity and training tools on the
+    card, each held against the JAX package's committed records."""
+    import shutil
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    # the collectors resume from what a run left on disk
+    shutil.rmtree(TOOLS_OUT, ignore_errors=True)
+    os.makedirs(TOOLS_OUT)
+    perf = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t_start = time.perf_counter()
+    _phase12_parity(torch, perf)
+    _phase12_fuzz(torch, perf)
+    _phase12_accuracy(torch, perf)
+    _phase12_vla(torch, perf)
+    train_bwd = _phase12_train(torch, perf)
+    counts = launch_counts()
+    missing = [k for k in TOOLS_KERNELS if counts[k] == 0]
+    _tool_check("launches", not missing and train_bwd > 0,
+                f"the tools launched no {missing} (gate backward "
+                f"{train_bwd})")
+    per_frame = {k: v / 16 for k, v in
+                 perf["parity_production"]["launches"].items()}
+    perf["seconds"] = time.perf_counter() - t_start
+    log(f"phase 12: launches a production parity frame "
+        f"{json.dumps(per_frame)}; over the tools {json.dumps(counts)}; "
+        f"{perf['seconds']:.1f} s; {card_line()}")
+    return counts, perf
+
+
 def main() -> int:
     try:
         import torch
@@ -4557,12 +4799,17 @@ def main() -> int:
     log(f"phase 11: the pipeline- and tensor-parallel LLaVA ran on 4, 1 "
         f"and 2 ranks ({pipe_perf['seconds']:.1f} s)")
 
+    tool_counts, tool_perf = run_phase_12(torch)
+    log(f"phase 12: the evaluation, parity and training tools held the "
+        f"committed records on the card ({tool_perf['seconds']:.1f} s)")
+
     phases = {"frames": counts, "service": service_counts,
               "vla_service": vla_counts, "teacher": teacher_counts,
               "train": train_counts, "vla_train": vla_train_counts,
               "vla_train_bf16": vla_bf16_counts,
               "checkpoint_serve": ckpt_counts, "int8_serve": int8_counts,
-              "parallel": par_counts, "pipeline": pipe_counts}
+              "parallel": par_counts, "pipeline": pipe_counts,
+              "tools": tool_counts}
     for rec in records:
         for phase, cnt in phases.items():
             rec[f"launches_{phase}"] = cnt.get(rec["name"], 0)

@@ -40,7 +40,8 @@ from leafgrasp_tpu_torch.utils.device import host_read
 __all__ = ["GraspScores", "SCORE_CHANNELS", "compute_grasp_scores",
            "sdf_score_map", "approach_score_map", "isolation_score_map",
            "accessibility_score_map", "combine_traditional",
-           "valid_region_mask", "stem_penalty_map", "tip_penalty_map"]
+           "valid_region_mask", "valid_grasp_region", "stem_penalty_map",
+           "tip_penalty_map"]
 
 # Channel order consumed by the CNN (grasp_point_selector.py:95-99).
 SCORE_CHANNELS = ("sdf_score", "approach_score", "flatness_map",
@@ -374,3 +375,8 @@ def compute_grasp_scores(leaf_mask: torch.Tensor, all_mask: torch.Tensor,
                        distance_map=distance,
                        accessibility_map=accessibility, stem_penalty=stem_o,
                        traditional_score=traditional, valid_region=valid)
+
+
+def valid_grasp_region(scores: GraspScores) -> torch.Tensor:
+    """The score maps' valid-region mask (JAX ``valid_grasp_region``)."""
+    return scores.valid_region

@@ -20,7 +20,7 @@ from leafgrasp_tpu_torch.config import ModelConfig
 from leafgrasp_tpu_torch.kernels.attention import fused_attention_gate
 
 __all__ = ["GraspPointCNN", "AttentionGate", "ARCHITECTURES", "init_random_",
-           "init_like_flax_", "batchnorm_fed_biases",
+           "init_like_flax_", "init_grasp_cnn", "batchnorm_fed_biases",
            "ml_scores_from_logits"]
 
 # The 4 encoder architectures swept by the reference
@@ -256,6 +256,16 @@ def init_like_flax_(model: GraspPointCNN,
                 else:
                     p.zero_()
     return model
+
+
+def init_grasp_cnn(seed: int = 0, cfg: ModelConfig = ModelConfig()):
+    """A GraspPointCNN with the Flax model's initial weights drawn from
+    ``seed`` (``init_like_flax_`` on a CPU generator), and its state:
+    ``(model, model.state_dict())``, as the JAX ``init_grasp_cnn``
+    returns the model and its variables."""
+    model = init_like_flax_(GraspPointCNN(cfg),
+                            torch.Generator().manual_seed(seed))
+    return model, model.state_dict()
 
 
 def ml_scores_from_logits(logits: torch.Tensor,

@@ -26,7 +26,8 @@ import torch
 
 from leafgrasp_tpu_torch.ops.median import masked_median_hist
 
-__all__ = ["LeafStats", "leaf_stats", "masked_median"]
+__all__ = ["LeafStats", "leaf_stats", "masked_median",
+           "masked_median_range"]
 
 
 class LeafStats(NamedTuple):
@@ -87,6 +88,15 @@ def masked_median(depth: torch.Tensor, ids: torch.Tensor,
         hi = torch.where(go_left, mid, hi)
         lo = torch.where(go_left, lo, mid)
     return 0.5 * (hi[0] + hi[1])
+
+
+def masked_median_range(depth: torch.Tensor, ids: torch.Tensor,
+                        counts: torch.Tensor, num: int, dmin, dmax,
+                        iters: int = 18, reduce_fn=None) -> torch.Tensor:
+    """``masked_median`` with an explicit bisection range [dmin, dmax]
+    (callers in sharded bodies supply globally reduced extrema)."""
+    return masked_median(depth, ids, counts, num, iters=iters,
+                         reduce_fn=reduce_fn, depth_range=(dmin, dmax))
 
 
 def leaf_stats(mask_ids: torch.Tensor, depth: torch.Tensor,

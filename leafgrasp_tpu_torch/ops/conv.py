@@ -12,8 +12,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gaussian_taps_1d", "separable_conv2d_reflect", "smooth_depth",
+__all__ = ["gaussian_taps_1d", "gaussian_kernel", "SOBEL_X", "SOBEL_Y",
+           "reflect_conv2d", "separable_conv2d_reflect", "smooth_depth",
            "sobel_gradients", "gradient_magnitude", "flatness_from_depth"]
+
+# the Sobel operator's two factors (grasp_point_selector.py:646-651)
+_SMOOTH_TAPS = (1.0, 2.0, 1.0)
+_DIFF_TAPS = (-1.0, 0.0, 1.0)
+SOBEL_X = np.outer(_SMOOTH_TAPS, _DIFF_TAPS).astype(np.float32)
+SOBEL_Y = SOBEL_X.T.copy()
 
 
 @functools.lru_cache(maxsize=8)
@@ -23,6 +30,24 @@ def gaussian_taps_1d(size: int):
     x = np.arange(size) - size // 2
     g = np.exp(-(x ** 2) / (2.0 * sigma ** 2))
     return tuple((g / g.sum()).astype(np.float32))
+
+
+def gaussian_kernel(size: int) -> np.ndarray:
+    """Normalized 2D Gaussian with sigma = size/6 (reference
+    image_processor.py:25-32): the outer product of its 1D factor."""
+    taps = np.asarray(gaussian_taps_1d(size), np.float32)
+    return np.outer(taps, taps)
+
+
+def reflect_conv2d(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """Correlate (H, W) with a small 2D kernel under reflect padding
+    (torch ``F.pad(mode='reflect')`` + ``F.conv2d``, as the reference
+    calls them: image_processor.py:60-64)."""
+    k = torch.as_tensor(np.asarray(kernel, np.float32), device=img.device)
+    ph, pw = k.shape[0] // 2, k.shape[1] // 2
+    padded = F.pad(img.to(torch.float32)[None, None], (pw, pw, ph, ph),
+                   mode="reflect")
+    return F.conv2d(padded, k[None, None])[0, 0]
 
 
 def _conv1d_reflect(img: torch.Tensor, taps, axis: int) -> torch.Tensor:
@@ -57,10 +82,8 @@ def smooth_depth(depth: torch.Tensor, size: int = 5) -> torch.Tensor:
 def sobel_gradients(img: torch.Tensor):
     """(dx, dy) Sobel gradients with reflect padding
     (grasp_point_selector.py:646-651)."""
-    smooth_taps = (1.0, 2.0, 1.0)
-    diff_taps = (-1.0, 0.0, 1.0)
-    dx = separable_conv2d_reflect(img, smooth_taps, diff_taps)
-    dy = separable_conv2d_reflect(img, diff_taps, smooth_taps)
+    dx = separable_conv2d_reflect(img, _SMOOTH_TAPS, _DIFF_TAPS)
+    dy = separable_conv2d_reflect(img, _DIFF_TAPS, _SMOOTH_TAPS)
     return dx, dy
 
 

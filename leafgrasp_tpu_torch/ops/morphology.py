@@ -19,7 +19,8 @@ import torch
 
 from leafgrasp_tpu_torch.ops.edt import directional_seed_dist_1d, shift_cols
 
-__all__ = ["elliptical_kernel", "dilate", "erode", "morphological_boundary",
+__all__ = ["elliptical_kernel", "rect_kernel", "dilate", "erode",
+           "morphological_boundary", "dilated_vertical_dist",
            "dilated_vertical_dist_multi"]
 
 
@@ -41,6 +42,13 @@ def elliptical_kernel(width: int, height: int | None = None) -> np.ndarray:
         dx = int(np.floor(c * np.sqrt(max(r * r - dy * dy, 0) * inv_r2) + 0.5))
         kernel[i, max(c - dx, 0):min(c + dx + 1, width)] = 1
     return kernel
+
+
+def rect_kernel(width: int, height: int | None = None) -> np.ndarray:
+    """``cv2.getStructuringElement(cv2.MORPH_RECT, (w, h))``."""
+    if height is None:
+        height = width
+    return np.ones((height, width), dtype=np.uint8)
 
 
 def _row_runs(kernel: np.ndarray):
@@ -117,6 +125,14 @@ def _col_runs(kernel: np.ndarray):
             raise ValueError("SE column must straddle the anchor row")
         runs.append((j - ax, up, dn))
     return runs
+
+
+def dilated_vertical_dist(d_up: torch.Tensor, d_dn: torch.Tensor,
+                          kernel: np.ndarray) -> torch.Tensor:
+    """``dilated_vertical_dist_multi`` for one SE: the vertical
+    nearest-seed distances of ``dilate(mask, kernel)`` (int32 (H, W),
+    the no-seed sentinel H + W) without materializing the dilation."""
+    return dilated_vertical_dist_multi(d_up, d_dn, (kernel,))[0]
 
 
 def dilated_vertical_dist_multi(d_up: torch.Tensor, d_dn: torch.Tensor,

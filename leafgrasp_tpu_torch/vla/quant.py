@@ -45,7 +45,8 @@ from torch import nn
 from leafgrasp_tpu_torch.vla.lora import LoRADense
 
 __all__ = ["QuantDense", "QuantLoRADense", "quantize_llava_variables",
-           "quantize_llava_state_device", "quantize_kernel",
+           "quantize_llava_state_device",
+           "quantize_llava_variables_device", "quantize_kernel",
            "quant_dense_plain", "quant_dense_exact", "one_rounding_share",
            "is_quantized_weight", "pack_nibbles",
            "LM_PROJ_NAMES"]
@@ -320,3 +321,8 @@ def quantize_llava_state_device(state_box: list, bits: int = 8
         else:
             out[k] = v
     return out
+
+
+# the JAX package's name (vla/quant.py:249) for the same consuming int8
+# quantizer; its "variables" are the port's state_dict
+quantize_llava_variables_device = quantize_llava_state_device

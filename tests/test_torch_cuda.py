@@ -1103,3 +1103,54 @@ def test_sharded_frame_and_train_step_launch_kernels_on_card(cuda,
         np.testing.assert_allclose(sharded.fusion.combined,
                                    single.fusion.combined, rtol=1e-4,
                                    atol=1e-5)
+
+
+# ---- the evaluation tools on the card ------------------------------------------------
+
+def test_parity_tool_production_rows_on_card(cuda, tmp_path):
+    """tools/parity_report_torch.py on CUDA: two production scenes give
+    the committed PARITY_production.json rows (leaf, pixel, flag, message
+    and the oracle's pixel), and launch the frame path's kernels."""
+    from tools import parity_report_torch
+    kernels.reset_launch_counts()
+    out = parity_report_torch.main(["--scale", "production", "--seeds",
+                                    "0,39", "--out",
+                                    str(tmp_path / "p.json")])
+    assert out["device"].startswith("cuda")
+    assert out["mismatches"] == 0 and out["scenes"] == 2
+    assert out["leaf_equal"] == out["uv_equal"] == out["message_equal"] == 2
+    assert out["oracle_uv_equal"] == out["oracle_uv_rows"] == 2
+    counts = kernels.launch_counts()
+    assert counts["fused_score_maps"] > 0 and counts["minplus_pass2"] > 0
+
+
+def test_hard_cnn_logits_on_card_equal_cpu(cuda):
+    """The converted hard-corpus CNN (``deep``, artifacts/torch/
+    grasp_cnn_hard) on the card, TF32 off: its logits within 1e-5 of the
+    CPU's on seeded patches, through the attention gate's kernel."""
+    import os
+    from leafgrasp_tpu_torch.config import ModelConfig
+    from leafgrasp_tpu_torch.models.grasp_cnn import ARCHITECTURES
+    from leafgrasp_tpu_torch.models.predictor import GraspQualityPredictor
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "artifacts", "torch", "grasp_cnn_hard",
+        "best_model")
+    cfg = ModelConfig(encoder_filters=ARCHITECTURES["deep"])
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(20, 32, 32, 9)).astype(np.float32))
+    cpu = GraspQualityPredictor(cfg, device="cpu").load(path)
+    card = GraspQualityPredictor(cfg, device=cuda).load(path)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            got = card.model(x.to(cuda)).cpu()
+            want = cpu.model(x)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert kernels.launch_counts()["fused_attention_gate"] == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
