@@ -87,7 +87,7 @@ Phases, each a hard failure (non-zero exit):
    finite gradient within 3e-5 of its norm of the CPU's, the gate and
    its gradient launched once; then ``Trainer(device=None).fit`` of the
    standard CNN from ``init_like_flax_`` (seed 42) on the stored
-   1230-sample corpus for 20 epochs, with the counts set to 0 just
+   1230-sample corpus for 10 epochs, with the counts set to 0 just
    before (the gate's backward must launch once a step, its forward once
    a step and once a validation batch) and the best validation loss
    below the first epoch's; a checkpoint saved and reloaded through
@@ -198,17 +198,29 @@ Phases, each a hard failure (non-zero exit):
    PARITY_production.json and the oracle's pixel where it matched
    there; (b) the fuzzer's 100 draws at 540 x 720, its found and
    degenerate counts equal to artifacts/fuzz_parity.json's and its
-   first 10 cases equal to the port's CPU path; (c) the system accuracy
+   first 5 cases equal to the port's CPU path; (c) the system accuracy
    with the converted CNNs (artifacts/torch/): the standard CNN on the
    record's 18 scenes, the hard corpus's ``deep`` CNN with
-   ``train_stats`` on 30 hard scenes, each row's leaves, pixels and
-   teacher point equal to the committed record; (d) the VLA evaluation
-   through two services, 26 hard scenes: every row and column equal to
-   the port's CPU record, the geometric columns equal to the JAX
-   tool's (the grafted reference and the committed record), the VLA
-   columns to the grafted reference wherever the scorer's prompts print
-   what JAX's printed; (e) each training CLI once at the cut
-   TOOLS_TRAIN_CUTS.
+   ``train_stats`` on the first 10 of 30 hard scenes, each row's
+   leaves, pixels and teacher point equal to the committed record; (d)
+   the VLA evaluation through two services, 26 hard scenes: every row
+   and column equal to the port's CPU record, the geometric columns
+   equal to the JAX tool's (the grafted reference and the committed
+   record), the VLA columns to the grafted reference wherever the
+   scorer's prompts print what JAX's printed; (e) each training CLI
+   once at the cut TOOLS_TRAIN_CUTS.
+13. the measurement tools (``bench_torch.py``, ``tools/bench_*_torch.py``)
+   through their ``main``s, each cut in depth only (BENCH_RUNS), launches
+   counted over the phase (the ``launches_bench`` term; K1, K3, K2 and
+   K7 must launch, and K7 in each anyres run): (a) ``bench_torch.py`` at
+   BENCH_PER_FAMILY frames a family, each family's first frame in both
+   configurations equal to the port's CPU path (leaf, pixel, flags); (b)
+   the threaded ingest tool on the native frame bus, each published
+   message equal to a synchronous service's for that mask and depth;
+   the VLA latency tools (single tile, anyres with the flash A/B and the
+   stage split, int8 and int4 against bf16); (c) the VLA service at the
+   7B widths in int8 with anyres, both degradation checks met; (d) the
+   rerank stability in bf16 and int8.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -1908,7 +1920,8 @@ TRAIN_CORPUS = os.path.join("artifacts", "grasp_cnn_hard", "training_data",
                             "training_data.npz")
 JAX_META = os.path.join("artifacts", "grasp_cnn_hard",
                         "best_model.meta.json")
-TRAIN_EPOCHS = 20
+# cut from 150 (the trainer's default) for the script's time
+TRAIN_EPOCHS = 10
 TRAIN_SEED = 42
 TRAIN_OUT = os.path.join("build", "chip_smoke_train")
 
@@ -2263,7 +2276,7 @@ def profile_train_step(torch, dev, dataset):
 def run_training(torch, dev):
     """Phase 7c: the trainer on the card (standard CNN from
     ``init_like_flax_`` with seed 42, the stored corpus, the TrainConfig
-    defaults, 20 epochs), then a checkpoint reloaded through
+    defaults, TRAIN_EPOCHS epochs), then a checkpoint reloaded through
     ``GraspQualityPredictor``."""
     from leafgrasp_tpu_torch.config import ModelConfig, TrainConfig
     from leafgrasp_tpu_torch.kernels import (launch_counts,
@@ -4474,7 +4487,8 @@ def run_phase_11(torch, setup=None):
 # their ``main``s: the evaluations at the committed records' scenes and
 # sizes, the training CLIs at a cut size (TOOLS_TRAIN_CUTS)
 TOOLS_OUT = os.path.join("build", "chip_smoke_tools")
-TOOLS_FUZZ_CROSS_CHECK = 10
+# a cut for the script's time
+TOOLS_FUZZ_CROSS_CHECK = 5
 TOOLS_HARD = ["--hard", "--arch", "deep", "--ckpt",
               os.path.join("artifacts", "torch", "grasp_cnn_hard",
                            "best_model")]
@@ -4482,14 +4496,15 @@ TOOLS_HARD = ["--hard", "--arch", "deep", "--ckpt",
 # record's scenes (the plain record holds seeds 100-117, 14 of them live:
 # it was made with --scenes 18; the hard one with the default 30). The
 # hard record with the per-patch min-max (artifacts/
-# system_accuracy_hard.json) is left out for time: 26/26 in my first
-# call of PR 14, 31.9 s
+# system_accuracy_hard.json) is left out and the train_stats one runs
+# its first 10 of 30 scenes, for the script's time; each run is held to
+# the record's rows among the scenes it drew
 TOOLS_ACCURACY = (
     ("system_accuracy", "artifacts/system_accuracy.json",
      ["--scenes", "18"]),
     ("system_accuracy_hard_trainstats",
      "artifacts/system_accuracy_hard_trainstats.json",
-     TOOLS_HARD + ["--norm", "train_stats"]))
+     TOOLS_HARD + ["--norm", "train_stats", "--scenes", "10"]))
 # the VLA record of today's JAX tool with the pretrained base grafted into
 # its scorer and the prompts it printed (tests/test_torch_tools_vla.py);
 # the committed record's scorer ran on freshly initialized decoder
@@ -4514,34 +4529,39 @@ TOOLS_KERNELS = ("fused_score_maps", "minplus_pass2", "fused_attention_gate")
 TOOLS_DEVICE = "cuda"
 
 
-def _tool(torch, perf, name, module, argv):
-    """One tool's ``main`` on the card: its summary; its wall time and
-    launches go into ``perf``."""
+def _tool(torch, perf, name, module, argv, phase="12", **kw):
+    """One tool's ``main`` (module ``module``) on the card: its summary;
+    its wall time and launches go into ``perf``."""
     import importlib
     from leafgrasp_tpu_torch.kernels import launch_counts
+    from tools._torch_bench import free_memory
+    free_memory(torch.device("cuda"))
     before = launch_counts()
     t0 = time.perf_counter()
-    out = importlib.import_module(f"tools.{module}").main(argv)
+    try:
+        out = importlib.import_module(module).main(argv, **kw)
+    except SystemExit as exc:           # a failed correctness check
+        raise RuntimeError(f"phase {phase} {name}: {exc}") from None
     torch.cuda.synchronize()
     after = launch_counts()
     perf[name] = {"s": time.perf_counter() - t0,
                   "launches": {k: after[k] - before.get(k, 0)
                                for k in after if after[k] - before.get(k, 0)}}
-    log(f"phase 12 {name}: {perf[name]['s']:.1f} s, launches "
+    log(f"phase {phase} {name}: {perf[name]['s']:.1f} s, launches "
         f"{json.dumps(perf[name]['launches'])}")
     return out
 
 
-def _tool_check(name, ok, what) -> None:
+def _tool_check(name, ok, what, phase="12") -> None:
     if not ok:
-        raise RuntimeError(f"phase 12 {name}: {what}")
+        raise RuntimeError(f"phase {phase} {name}: {what}")
 
 
 def _phase12_parity(torch, perf):
     """12a: parity against PARITY.json and PARITY_production.json."""
     for scale, n in (("golden", 26), ("production", 16)):
-        out = _tool(torch, perf, f"parity_{scale}", "parity_report_torch",
-                    ["--scale", scale, "--out",
+        out = _tool(torch, perf, f"parity_{scale}",
+                    "tools.parity_report_torch", ["--scale", scale, "--out",
                      os.path.join(TOOLS_OUT, f"parity_{scale}.json")])
         eq = [out[k] for k in ("leaf_equal", "uv_equal", "degenerate_equal",
                                "message_equal")]
@@ -4558,7 +4578,7 @@ def _phase12_parity(torch, perf):
 def _phase12_fuzz(torch, perf):
     """12b: the fuzzer's counts against artifacts/fuzz_parity.json's, its
     first cases against the port's CPU path."""
-    out = _tool(torch, perf, "fuzz", "fuzz_parity_torch",
+    out = _tool(torch, perf, "fuzz", "tools.fuzz_parity_torch",
                 ["--cross-check", str(TOOLS_FUZZ_CROSS_CHECK), "--out",
                  os.path.join(TOOLS_OUT, "fuzz.json")])
     _tool_check("fuzz", out["mismatch_count"] == 0 and out["stats_compared"]
@@ -4573,9 +4593,10 @@ def _phase12_accuracy(torch, perf):
     """12c: the system accuracy, plain and hard, with the converted
     CNNs."""
     for name, record, extra in TOOLS_ACCURACY:
+        scenes = int(extra[extra.index("--scenes") + 1])
         with open(record) as f:
-            n = len(json.load(f)["rows"])
-        out = _tool(torch, perf, name, "eval_system_accuracy_torch",
+            n = sum(r["seed"] < 100 + scenes for r in json.load(f)["rows"])
+        out = _tool(torch, perf, name, "tools.eval_system_accuracy_torch",
                     extra + ["--check", record, "--out",
                              os.path.join(TOOLS_OUT, f"{name}.json")])
         _tool_check(name, not out["mismatches"] and out["scenes"] == n
@@ -4595,7 +4616,7 @@ def _phase12_vla(torch, perf):
     from tools._torch_eval import compare_rows
     from tools.eval_vla_system_torch import check_rows
     path = os.path.join(TOOLS_OUT, "system_accuracy_vla.json")
-    out = _tool(torch, perf, "vla_system", "eval_vla_system_torch",
+    out = _tool(torch, perf, "vla_system", "tools.eval_vla_system_torch",
                 ["--check", TOOLS_VLA_PORT_CPU, "--out", path])
     _tool_check("vla_system", not out["mismatches"]
                 and out["rows_equal"] == out["rows_compared"]
@@ -4641,7 +4662,7 @@ def _phase12_train(torch, perf):
     log(f"phase 12e cuts: {json.dumps(TOOLS_TRAIN_CUTS)}")
     before = launch_counts()["attention_gate_backward"]
     for module, cut in TOOLS_TRAIN_CUTS.items():
-        out = _tool(torch, perf, module, module,
+        out = _tool(torch, perf, module, f"tools.{module}",
                     cut + ["--out", os.path.join(TOOLS_OUT, module)])
         log(f"phase 12e {module}: {json.dumps(out)[:400]}")
         if "experiments" in out:
@@ -4687,6 +4708,151 @@ def run_phase_12(torch):
     log(f"phase 12: launches a production parity frame "
         f"{json.dumps(per_frame)}; over the tools {json.dumps(counts)}; "
         f"{perf['seconds']:.1f} s; {card_line()}")
+    return counts, perf
+
+
+# --------------------------------------------------------------- phase 13 --
+
+# the measurement tools (bench_torch.py, tools/bench_*_torch.py) through
+# their ``main``s, each cut in depth only (PERF.md section 4)
+BENCH_OUT = os.path.join("build", "chip_smoke_bench")
+BENCH_PER_FAMILY = 8                    # bench.py's default is 28
+BENCH_INGEST_FRAMES = 40                # 200
+BENCH_RUNS = (
+    # (name, module, argv)
+    ("bench", "bench_torch", []),
+    ("ingest", "tools.bench_service_ingest_torch",
+     ["--frames", str(BENCH_INGEST_FRAMES)]),
+    ("vla", "tools.bench_vla_torch", ["--layers", "8"]),
+    ("anyres", "tools.bench_vla_anyres_torch",
+     ["--quantize", "int8", "--layers", "8", "--frames", "1", "--stages",
+      "--flash-ab"]),
+    ("quant_int8", "tools.bench_vla_quant_torch", ["--bits", "8"]),
+    ("quant_int4", "tools.bench_vla_quant_torch",
+     ["--bits", "4", "--skip-bf16"]),
+    ("service", "tools.bench_vla_service_torch",
+     ["--quantize", "int8", "--anyres", "--frames", "4", "--json", "--out",
+      os.path.join(BENCH_OUT, "vla_service_bench_anyres.json")]),
+    ("stability", "tools.bench_rerank_stability_torch",
+     ["--layers", "4", "--frames", "4", "--int8"]))
+BENCH_KERNELS = ("fused_score_maps", "minplus_pass2", "fused_attention_gate",
+                 "flash_prefill")
+# the runs whose rerank takes the flash prefill (anyres)
+BENCH_FLASH_RUNS = ("anyres", "service")
+
+
+def _bench_check(name, ok, what) -> None:
+    _tool_check(name, ok, what, phase="13")
+
+
+def _phase13_frames(answers):
+    """13a: each family's first bench frame in each configuration against
+    the port's CPU path (the tool's seeded CNN and configs)."""
+    import bench_torch
+    from leafgrasp_tpu_torch.io.scenes import make_leaf_scene
+    from leafgrasp_tpu_torch.models.grasp_cnn import init_grasp_cnn
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    cfgs = dict(zip(("reference_self", "union"), bench_torch.bench_configs()))
+    cnn, _ = init_grasp_cnn(0, cfgs["union"].model)
+    cnn = cnn.eval()
+    for mode, cfg in cfgs.items():
+        fn = make_frame_fn(cfg, with_cnn=True, device="cpu")
+        for fi, (name, n, seed, margin) in enumerate(bench_torch.FAMILIES):
+            fam, leaf, uv, found, deg = answers[mode][fi * BENCH_PER_FAMILY]
+            mask, depth = make_leaf_scene(H, W, num_leaves=n, seed=seed,
+                                          margin=margin)
+            ref = fn(mask, depth, *bench_torch.CAMERA, cnn)
+            want = (int(ref.leaf_id), ref.grasp_uv.tolist(),
+                    bool(ref.found), bool(ref.degenerate))
+            log(f"phase 13a bench {mode}/{name}: card (leaf, uv, found, "
+                f"degenerate) {(leaf, uv, found, deg)} cpu {want}")
+            _bench_check("bench", fam == name
+                         and (leaf, uv, found, deg) == want,
+                         f"{mode}/{name}: card {(leaf, uv, found, deg)} "
+                         f"!= cpu {want}")
+
+
+def _phase13_ingest(torch, rec, published):
+    """13b: the ingest tool ran the native bus, and every message it
+    published equals a synchronous service's for that mask and depth."""
+    from leafgrasp_tpu_torch.io.scenes import default_projection
+    from leafgrasp_tpu_torch.models.grasp_cnn import init_grasp_cnn
+    from leafgrasp_tpu_torch.pipeline.ingest import GraspService
+    from tools.bench_service_ingest_torch import ingest_config, raw_frames
+    _bench_check("ingest", rec["bus"] == "native",
+                 f"the service ran the {rec['bus']} frame bus")
+    _bench_check("ingest", published and rec["frames_processed"]
+                 == len(published), json.dumps(rec))
+    cfg = ingest_config()
+    raws = raw_frames(cfg, BENCH_INGEST_FRAMES)
+    cnn, _ = init_grasp_cnn(0, cfg.model)
+    svc = GraspService(cfg, cnn=cnn.to("cuda").eval(), min_interval_s=0.0)
+    svc.set_camera_params(default_projection())
+    for mask_stamp, depth_stamp, msg in published:
+        want = svc.process_frame(raws[mask_stamp][0],
+                                 raws[depth_stamp][1])["message"]
+        _bench_check("ingest", msg == want,
+                     f"frame ({mask_stamp}, {depth_stamp}) published "
+                     f"{msg}, the synchronous service {want}")
+    svc.stop()
+    log(f"phase 13b ingest: the native bus; {len(published)} published "
+        f"messages of {BENCH_INGEST_FRAMES} pushed frames equal the "
+        f"synchronous service's ({rec['frames_dropped']} dropped by the "
+        f"newest-frame bus)")
+
+
+def run_phase_13(torch):
+    """Phase 13: the port's measurement tools on the card, each record
+    checked."""
+    import shutil
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    shutil.rmtree(BENCH_OUT, ignore_errors=True)
+    os.makedirs(BENCH_OUT)
+    perf, recs = {}, {}
+    answers, published = {}, []
+    extra = {"bench": {"answers": answers}, "ingest": {"published": published}}
+    old = os.environ.get("LEAFGRASP_BENCH_PER_FAMILY")
+    os.environ["LEAFGRASP_BENCH_PER_FAMILY"] = str(BENCH_PER_FAMILY)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t_start = time.perf_counter()
+    try:
+        for name, module, argv in BENCH_RUNS:
+            recs[name] = _tool(torch, perf, name, module, argv,
+                               phase="13", **extra.get(name, {}))
+    finally:
+        if old is None:
+            os.environ.pop("LEAFGRASP_BENCH_PER_FAMILY")
+        else:
+            os.environ["LEAFGRASP_BENCH_PER_FAMILY"] = old
+    counts = launch_counts()
+    t_runs = time.perf_counter() - t_start
+    _phase13_frames(answers)
+    _phase13_ingest(torch, recs["ingest"], published)
+    svc = recs["service"]
+    _bench_check("service", svc["inner_degradation_uniform_scores_ok"]
+                 and svc["degraded_geometric_fallback_ok"]
+                 and svc["vla_reranked_frames"] > 0, json.dumps(svc)[:600])
+    _bench_check("stability", [r["tag"] for r in recs["stability"]]
+                 == ["bf16", "int8"] and all(
+                     np.isfinite(r["max_first_step_dlogit_over_std"])
+                     for r in recs["stability"]), recs["stability"])
+    _bench_check("quant", all(recs[q][f"{k}_step_ms"] > 0 for q, k in
+                              (("quant_int8", "int8"), ("quant_int4", "int4"),
+                               ("quant_int8", "bf16"))), "a step of 0 ms")
+    missing = [k for k in BENCH_KERNELS if counts[k] == 0]
+    no_flash = [n for n in BENCH_FLASH_RUNS
+                if not perf[n]["launches"].get("flash_prefill")]
+    _bench_check("launches", not missing and not no_flash,
+                 f"the tools launched no {missing}; no flash prefill in "
+                 f"{no_flash}")
+    perf["seconds"] = time.perf_counter() - t_start
+    log(f"phase 13: the tools ran in {t_runs:.1f} s; launches over the "
+        f"tools {json.dumps(counts)}; {perf['seconds']:.1f} s; "
+        f"{card_line()}")
+    for name, rec in recs.items():
+        log(f"phase 13 record {name} {json.dumps(rec)}")
     return counts, perf
 
 
@@ -4803,13 +4969,17 @@ def main() -> int:
     log(f"phase 12: the evaluation, parity and training tools held the "
         f"committed records on the card ({tool_perf['seconds']:.1f} s)")
 
+    bench_counts, bench_perf = run_phase_13(torch)
+    log(f"phase 13: the measurement tools ran on the card and their "
+        f"records held ({bench_perf['seconds']:.1f} s)")
+
     phases = {"frames": counts, "service": service_counts,
               "vla_service": vla_counts, "teacher": teacher_counts,
               "train": train_counts, "vla_train": vla_train_counts,
               "vla_train_bf16": vla_bf16_counts,
               "checkpoint_serve": ckpt_counts, "int8_serve": int8_counts,
               "parallel": par_counts, "pipeline": pipe_counts,
-              "tools": tool_counts}
+              "tools": tool_counts, "bench": bench_counts}
     for rec in records:
         for phase, cnt in phases.items():
             rec[f"launches_{phase}"] = cnt.get(rec["name"], 0)

@@ -206,8 +206,10 @@ class LlavaTorchScorer:
             pad_lens=torch.as_tensor(pad).to(dev),
             decode_mode=self.decode_mode, timings=timings)
         gen = host_read(gen)           # the one transfer of the batch
+        # ``score`` resets ``last`` a call; a caller of this method alone
+        # (the rerank stability tool) finds it filled as it goes
         self.last["prompt_len"] = t
-        self.last["tokens"].extend(gen)
+        self.last.setdefault("tokens", []).extend(gen)
         for key, val in timings.items():
-            self.last[key] += val
+            self.last[key] = self.last.get(key, 0.0) + val
         return [parse_score(self.tokenizer.decode(row)) for row in gen]

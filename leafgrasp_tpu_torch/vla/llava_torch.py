@@ -42,7 +42,8 @@ from leafgrasp_tpu_torch.vla.quant import QuantDense, QuantLoRADense
 
 __all__ = ["LlavaTorchConfig", "LlavaTorch", "convert_hf_llava_state_dict",
            "config_from_hf", "attach_lora", "init_random_",
-           "random_llava_state", "causal_mask", "greedy_generate_llava"]
+           "random_llava_state", "iter_random_llava_state",
+           "causal_mask", "greedy_generate_llava"]
 
 FLASH_MIN_TOKENS = 128
 
@@ -633,27 +634,35 @@ def _draw_(t, module, name: str, generator, std: float) -> None:
         t.add_(1.0)
 
 
+def iter_random_llava_state(cfg: LlavaTorchConfig,
+                            generator: torch.Generator, device=None,
+                            param_dtype: torch.dtype = torch.float32,
+                            std: float = 0.02):
+    """Yield ``(key, tensor)`` for every entry of the ``state_dict`` that
+    ``init_random_`` gives ``LlavaTorch(cfg, device, param_dtype)`` from
+    ``generator``, one at a time in its draw order, so a caller that
+    keeps or converts each tensor as it comes never holds the whole
+    model. ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    meta = LlavaTorch(cfg, device="meta", param_dtype=param_dtype)
+    for key, module, name, p in _init_order(meta):
+        t = torch.empty(p.shape, dtype=p.dtype, device=dev)
+        with torch.no_grad():      # not across the yield: the caller's mode
+            _draw_(t, module, name, generator, std)
+        yield key, t
+
+
 def random_llava_state(cfg: LlavaTorchConfig, generator: torch.Generator,
                        keep, device=None,
                        param_dtype: torch.dtype = torch.float32,
                        std: float = 0.02) -> Dict[str, torch.Tensor]:
-    """The entries of the ``state_dict`` that ``init_random_`` gives
-    ``LlavaTorch(cfg, device, param_dtype)`` from ``generator``, for the
-    keys where ``keep(key)`` is true. Every other parameter is drawn into
-    a scratch tensor and dropped, so the generator advances as under
-    ``init_random_`` and the kept tensors equal its, while the whole
-    model never exists: a pipeline rank draws its own stage and the
-    replicated rest this way. ``device=None`` means CUDA."""
-    dev = resolve_device(device)
-    meta = LlavaTorch(cfg, device="meta", param_dtype=param_dtype)
-    out = {}
-    with torch.no_grad():
-        for key, module, name, p in _init_order(meta):
-            t = torch.empty(p.shape, dtype=p.dtype, device=dev)
-            _draw_(t, module, name, generator, std)
-            if keep(key):
-                out[key] = t
-    return out
+    """The entries of ``iter_random_llava_state`` for the keys where
+    ``keep(key)`` is true. Every other parameter is drawn and dropped, so
+    the generator advances as under ``init_random_`` and the kept tensors
+    equal its, while the whole model never exists: a pipeline rank draws
+    its own stage and the replicated rest this way."""
+    return {key: t for key, t in iter_random_llava_state(
+        cfg, generator, device, param_dtype, std) if keep(key)}
 
 
 def convert_hf_llava_state_dict(sd: Dict[str, Any],

@@ -1,0 +1,134 @@
+"""Shared pieces of the port's measurement tools (``bench_torch.py`` and
+``tools/bench_*_torch.py``): the JAX tools' stub tokenizers and tiny
+LLaVA widths, the device stamp every record carries, the barrier that
+ends a timed region, the memory reading and the git revision. Imports
+the standard library at the top, torch inside the functions that need
+it.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import time
+from typing import Optional
+
+from tools._torch_eval import ROOT
+
+# where the port's measurement records go (the JAX package's own records
+# under artifacts/ are the TPU's and are never written here)
+TORCH_ARTIFACTS = os.path.join(ROOT, "artifacts", "torch")
+
+N_TEXT = 60          # the stub tokenizers' prompt length
+# the llava-v1.6-mistral-7b anyres grid (bench_vla_anyres.py:41)
+V16_PINPOINTS = ((336, 672), (672, 336), (672, 672), (1008, 336),
+                 (336, 1008))
+# the JAX tools' --tiny LLaVA (bench_vla_service.py:124-131)
+TINY_LLAVA = dict(vis_hidden=16, vis_intermediate=32, vis_layers=1,
+                  vis_heads=2, image_size=28, patch_size=14, vocab_size=128,
+                  hidden=16, intermediate=32, layers=2, heads=2, kv_heads=1,
+                  image_token_index=100)
+TINY_PINPOINTS = ((28, 56), (56, 28), (56, 56))
+
+
+def _hash_decimal(ids) -> str:
+    """Injective token path -> decimal, so a parsed-score match proves
+    the greedy tokens match."""
+    key = 0
+    for i in ids:
+        key = (key * 1000003 + int(i) + 1) % (10 ** 9)
+    return f"0.{key:09d}"
+
+
+class FixedLenTok:
+    """The JAX tools' ``_FixedLenTok`` (bench_vla_service.py:55,
+    bench_rerank_stability.py:48): a fixed encode length, so every
+    prompt has one (B, T) shape, and an injective decode to a decimal,
+    so random weights give varied parsed scores."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def encode(self, text):
+        ids = [b % (self.vocab - 8) + 3 for b in text.encode("utf-8")]
+        ids = ids[:N_TEXT]
+        return [1] + ids + [2] * (N_TEXT - 1 - len(ids))
+
+    def decode(self, ids):
+        return _hash_decimal(ids)
+
+
+class AnyresTok:
+    """The anyres tool's ``_Tok`` (bench_vla_anyres.py:45): 60 ids a
+    prompt, the same injective decode."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def encode(self, text):
+        ids = [b % (self.vocab - 8) + 3 for b in text.encode()][:59]
+        return [1] + ids + [2] * (59 - len(ids))
+
+    def decode(self, ids):
+        return _hash_decimal(ids)
+
+
+def device_stamp(dev) -> str:
+    """What every record says it ran on: for a card, ``nvidia-smi``'s
+    name and power limit (``--query-gpu=name,power.limit``); otherwise
+    the device's name."""
+    if dev.type != "cuda":
+        return str(dev)
+    index = dev.index if dev.index is not None else 0
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync(dev) -> None:
+    """The barrier before a clock stops: on a card the host waits for
+    every queued kernel (``torch.cuda.synchronize``)."""
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.synchronize(dev)
+
+
+def timed(fn, dev) -> float:
+    """Host-clock seconds of ``fn()`` with the device drained before the
+    clock starts and before it stops."""
+    sync(dev)
+    t0 = time.perf_counter()
+    fn()
+    sync(dev)
+    return time.perf_counter() - t0
+
+
+def device_mem_gb(dev):
+    """(GiB, method): the caching allocator's bytes in use on a card, or
+    (None, "unavailable") elsewhere."""
+    if dev.type != "cuda":
+        return None, "unavailable"
+    import torch
+    return round(torch.cuda.memory_allocated(dev) / 2 ** 30, 2), \
+        "allocator_bytes_in_use"
+
+
+def free_memory(dev) -> None:
+    """Return what the tools freed to the card before the next build."""
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
+def git_rev() -> Optional[str]:
+    """``git rev-parse --short HEAD`` of the repository, or None."""
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"], capture_output=True,
+            text=True, timeout=10, cwd=ROOT).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        return None
