@@ -221,6 +221,16 @@ Phases, each a hard failure (non-zero exit):
    stage split, int8 and int4 against bf16); (c) the VLA service at the
    7B widths in int8 with anyres, both degradation checks met; (d) the
    rerank stability in bf16 and int8.
+14. the frame's A/B and stage tools (``tools/micro_bench_*_torch.py``)
+   through their ``main``s at 1080 x 1440, cut in depth only
+   (MICRO_RUNS), launches counted over the phase (the ``launches_micro``
+   term; K1, K3/K4, K2, K5 and K6 must launch), each tool's own check
+   held: the envelope and interference knobs' pixels equal (frame_ab),
+   the banded (K3/K4) and row-banded (K5) EDT routes bit-equal (edt_ab),
+   the batched frames on a one-rank nccl mesh equal to the single
+   frames (batch), the envelope maxima equal at three stride/k settings
+   (stages); and the stage tool's four full frames against the port's
+   CPU path (leaf, pixel, flag).
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -4856,6 +4866,96 @@ def run_phase_13(torch):
     return counts, perf
 
 
+# --------------------------------------------------------------- phase 14 --
+
+# the frame's A/B and stage tools (tools/micro_bench_*_torch.py) through
+# their ``main``s at the production frame, each cut in depth only: fewer
+# repeats, 2 frames a family for the knob A/B (8)
+MICRO_RUNS = (
+    # (name, module, argv)
+    ("frame_ab", "tools.micro_bench_frame_ab_torch",
+     ["--reps", "1", "--per-family", "2"]),
+    ("edt_ab", "tools.micro_bench_edt_ab_torch",
+     ["--trials", "1", "--reps", "5"]),
+    ("batch", "tools.micro_bench_batch_torch", ["--trials", "1"]),
+    ("stages", "tools.micro_bench_stages_torch",
+     ["--n", "2", "--reps", "1", "--no-profile"]))
+# K1, K3/K4, K2, K5 (edt_batch) and K6 (leaf_stats with the histogram)
+MICRO_KERNELS = ("fused_score_maps", "minplus_pass2", "fused_attention_gate",
+                 "squared_edt_rowband", "segment_histogram")
+MICRO_FRAMES = ("stages/frame_reference_self", "stages/frame_union",
+                "iso/frame_reference_self", "iso/frame_union")
+
+
+def _micro_check(name, ok, what) -> None:
+    _tool_check(name, ok, what, phase="14")
+
+
+def _phase14_frames(outputs):
+    """The stage tool's full frames against the port's CPU path: the same
+    leaf, pixel and flag (the tool's seeded CNN, scenes and camera)."""
+    import dataclasses
+    from leafgrasp_tpu_torch.config import DEFAULT_CONFIG
+    from leafgrasp_tpu_torch.models.grasp_cnn import init_grasp_cnn
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    from leafgrasp_tpu_torch.utils.device import fetch_to_host
+    from tools import micro_bench_stages_torch as stages
+    from tools._torch_eval import CAMERA
+    cnn, _ = init_grasp_cnn(0, DEFAULT_CONFIG.model)
+    cnn = cnn.eval()
+    cam = [np.float32(v) for v in CAMERA]
+    for key in MICRO_FRAMES:
+        group, stage = key.split("/")
+        mode = stage[len("frame_"):]
+        cfg = DEFAULT_CONFIG.replace(grasp=dataclasses.replace(
+            DEFAULT_CONFIG.grasp, isolation_context=mode))
+        name = "crowded" if group == "stages" else "sparse"
+        mask, depth = stages.scene(DEFAULT_CONFIG, name, "cpu")
+        ref = make_frame_fn(cfg, with_cnn=True, device="cpu")(
+            mask, depth, *cam, cnn)
+        res = fetch_to_host(outputs[key])
+        got = (int(res.leaf_id), res.grasp_uv.tolist(), bool(res.found))
+        want = (int(ref.leaf_id), ref.grasp_uv.tolist(), bool(ref.found))
+        log(f"phase 14 stages {key} ({name}): card (leaf, uv, found) {got} "
+            f"cpu {want}")
+        _micro_check("stages", got == want and got[2],
+                     f"{key}: card {got} != cpu {want}")
+
+
+def run_phase_14(torch):
+    """Phase 14: the frame's A/B and stage tools on the card, each tool's
+    own checks and the stage tool's frames against the CPU path."""
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    perf, recs, outputs = {}, {}, {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t_start = time.perf_counter()
+    for name, module, argv in MICRO_RUNS:
+        kw = {"outputs": outputs} if name == "stages" else {}
+        recs[name] = _tool(torch, perf, name, module, argv, phase="14", **kw)
+    counts = launch_counts()
+    t_runs = time.perf_counter() - t_start
+    _micro_check("frame_ab", recs["frame_ab"]["identical_pixels"],
+                 "the knob variants' pixels differ")
+    _micro_check("edt_ab", recs["edt_ab"]["routes_bit_equal"],
+                 "the EDT routes differ")
+    _micro_check("batch", recs["batch"]["batched_equal_single"],
+                 "batched frames differ from single frames")
+    _micro_check("stages", recs["stages"]["envelope_maxes_agree"],
+                 "the envelope settings' maxima differ")
+    _phase14_frames(outputs)
+    missing = [k for k in MICRO_KERNELS if counts[k] == 0]
+    _micro_check("launches", not missing, f"the tools launched no {missing}")
+    perf["seconds"] = time.perf_counter() - t_start
+    log(f"phase 14: the tools ran in {t_runs:.1f} s; launches over the "
+        f"tools {json.dumps(counts)}; {perf['seconds']:.1f} s; "
+        f"{card_line()}")
+    for name, rec in recs.items():
+        log(f"phase 14 record {name} {json.dumps(rec)}")
+    return counts, perf
+
+
 def main() -> int:
     try:
         import torch
@@ -4973,13 +5073,18 @@ def main() -> int:
     log(f"phase 13: the measurement tools ran on the card and their "
         f"records held ({bench_perf['seconds']:.1f} s)")
 
+    micro_counts, micro_perf = run_phase_14(torch)
+    log(f"phase 14: the frame's A/B and stage tools ran on the card and "
+        f"their checks held ({micro_perf['seconds']:.1f} s)")
+
     phases = {"frames": counts, "service": service_counts,
               "vla_service": vla_counts, "teacher": teacher_counts,
               "train": train_counts, "vla_train": vla_train_counts,
               "vla_train_bf16": vla_bf16_counts,
               "checkpoint_serve": ckpt_counts, "int8_serve": int8_counts,
               "parallel": par_counts, "pipeline": pipe_counts,
-              "tools": tool_counts, "bench": bench_counts}
+              "tools": tool_counts, "bench": bench_counts,
+              "micro": micro_counts}
     for rec in records:
         for phase, cnt in phases.items():
             rec[f"launches_{phase}"] = cnt.get(rec["name"], 0)

@@ -131,7 +131,7 @@ class GraspScoringConfig:
     # Envelope-max sampling knobs (ops/edt.edt_max_argmax[_batch]); the
     # result is EXACT at any setting (coverage guard + full-sweep
     # fallback) -- these only trade scan vs refinement cost. 0 = the
-    # ops defaults (stride 16 / k 512, the r5 measured setting); the
+    # ops defaults (stride 16 / k 1024, the r5 measured setting); the
     # pre-r5 8/2048 stays reachable for A/Bs.
     envelope_stride: int = 0
     envelope_k: int = 0

@@ -7,8 +7,9 @@ port's runs on spawned gloo CPU ranks (tests/_torch_dist.py), 8 for the
 mesh and sharding rules and 4 for the rest, each spawn serving several
 tests through a module fixture. Rank functions are module-level and this
 module imports no JAX at the top, so the ranks import it without JAX.
-Tolerances: integer results equal, the EDT 1e-6 relative / 1e-5
-absolute (JAX's own), the batched frame's floats 1e-5 absolute.
+Tolerances: integer results and the squared EDT equal, the EDT 1e-6
+relative / 1e-5 absolute (JAX's own), the batched frame's floats 1e-5
+absolute.
 """
 
 import os
@@ -109,13 +110,16 @@ def _spatial_ranks(rank, world, seeds_nearest, seeds_edt, arr, masks,
     from leafgrasp_tpu_torch.parallel import (make_batched_frame_fn,
                                               make_mesh, sharded_edt,
                                               sharded_nearest_seed_rows,
-                                              sharded_shift_rows)
+                                              sharded_shift_rows,
+                                              sharded_squared_edt)
     from leafgrasp_tpu_torch.utils.device import fetch_to_host
 
     mesh = make_mesh(device="cpu")
     out = {"nearest": sharded_nearest_seed_rows(seeds_nearest, mesh)
            .full_tensor().numpy(),
            "edt": sharded_edt(seeds_edt, mesh).full_tensor().numpy(),
+           "squared_edt": sharded_squared_edt(seeds_edt, mesh)
+           .full_tensor().numpy(),
            "shift": {dy: sharded_shift_rows(arr, dy, -1.0, mesh)
                      .full_tensor().numpy() for dy in SHIFTS}}
     fn = make_batched_frame_fn(mesh, _batch_cfg(tcfg), with_cnn=False)
@@ -222,6 +226,21 @@ def test_sharded_edt_matches_jax(spatial_results, spatial_inputs):
     ref = np.asarray(edt(spatial_inputs[1]))
     for out in spatial_results:
         np.testing.assert_allclose(out["edt"], ref, rtol=1e-6, atol=1e-5)
+
+
+def test_sharded_squared_edt_bit_equals_jax(spatial_results, spatial_inputs):
+    """Exact squared distances: equal to JAX's unsharded ``squared_edt``
+    and to its ``sharded_squared_edt`` on the 8-device mesh."""
+    from leafgrasp_tpu.ops.edt import squared_edt
+    from leafgrasp_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from leafgrasp_tpu.parallel.spatial import sharded_squared_edt
+    seeds = spatial_inputs[1]
+    ref = np.asarray(squared_edt(seeds))
+    np.testing.assert_array_equal(
+        np.asarray(sharded_squared_edt(seeds, j_make_mesh(8, model_axis=1))),
+        ref)
+    for out in spatial_results:
+        np.testing.assert_array_equal(out["squared_edt"], ref)
 
 
 @pytest.mark.parametrize("dy", SHIFTS)

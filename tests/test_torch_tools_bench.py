@@ -17,7 +17,8 @@ against the JAX package's tools and records, on the CPU at small sizes.
   batchings for every candidate as JAX's ``run_mode``, and the same
   flip count.
 * The VLA service tool's degradation checks and where it writes.
-* A tool asked for the card without one raises; no tool imports JAX.
+* A tool asked for the card without one raises; no tool imports JAX
+  (the frame A/B and stage tools, tools/micro_bench_*_torch.py, too).
 """
 
 import ast
@@ -39,7 +40,9 @@ from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 import bench_torch
 from tools import (bench_rerank_stability_torch, bench_service_ingest_torch,
                    bench_vla_anyres_torch, bench_vla_quant_torch,
-                   bench_vla_service_torch, bench_vla_torch)
+                   bench_vla_service_torch, bench_vla_torch,
+                   micro_bench_batch_torch, micro_bench_edt_ab_torch,
+                   micro_bench_frame_ab_torch, micro_bench_stages_torch)
 from tools._torch_bench import TINY_LLAVA
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -398,7 +401,11 @@ TOOLS = {"bench_torch": bench_torch,
          "bench_vla_anyres_torch": bench_vla_anyres_torch,
          "bench_vla_quant_torch": bench_vla_quant_torch,
          "bench_vla_service_torch": bench_vla_service_torch,
-         "bench_rerank_stability_torch": bench_rerank_stability_torch}
+         "bench_rerank_stability_torch": bench_rerank_stability_torch,
+         "micro_bench_frame_ab_torch": micro_bench_frame_ab_torch,
+         "micro_bench_edt_ab_torch": micro_bench_edt_ab_torch,
+         "micro_bench_batch_torch": micro_bench_batch_torch,
+         "micro_bench_stages_torch": micro_bench_stages_torch}
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))

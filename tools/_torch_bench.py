@@ -1,9 +1,11 @@
-"""Shared pieces of the port's measurement tools (``bench_torch.py`` and
-``tools/bench_*_torch.py``): the JAX tools' stub tokenizers and tiny
-LLaVA widths, the device stamp every record carries, the barrier that
-ends a timed region, the memory reading and the git revision. Imports
-the standard library at the top, torch inside the functions that need
-it.
+"""Shared pieces of the port's measurement tools (``bench_torch.py``,
+``tools/bench_*_torch.py`` and ``tools/micro_bench_*_torch.py``): the
+JAX tools' stub tokenizers and tiny LLaVA widths, the device stamp every
+record carries, the barrier that ends a timed region, the clocks of a
+call (CUDA events, the host, the profiler's device time) with the
+launches and host reads it made, the memory reading and the git
+revision. Imports the standard library at the top, torch inside the
+functions that need it.
 """
 
 from __future__ import annotations
@@ -103,6 +105,99 @@ def timed(fn, dev) -> float:
     fn()
     sync(dev)
     return time.perf_counter() - t0
+
+
+def event_ms(fn, dev, n: int = 1) -> float:
+    """ms a call of ``fn`` over ``n`` calls back to back, the device
+    drained before the first: on a card CUDA events recorded before the
+    first call and after the last (the host waits for the second), which
+    is the JAX tools' "dispatch n, fetch the last"; elsewhere the host
+    clock."""
+    sync(dev)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+class Counts:
+    """The kernel launches (``kernels.launch_counts``) and blocking host
+    reads (``utils.device.host_reads``) made since it was created, as
+    differences, so a caller's own counts run on undisturbed."""
+
+    def __init__(self):
+        from leafgrasp_tpu_torch.kernels import launch_counts
+        from leafgrasp_tpu_torch.utils.device import host_reads
+        self._launches, self._reads = launch_counts(), host_reads()
+
+    def read(self):
+        """({kernel: launches} of the kernels that launched, host reads)."""
+        from leafgrasp_tpu_torch.kernels import launch_counts
+        from leafgrasp_tpu_torch.utils.device import host_reads
+        now = launch_counts()
+        return ({k: v - self._launches[k] for k, v in now.items()
+                 if v != self._launches[k]}, host_reads() - self._reads)
+
+
+def one_call(fn, dev):
+    """(record, result) of one call of ``fn`` between two barriers. The
+    record: ``alone_ms`` (CUDA events on a card, the host clock
+    elsewhere), ``host_ms`` (the host clock until ``fn`` returned: its
+    dispatch and the waits of its host reads, without the device's tail),
+    ``launches`` and ``host_reads`` of the call."""
+    sync(dev)
+    counts = Counts()
+    events = None
+    if dev.type == "cuda":
+        import torch
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    if events:
+        events[0].record()
+    out = fn()
+    host = (time.perf_counter() - t0) * 1e3
+    alone = host
+    if events:
+        events[1].record()
+        events[1].synchronize()
+        alone = events[0].elapsed_time(events[1])
+    launches, reads = counts.read()
+    return {"alone_ms": alone, "host_ms": host, "launches": launches,
+            "host_reads": reads}, out
+
+
+def device_time(fn, dev) -> dict:
+    """``busy_ms``, the device time of the kernels, copies and fills that
+    one call of ``fn`` runs, and ``device_ops``, how many it ran, from
+    ``torch.profiler``; both None off a card (not measured). Eight
+    launches of torch's spin kernel open the profile and are left out: a
+    profile late in a long process has been seen to lose its first
+    records."""
+    if dev.type != "cuda":
+        return {"busy_ms": None, "device_ops": None}
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+    evs = [ev for ev in prof.key_averages()      # device rows, lead-in out
+           if ev.self_device_time_total > 0 and "spin_kernel" not in ev.key]
+    return {"busy_ms": sum(ev.self_device_time_total for ev in evs) / 1e3,
+            "device_ops": sum(ev.count for ev in evs)}
 
 
 def device_mem_gb(dev):
