@@ -1,0 +1,13 @@
+"""``StageTimer`` ``score_maps``, one of ``pipeline/frame.py``
+``select_grasp``'s six spans (host clock): the leaf's masks and
+``compute_grasp_scores``: the distance transforms, the fused score maps,
+the bounding box read back. The window's total over its published
+frames, in ms; in the rerank's cell it holds the re-pick's second
+frame-function call too."""
+
+
+def read(run):
+    st = run.stages.get("score_maps")
+    if run.kind != "serve" or not run.item_s or not st:
+        return None
+    return 1e3 * st["total_s"] / len(run.item_s)

@@ -8,6 +8,10 @@ kernel), fusion, 3D lift and the pre-grasp march. PyTorch runs them
 eagerly on the chosen device; the data-dependent choices that JAX
 traces as ``lax.cond``/``while_loop`` are Python branches on scalars
 read back through ``utils.device.host_read``, which counts them.
+
+``select_grasp`` runs as six consecutive spans (``utils.profiler.span``:
+``upload``, ``leaf_select``, ``score_maps``, ``candidates``, ``cnn``,
+``lift``), timed into the caller's bound ``StageTimer``, if any.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from leafgrasp_tpu_torch.models.grasp_cnn import ml_scores_from_logits
 from leafgrasp_tpu_torch.ops.topk import Candidates, topk_min_distance
 from leafgrasp_tpu_torch.pipeline.fusion import FusionResult, fuse_candidates
 from leafgrasp_tpu_torch.utils.device import resolve_device
+from leafgrasp_tpu_torch.utils.profiler import span
 
 __all__ = ["FrameResult", "select_grasp", "make_frame_fn"]
 
@@ -72,59 +77,69 @@ def select_grasp(mask_ids, depth, camera_cx, camera_cy, f_norm,
         histogram (ops/median.py) instead of the bisection; they agree
         within its 1e-5 m envelope, not bit for bit
     """
-    dev = resolve_device(device)
-    mask_ids = torch.as_tensor(mask_ids).to(device=dev, dtype=torch.int32)
-    depth = torch.as_tensor(depth).to(device=dev, dtype=torch.float32)
-    cx, cy, f = (_scalar(v, dev) for v in (camera_cx, camera_cy, f_norm))
+    with span("upload"):
+        dev = resolve_device(device)
+        mask_ids = torch.as_tensor(mask_ids).to(device=dev,
+                                                dtype=torch.int32)
+        depth = torch.as_tensor(depth).to(device=dev, dtype=torch.float32)
+        cx, cy, f = (_scalar(v, dev) for v in (camera_cx, camera_cy,
+                                                f_norm))
 
-    sel = select_optimal_leaf(mask_ids, depth, cx, cy, f, cfg=cfg.leaf,
-                              frame=cfg.frame, hist_median=hist_median)
-    leaf = mask_ids == sel.best_leaf_id
-    all_mask = mask_ids > 0
-    # isolation feeds only the CNN patch channels: CV-only skips its fields
-    scores = compute_grasp_scores(leaf, all_mask, depth, cx, cy, f,
-                                  cfg=cfg.grasp, skip_isolation=cnn is None)
-    cand = topk_min_distance(scores.traditional_score, scores.valid_region,
-                             k=cfg.grasp.top_k,
-                             min_distance=cfg.grasp.min_candidate_distance)
+    with span("leaf_select"):
+        sel = select_optimal_leaf(mask_ids, depth, cx, cy, f, cfg=cfg.leaf,
+                                  frame=cfg.frame, hist_median=hist_median)
 
-    if cnn is not None:
-        feats = assemble_cnn_inputs(depth, leaf, scores, cand.x, cand.y,
-                                    cfg.fusion.patch_size,
-                                    norm_stats=cnn_norm_stats)
-        logits = cnn(feats)
-        ml = ml_scores_from_logits(logits, cfg.fusion.score_spread_scale)
-        fusion = fuse_candidates(cand.score, ml, cand.accepted, True,
-                                 cfg.fusion)
-    else:
-        fusion = fuse_candidates(cand.score, torch.zeros_like(cand.score),
-                                 cand.accepted, False, cfg.fusion)
+    with span("score_maps"):
+        leaf = mask_ids == sel.best_leaf_id
+        all_mask = mask_ids > 0
+        # isolation feeds only the CNN patch channels: CV-only skips its
+        # fields
+        scores = compute_grasp_scores(leaf, all_mask, depth, cx, cy, f,
+                                      cfg=cfg.grasp,
+                                      skip_isolation=cnn is None)
 
-    u = cand.x[fusion.best_index]
-    v = cand.y[fusion.best_index]
-    uf, vf = u.to(torch.float32), v.to(torch.float32)
-    d = depth[v.to(torch.int64), u.to(torch.int64)]
-    if points is None:
-        grasp_xyz = lift_to_3d(uf, vf, d, cx, cy, f)
-    else:
-        pts = torch.as_tensor(points).to(device=dev, dtype=torch.float32)
-        grasp_xyz = lift_to_3d_with_cloud(
-            uf, vf, d, pts, cx, cy, f,
-            threshold_m=cfg.pregrasp.cloud_threshold_m)
-    pre = pre_grasp_point(grasp_xyz, leaf, cx, cy, f, cfg=cfg.pregrasp)
+    with span("candidates"):
+        cand = topk_min_distance(scores.traditional_score,
+                                 scores.valid_region, k=cfg.grasp.top_k,
+                                 min_distance=cfg.grasp.min_candidate_distance)
 
-    return FrameResult(
-        found=sel.found & cand.accepted[0],
-        degenerate=~(cand.score[0] > 0),
-        leaf_id=sel.best_leaf_id,
-        grasp_uv=torch.stack([u, v]),
-        grasp_xyz=grasp_xyz,
-        pre_grasp_xyz=pre.point,
-        ml_used=fusion.ml_used,
-        candidates=cand,
-        fusion=fusion,
-        leaf_selection=sel,
-    )
+    with span("cnn"):
+        ml = None
+        if cnn is not None:
+            feats = assemble_cnn_inputs(depth, leaf, scores, cand.x, cand.y,
+                                        cfg.fusion.patch_size,
+                                        norm_stats=cnn_norm_stats)
+            ml = ml_scores_from_logits(cnn(feats),
+                                       cfg.fusion.score_spread_scale)
+
+    with span("lift"):
+        fusion = fuse_candidates(
+            cand.score, torch.zeros_like(cand.score) if ml is None else ml,
+            cand.accepted, ml is not None, cfg.fusion)
+        u = cand.x[fusion.best_index]
+        v = cand.y[fusion.best_index]
+        uf, vf = u.to(torch.float32), v.to(torch.float32)
+        d = depth[v.to(torch.int64), u.to(torch.int64)]
+        if points is None:
+            grasp_xyz = lift_to_3d(uf, vf, d, cx, cy, f)
+        else:
+            pts = torch.as_tensor(points).to(device=dev, dtype=torch.float32)
+            grasp_xyz = lift_to_3d_with_cloud(
+                uf, vf, d, pts, cx, cy, f,
+                threshold_m=cfg.pregrasp.cloud_threshold_m)
+        pre = pre_grasp_point(grasp_xyz, leaf, cx, cy, f, cfg=cfg.pregrasp)
+        return FrameResult(
+            found=sel.found & cand.accepted[0],
+            degenerate=~(cand.score[0] > 0),
+            leaf_id=sel.best_leaf_id,
+            grasp_uv=torch.stack([u, v]),
+            grasp_xyz=grasp_xyz,
+            pre_grasp_xyz=pre.point,
+            ml_used=fusion.ml_used,
+            candidates=cand,
+            fusion=fusion,
+            leaf_selection=sel,
+        )
 
 
 def make_frame_fn(cfg: PipelineConfig = DEFAULT_CONFIG,

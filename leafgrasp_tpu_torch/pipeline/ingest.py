@@ -16,6 +16,13 @@ The equivalent of the production ROS node
   `_calculate_all_scores` call (leaf_grasp_node_vla.py:148-182)
   actually fixed: candidates come from the leaf selector's real
   per-leaf scores.
+
+The service's ``timer`` (utils/profiler.py ``StageTimer``) takes its own
+stages (``bus_push``, ``bus_pair``, ``frame_total``, ``select_grasp``,
+``fetch``, ``vla_rerank``, ``vla_reselect``, ``finalize``) and, bound
+while a frame is processed, the spans of the code it calls: the frame
+function's stages, the host's ``device_wait``, the VLA's
+``vla_prefill`` and ``vla_decode``.
 """
 
 from __future__ import annotations
@@ -225,10 +232,12 @@ class GraspService:
             np.asarray(projection_matrix))
 
     def on_mask(self, mask: np.ndarray, stamp_us: int = 0):
-        self.bus.push_mask(mask, stamp_us)
+        with self.timer.stage("bus_push"):
+            self.bus.push_mask(mask, stamp_us)
 
     def on_depth(self, depth: np.ndarray, stamp_us: int = 0):
-        self.bus.push_depth(depth, stamp_us)
+        with self.timer.stage("bus_push"):
+            self.bus.push_depth(depth, stamp_us)
 
     def on_rgb(self, image: np.ndarray):
         """Left rectified color image, used by VLA re-ranking and the
@@ -243,7 +252,8 @@ class GraspService:
         now = time.monotonic()
         if not force and (now - self._last_processed) < self.min_interval_s:
             return None
-        pair = self.bus.try_get_pair()
+        with self.timer.stage("bus_pair"):
+            pair = self.bus.try_get_pair()
         if pair is None:
             return None
         mask, depth, mask_stamp, depth_stamp = pair
@@ -272,7 +282,7 @@ class GraspService:
         if self._recorder is not None:
             # session recording; replay with io.framelog.FrameLogReader
             self._recorder.append(mask16, depth, mask_stamp)
-        with self.timer.stage("frame_total"):
+        with self.timer.bound(), self.timer.stage("frame_total"):
             with self.timer.stage("select_grasp"):
                 res = self._run_fn(mask16, depth)
 
@@ -346,7 +356,7 @@ class GraspService:
     def flush(self) -> List[dict]:
         """Finalize every in-flight frame (pipeline_depth > 0), in
         frame order. Returns their result dicts."""
-        with self._proc_lock:
+        with self._proc_lock, self.timer.bound():
             outs = []
             while self._inflight:
                 outs.append(self._complete(*self._inflight.pop(0)))
@@ -375,7 +385,12 @@ class GraspService:
     def run(self, poll_interval_s: float = 0.005):
         """Blocking service loop; stop with .stop()."""
         while not self._stop.is_set():
-            out = self.process_pending()
+            # the stop check and the frame under one lock: a frame taken
+            # after stop() has flushed would stay in flight unpublished
+            with self._proc_lock:
+                if self._stop.is_set():
+                    break
+                out = self.process_pending()
             if out is None:
                 time.sleep(poll_interval_s)
 

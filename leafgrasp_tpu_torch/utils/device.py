@@ -5,7 +5,9 @@ The port runs on the card unless the caller names another device: there
 is no silent fallback to the CPU. Data-dependent branches of the JAX
 package (``lax.cond`` / ``while_loop`` choices) become Python branches on
 a scalar read back from the device; every such read goes through
-``host_read`` so a run can report how many it made.
+``host_read`` so a run can report how many it made. Each blocking wait
+for the device (a read, ``fetch_to_host``'s one synchronization) runs
+under the span ``device_wait`` (``utils.profiler.span``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from leafgrasp_tpu_torch.utils.profiler import span
 
 __all__ = ["resolve_device", "host_read", "host_reads",
            "reset_host_reads", "fetch_to_host", "setup", "device_info",
@@ -36,7 +40,8 @@ def host_read(t: torch.Tensor):
     """Copy a (small) tensor to the host as Python values, counting the
     read. Scalars come back as Python numbers, others as lists."""
     _HOST_READS[0] += 1
-    return t.detach().cpu().tolist()
+    with span("device_wait"):
+        return t.detach().cpu().tolist()
 
 
 def host_reads() -> int:
@@ -92,7 +97,8 @@ def fetch_to_host(tree):
         else:
             host.append(t)
     if stream is not None:
-        stream.synchronize()
+        with span("device_wait"):
+            stream.synchronize()
     # pinned buffers are recycled by the allocator: hand out copies
     arrays = iter([np.array(h.numpy()) for h in host])
     return _rebuild(tree, arrays)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from leafgrasp_tpu_torch.utils.device import host_read, resolve_device
+from leafgrasp_tpu_torch.utils.profiler import span
 from leafgrasp_tpu_torch.vla.llava_next import (CLIP_IMAGE_MEAN,
                                                 CLIP_IMAGE_STD,
                                                 pack_anyres_features_torch,
@@ -183,7 +184,8 @@ class LlavaTorchScorer:
             out.extend(self._score_batch(rows[lo:lo + step], feats))
         self.last["n_image_tokens"] = n_img
         if timed and image is not None:
-            e1.synchronize()
+            with span("device_wait"):
+                e1.synchronize()
             self.last["encode_ms"] = e0.elapsed_time(e1)
         self.last["scores"] = list(out)
         return out

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from leafgrasp_tpu_torch.kernels import flash_prefill as _fp
 from leafgrasp_tpu_torch.utils.device import resolve_device
+from leafgrasp_tpu_torch.utils.profiler import span
 from leafgrasp_tpu_torch.vla.lora import LoRADense, PromotedLinear
 from leafgrasp_tpu_torch.vla.quant import QuantDense, QuantLoRADense
 
@@ -833,7 +834,10 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
 
     timings: optional dict; on a CUDA device it receives
     ``prefill_ms`` and ``decode_ms`` (CUDA events, one synchronization
-    at the end).
+    at the end, under the span ``device_wait``). The prompt pass runs
+    under the span ``vla_prefill`` and the decode steps' loop under
+    ``vla_decode``: the host's time to launch each, which for the loop
+    includes any block on a launch queue the prefill still fills.
     """
     if decode_mode not in ("scan", "steps"):
         raise ValueError(f"decode_mode {decode_mode!r}: 'scan' or 'steps'")
@@ -847,19 +851,23 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
     if timed:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-    last, caches = _generate_prefill(model, input_ids, pad, pixel_values,
-                                     image_features, max_new_tokens)
+    with span("vla_prefill"):
+        last, caches = _generate_prefill(model, input_ids, pad,
+                                         pixel_values, image_features,
+                                         max_new_tokens)
     if timed:
         ev[1].record()
     toks = [last]
-    for i in range(max_new_tokens - 1):
-        last, caches = _generate_decode_step(model, caches, last, pad, i, t,
-                                             max_new_tokens)
-        toks.append(last)
+    with span("vla_decode"):
+        for i in range(max_new_tokens - 1):
+            last, caches = _generate_decode_step(model, caches, last, pad, i,
+                                                 t, max_new_tokens)
+            toks.append(last)
     out = torch.stack(toks, dim=1).to(torch.int32)
     if timed:
         ev[2].record()
-        ev[2].synchronize()
+        with span("device_wait"):
+            ev[2].synchronize()
         timings["prefill_ms"] = ev[0].elapsed_time(ev[1])
         timings["decode_ms"] = ev[1].elapsed_time(ev[2])
     return out

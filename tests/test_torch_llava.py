@@ -833,3 +833,21 @@ def test_vla_service_publishes_the_same_choice_as_jax():
         reselected += "vla_reselect" in ts.stats()["stages"]
     assert len(tm) == len(jm) == len(frames)
     assert tscorer.last["n_image_tokens"] > 4
+
+
+def test_greedy_generate_records_its_prefill_and_decode_spans():
+    from leafgrasp_tpu_torch.utils.profiler import StageTimer
+    tcfg = tl.LlavaTorchConfig(**TINY)
+    model = tl.LlavaTorch(tcfg, device="cpu")
+    ids, px = _inputs(5, b=2, t=9)
+    feats = model.vision_project(torch.from_numpy(px[:1]))
+    feats = feats.expand(2, *feats.shape[1:])
+    timer = StageTimer()
+    with timer.bound():
+        for _ in range(2):
+            tl.greedy_generate_llava(model, torch.from_numpy(ids).long(),
+                                     image_features=feats, max_new_tokens=4)
+    tl.greedy_generate_llava(model, torch.from_numpy(ids).long(),
+                             image_features=feats, max_new_tokens=4)
+    st = timer.summary()
+    assert st["vla_prefill"]["count"] == st["vla_decode"]["count"] == 2

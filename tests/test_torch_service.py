@@ -701,8 +701,8 @@ def test_replay_matches_jax(tmp_path):
         assert g[1].dtype == np.float32
 
 
-def test_stage_timer_and_trace(tmp_path):
-    from leafgrasp_tpu_torch.utils.profiler import StageTimer, trace_to
+def test_stage_timer_and_trace():
+    from leafgrasp_tpu_torch.utils.profiler import StageTimer, span
     t = StageTimer()
     with t.stage("a"):
         pass
@@ -710,13 +710,126 @@ def test_stage_timer_and_trace(tmp_path):
     s = t.summary()
     assert s["a"]["count"] == 2 and s["a"]["max_ms"] >= 10.0
     assert "a" in t.report()
-    with trace_to(None) as prof:
-        assert prof is None
-    log_dir = str(tmp_path / "trace")
-    with trace_to(log_dir) as prof:
-        torch.ones(8).sum()
-    assert prof is not None
-    assert os.path.getsize(os.path.join(log_dir, "trace.json")) > 0
+    # a span records into the bound timer only, and binding nests
+    inner = StageTimer()
+    with span("b"):
+        pass
+    with t.bound():
+        with span("b"):
+            with inner.bound():
+                with span("c"):
+                    pass
+            with span("b"):
+                pass
+    with span("b"):
+        pass
+    assert t.summary()["b"]["count"] == 2 and "c" not in t.summary()
+    assert set(inner.summary()) == {"c"}
+
+
+FRAME_STAGES = ("upload", "leaf_select", "score_maps", "candidates", "cnn",
+                "lift")
+
+
+def _cnn_service():
+    from leafgrasp_tpu_torch.models.grasp_cnn import GraspPointCNN
+    torch.manual_seed(0)
+    cnn = GraspPointCNN(tcfg.ModelConfig(encoder_filters=(8, 16))).eval()
+    return _service(cnn=cnn)
+
+
+def _push_and_process(svc, mask, depth, stamp=1):
+    svc.on_mask(mask, stamp)
+    svc.on_depth(depth, stamp)
+    return svc.process_pending(force=True)
+
+
+def test_service_frame_records_its_stage_spans():
+    svc = _cnn_service()
+    mask, depth = _stream(1)[0]
+    out = _push_and_process(svc, mask, depth)
+    assert out is not None and out["found"]
+    st = svc.stats()["stages"]
+    for name in FRAME_STAGES:
+        assert st[name]["count"] == 1, name
+    assert st["bus_push"]["count"] == 2 and st["bus_pair"]["count"] == 1
+    assert st["device_wait"]["count"] >= 1
+    assert sum(st[n]["total_s"] for n in FRAME_STAGES) \
+        <= st["select_grasp"]["total_s"]
+
+
+def test_frame_fn_without_a_bound_timer_records_nothing(monkeypatch):
+    from leafgrasp_tpu_torch.models.grasp_cnn import GraspPointCNN
+    from leafgrasp_tpu_torch.pipeline.frame import make_frame_fn
+    from leafgrasp_tpu_torch.utils import profiler
+    seen = []
+    monkeypatch.setattr(profiler.StageTimer, "record",
+                        lambda self, name, s: seen.append(name))
+    cnn = GraspPointCNN(tcfg.ModelConfig(encoder_filters=(8, 16))).eval()
+    mask, depth = _stream(1)[0]
+    res = make_frame_fn(TCFG, with_cnn=True, device="cpu")(
+        mask, depth, np.float32(W / 2), np.float32(H / 2), np.float32(400.0),
+        cnn)
+    assert bool(res.found)
+    assert seen == []
+
+
+def test_service_spans_nest_in_a_profile():
+    from torch.profiler import ProfilerActivity, profile
+    from leafgrasp_tpu_torch.utils.profiler import SPAN_PREFIX
+    svc = _cnn_service()
+    mask, depth = _stream(1)[0]
+    _push_and_process(svc, mask, depth)            # warm
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _push_and_process(svc, mask, depth, 2)
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith(SPAN_PREFIX):
+            assert e.is_user_annotation, e.name
+            ranges.setdefault(e.name[len(SPAN_PREFIX):], []).append(
+                (e.time_range.start, e.time_range.end))
+    for name in ("frame_total", "select_grasp", "fetch", "finalize",
+                 "bus_push", "bus_pair", "device_wait") + FRAME_STAGES:
+        assert name in ranges, name
+    (outer,), (sel,) = ranges["frame_total"], ranges["select_grasp"]
+    assert outer[0] <= sel[0] and sel[1] <= outer[1]
+    for name in FRAME_STAGES:
+        (a, b), = ranges[name]
+        assert sel[0] <= a and b <= sel[1], name
+
+
+def test_spans_build_no_profiler_range_without_a_profiler(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with no profiler")
+    svc = _cnn_service()
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    mask, depth = _stream(1)[0]
+    assert _push_and_process(svc, mask, depth)["found"]
+    assert svc.stats()["stages"]["lift"]["count"] == 1
+
+
+def test_stage_timer_record_is_thread_safe():
+    import sys
+    from leafgrasp_tpu_torch.utils.profiler import StageTimer
+    t = StageTimer()
+
+    def work():
+        for _ in range(10_000):
+            t.record("x", 1e-6)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert t.summary()["x"]["count"] == 40_000
+    assert t.summary()["x"]["total_s"] == pytest.approx(0.04)
 
 
 def test_device_utils_on_cpu():
