@@ -91,7 +91,10 @@ class LlavaTorchScorer:
     before the prompt, the HF-processor convention.
 
     max_batch: cap on candidates per generate call (None = all at once).
-    decode_mode: "scan" or "steps"; both run the same eager loop here.
+    decode_mode: "scan" or "steps"; both take ``greedy_generate_llava``'s
+    route: on a CUDA device the decode steps replay a CUDA graph over
+    static caches, captured on the first batch of each shape; on the CPU
+    and for a tensor-parallel model they run eagerly.
     decode_weight_layout: "default" only. The JAX package's "auto"
     relays the weights out for a compiled decode program; eager CUDA
     has nothing of the kind, so it raises ``ValueError``.
@@ -100,7 +103,9 @@ class LlavaTorchScorer:
     and the newline row; needs ``cfg.image_grid_pinpoints``.
 
     ``last`` holds what the newest ``score`` call measured: token
-    counts, the generated tokens and, on a CUDA device, the split into
+    counts, the generated tokens, the decode's route ``decode_graph``
+    ("captured" where one of its batches captured a graph, else
+    "replayed" or "eager") and, on a CUDA device, the split into
     encode / prefill / decode milliseconds; ``scores``, the parsed
     scores, only once the call has returned them.
     """
@@ -212,6 +217,9 @@ class LlavaTorchScorer:
         # (the rerank stability tool) finds it filled as it goes
         self.last["prompt_len"] = t
         self.last.setdefault("tokens", []).extend(gen)
+        route = timings.pop("decode_graph")
+        if self.last.get("decode_graph") != "captured":
+            self.last["decode_graph"] = route
         for key, val in timings.items():
             self.last[key] = self.last.get(key, 0.0) + val
         return [parse_score(self.tokenizer.decode(row)) for row in gen]

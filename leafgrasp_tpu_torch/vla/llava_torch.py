@@ -21,8 +21,13 @@ JAX module chooses: ``"flash"`` (the CUDA kernel of
 records; the plain versions for CPU tensors), the dense
 grouped einsum, and the same einsum over chunks of query rows. Caches
 are ``(b, total, kv_heads, hd)`` tensors written in place; the cache
-cursor is a Python int. Pixel values are ``(B, H, W, 3)`` at every
-public function, as in the JAX package.
+cursor is a Python int, or on a decode step its slot as a tensor on the
+device. Pixel values are ``(B, H, W, 3)`` at every public function, as
+in the JAX package.
+
+Greedy decode on a CUDA device replays one CUDA graph of its steps over
+static caches (``greedy_generate_llava``); elsewhere the same steps run
+eagerly.
 """
 
 from __future__ import annotations
@@ -360,10 +365,16 @@ class _MistralAttention(nn.Module):
         cur = 0
         if cache is not None:
             # written in place; under f32 parameters k may be wider than
-            # the cache: cast at the boundary
+            # the cache: cast at the boundary. The cursor is the first
+            # slot as a Python int, or the (t,) slots as a tensor on the
+            # device, which a captured decode step reads at each replay
             ck, cv, cur = cache
-            ck[:, cur:cur + t] = k.to(ck.dtype)
-            cv[:, cur:cur + t] = v.to(cv.dtype)
+            if isinstance(cur, torch.Tensor):
+                ck.index_copy_(1, cur, k.to(ck.dtype))
+                cv.index_copy_(1, cur, v.to(cv.dtype))
+            else:
+                ck[:, cur:cur + t] = k.to(ck.dtype)
+                cv[:, cur:cur + t] = v.to(cv.dtype)
             k, v = ck, cv
             cache = (ck, cv, cur + t)
 
@@ -760,6 +771,12 @@ def attach_lora(model: LlavaTorch, state: Dict[str, Any],
 
 # ------------------------------------------------------------ generate ---
 
+#: the graph route's caches hold the prompt and the new tokens rounded up
+#: to a multiple of this many slots, so that a prompt a few tokens longer
+#: or shorter replays the same graph
+CACHE_QUANTUM = 64
+
+
 def _new_caches(c: LlavaTorchConfig, b: int, total: int, dev) -> List:
     dt = c.torch_dtype
     return [(torch.zeros((b, total, c.kv_heads, c.head_dim), dtype=dt,
@@ -769,14 +786,14 @@ def _new_caches(c: LlavaTorchConfig, b: int, total: int, dev) -> List:
 
 
 def _generate_prefill(model: LlavaTorch, input_ids, pad, pixel_values,
-                      image_features, max_new_tokens: int):
-    """Prompt pass: fill the KV caches (in the compute type), return the
-    first greedy token."""
+                      image_features, caches):
+    """Prompt pass: fill ``caches`` (in the compute type, zero past the
+    prompt; their length is the key axis), return the first greedy
+    token."""
     c = model.cfg
     dev = input_ids.device
-    b, t = input_ids.shape
-    total = t + max_new_tokens
-    caches = _new_caches(c, b, total, dev)
+    t = input_ids.shape[1]
+    total = caches[0][0].shape[1]
     positions = torch.clamp(torch.arange(t, device=dev)[None, :]
                             - pad[:, None], min=0)
     mask = torch.tril(torch.ones((t, total), dtype=torch.bool, device=dev))
@@ -796,21 +813,140 @@ def _generate_prefill(model: LlavaTorch, input_ids, pad, pixel_values,
 
 
 def _generate_decode_step(model: LlavaTorch, caches, last, pad, step_i: int,
-                          prompt_len: int, max_new_tokens: int):
-    """One decode token against the caches (updated in place)."""
+                          prompt_len):
+    """One decode token against the caches (written in place).
+    ``prompt_len`` is a 0-d int64 tensor on the device: the rotary
+    positions, the slot written and the key mask come from it, so a
+    captured step serves any prompt that fits the caches. ``step_i`` is a
+    Python int."""
     c = model.cfg
     dev = last.device
-    total = prompt_len + max_new_tokens
     pos = prompt_len + step_i
     positions = (pos - pad)[:, None]
-    key_idx = torch.arange(total, device=dev)
+    key_idx = torch.arange(caches[0][0].shape[1], device=dev)
     mask = (key_idx[None, :] <= pos) & (key_idx[None, :] >= pad[:, None])
     if c.sliding_window is not None:
         mask = mask & (pos - key_idx[None, :] < c.sliding_window)
     mask = mask[:, None, None, :]
-    logits, caches = model(last[:, None], positions=positions, mask=mask,
-                           caches=caches)
-    return torch.argmax(logits[:, -1, :], dim=-1), caches
+    slot = pos.reshape(1)
+    logits, _ = model(last[:, None], positions=positions, mask=mask,
+                      caches=[(ck, cv, slot) for ck, cv, _ in caches])
+    return torch.argmax(logits[:, -1, :], dim=-1)
+
+
+def _decode_steps(model: LlavaTorch, caches, last, pad, prompt_len, n: int):
+    """The ``n`` greedy tokens after ``last``, (b, n) int64: the loop that
+    the graph route captures and the eager route runs."""
+    toks = []
+    for i in range(n):
+        last = _generate_decode_step(model, caches, last, pad, i, prompt_len)
+        toks.append(last)
+    if not toks:
+        return last.new_zeros((last.shape[0], 0))
+    return torch.stack(toks, dim=1)
+
+
+class _DecodeGraph:
+    """The decode loop of one (rows, capacity, steps), captured once as a
+    CUDA graph over static caches (``kv``: (layers, 2, rows, capacity,
+    kv_heads, hd)) and static inputs, and replayed by every later call of
+    that shape."""
+
+    def __init__(self, model: LlavaTorch, kv, n: int, pool):
+        dev = kv.device
+        b = kv.shape[2]
+        self.kv = kv
+        self.caches = [(kv[i, 0], kv[i, 1], 0) for i in range(kv.shape[0])]
+        self.last = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.pad = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.prompt_len = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def loop():
+            return _decode_steps(model, self.caches, self.last, self.pad,
+                                 self.prompt_len, n)
+
+        # warm up on the capture's stream (cuBLAS's and the allocator's
+        # lazy state), then capture. Both write slots 0 to n - 1, which
+        # each call's zeroing and prompt pass overwrite before a replay.
+        # The capture forbids unsafe calls on this thread only: the
+        # service's callbacks may upload frames from theirs meanwhile
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            loop()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=side,
+                              capture_error_mode="thread_local"):
+            self.out = loop()
+
+    def caches_from(self, t: int) -> List:
+        """The static caches with every slot from ``t`` on zeroed, as
+        ``_new_caches`` gives them."""
+        self.kv[:, :, :, t:].zero_()
+        return self.caches
+
+    def replay(self, last, pad, prompt_len: int):
+        """The loop's (b, n) tokens after ``last``: a copy of the graph's
+        output, which the next replay overwrites."""
+        self.last.copy_(last)
+        self.pad.copy_(pad)
+        self.prompt_len.fill_(prompt_len)
+        self.graph.replay()
+        return self.out.clone()
+
+
+class _DecodeGraphs:
+    """What the graph route keeps with a model: K/V buffers for each
+    (rows, capacity, compute type), a captured loop on them for each
+    number of steps, one memory pool for the graphs, and the addresses
+    of the parameters they were captured on. A graph reads the weights
+    where they were at its capture, so once a parameter has moved
+    everything is captured anew."""
+
+    def __init__(self):
+        self.kv: Dict[tuple, torch.Tensor] = {}
+        self.graphs: Dict[tuple, _DecodeGraph] = {}
+        self.pool = torch.cuda.graph_pool_handle()
+        self.params: tuple = ()
+
+    def get(self, model: LlavaTorch, b: int, cap: int, n: int):
+        """(the decode graph of this shape, "captured" where this call
+        captured it, else "replayed")."""
+        params = tuple(p.data_ptr() for p in model.parameters())
+        if params != self.params:
+            self.kv.clear()
+            self.graphs.clear()
+            self.params = params
+        c = model.cfg
+        key = (b, cap, c.torch_dtype)
+        graph = self.graphs.get((*key, n))
+        if graph is not None:
+            return graph, "replayed"
+        if key not in self.kv:
+            self.kv[key] = torch.zeros(
+                (c.layers, 2, b, cap, c.kv_heads, c.head_dim),
+                dtype=c.torch_dtype, device=model.device)
+        with span("vla_graph_capture"):
+            graph = _DecodeGraph(model, self.kv[key], n, self.pool)
+        self.graphs[(*key, n)] = graph
+        return graph, "captured"
+
+
+def _decode_graphs(model: LlavaTorch, dev) -> Optional[_DecodeGraphs]:
+    """The model's graph store where its decode replays a CUDA graph: on
+    a CUDA device, for a model without the tensor-parallel projections
+    that ``parallel/sharding.py`` ``tensor_parallel_`` installs (a capture
+    cannot hold their collectives). None where the steps run eagerly."""
+    if dev.type != "cuda":
+        return None
+    from leafgrasp_tpu_torch.parallel.sharding import ColumnParallel
+    if any(isinstance(m, ColumnParallel) for m in model.modules()):
+        return None
+    store = getattr(model, "_decode_graphs", None)
+    if store is None:
+        store = model._decode_graphs = _DecodeGraphs()
+    return store
 
 
 @torch.no_grad()
@@ -828,15 +964,28 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
     decodes as it would alone: this is how the VLA scorer batches its
     candidate prompts into one pass over the weights.
 
-    decode_mode: "scan" or "steps". The JAX package compiles them as one
-    fused program or one program a token; here both run the same eager
-    loop and give the same tokens.
+    The steps take one of two routes, by what the call can observe. On a
+    CUDA device, for a model without the tensor-parallel projections of
+    ``parallel/sharding.py``, the prompt pass writes into static caches
+    held with the model, of ``prompt + max_new_tokens`` slots rounded up
+    to a multiple of ``CACHE_QUANTUM``, and the steps replay one CUDA
+    graph, captured on the first call of its (rows, capacity, steps)
+    under the span ``vla_graph_capture``; such a model serves one call
+    at a time. Everywhere else the steps run eagerly on fresh caches of
+    exactly ``prompt + max_new_tokens`` slots. Both routes run
+    ``_generate_decode_step``, which reads the prompt length from the
+    device.
 
-    timings: optional dict; on a CUDA device it receives
-    ``prefill_ms`` and ``decode_ms`` (CUDA events, one synchronization
-    at the end, under the span ``device_wait``). The prompt pass runs
-    under the span ``vla_prefill`` and the decode steps' loop under
-    ``vla_decode``: the host's time to launch each, which for the loop
+    decode_mode: "scan" or "steps". The JAX package compiles them as one
+    fused program or one program a token; here both take the route above
+    and give the same tokens.
+
+    timings: optional dict. It receives ``decode_graph``: "captured",
+    "replayed" or "eager"; on a CUDA device also ``prefill_ms`` and
+    ``decode_ms`` (CUDA events, one synchronization at the end, under
+    the span ``device_wait``). The prompt pass runs under the span
+    ``vla_prefill`` and the steps under ``vla_decode``: the host's time
+    to launch them (on the graph route the replay), which for the steps
     includes any block on a launch queue the prefill still fills.
     """
     if decode_mode not in ("scan", "steps"):
@@ -847,27 +996,38 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
         pad = torch.zeros((b,), dtype=torch.int32, device=dev)
     else:
         pad = torch.as_tensor(pad_lens).to(device=dev, dtype=torch.int32)
+    n = max_new_tokens - 1
+    graphs = _decode_graphs(model, dev) if n > 0 else None
+    graph, route = None, "eager"
+    if graphs is not None:
+        cap = -(-(t + max_new_tokens) // CACHE_QUANTUM) * CACHE_QUANTUM
+        graph, route = graphs.get(model, b, cap, n)
     timed = timings is not None and dev.type == "cuda"
     if timed:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
     with span("vla_prefill"):
-        last, caches = _generate_prefill(model, input_ids, pad,
-                                         pixel_values, image_features,
-                                         max_new_tokens)
+        caches = _new_caches(model.cfg, b, t + max_new_tokens, dev) \
+            if graph is None else graph.caches_from(t)
+        first, caches = _generate_prefill(model, input_ids, pad,
+                                          pixel_values, image_features,
+                                          caches)
     if timed:
         ev[1].record()
-    toks = [last]
     with span("vla_decode"):
-        for i in range(max_new_tokens - 1):
-            last, caches = _generate_decode_step(model, caches, last, pad, i,
-                                                 t, max_new_tokens)
-            toks.append(last)
-    out = torch.stack(toks, dim=1).to(torch.int32)
+        if graph is None:
+            steps = _decode_steps(model, caches, first, pad,
+                                  torch.full((), t, dtype=torch.int64,
+                                             device=dev), n)
+        else:
+            steps = graph.replay(first, pad, t)
+    out = torch.cat([first[:, None], steps], dim=1).to(torch.int32)
     if timed:
         ev[2].record()
         with span("device_wait"):
             ev[2].synchronize()
         timings["prefill_ms"] = ev[0].elapsed_time(ev[1])
         timings["decode_ms"] = ev[1].elapsed_time(ev[2])
+    if timings is not None:
+        timings["decode_graph"] = route
     return out

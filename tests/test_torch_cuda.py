@@ -1154,3 +1154,131 @@ def test_hard_cnn_logits_on_card_equal_cpu(cuda):
             torch.backends.cuda.matmul.allow_tf32 = tf32
     assert kernels.launch_counts()["fused_attention_gate"] == 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+# ---- the VLA decode's CUDA graph (vla/llava_torch.py) ----------------------
+
+def _graph_llava(cuda, quantized):
+    """A small random LLaVA in bf16 (head size 64, so prompts of 128
+    tokens or more take the flash prefill), as drawn or with its
+    projections and head in int8."""
+    import dataclasses
+    from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                     LlavaTorchConfig,
+                                                     init_random_)
+    from leafgrasp_tpu_torch.vla.quant import quantize_llava_variables
+    cfg = LlavaTorchConfig(
+        vis_hidden=32, vis_intermediate=64, vis_layers=1, vis_heads=2,
+        image_size=28, patch_size=14, vocab_size=256, hidden=256,
+        intermediate=512, layers=2, heads=4, kv_heads=2,
+        image_token_index=200, dtype="bfloat16", prefill_attn_impl="flash")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    model = init_random_(LlavaTorch(cfg, device=cuda,
+                                    param_dtype=torch.bfloat16), gen,
+                         std=0.1)
+    if not quantized:
+        return model
+    return LlavaTorch.from_state(
+        dataclasses.replace(cfg, quantized=True, quant_bits=8),
+        quantize_llava_variables(model.state_dict(), bits=8))
+
+
+def _uncaptured_tokens(model, ids, pad, n_new):
+    """The graph route's tokens computed without a graph: the prompt pass
+    into fresh caches of the graph route's capacity, then the same step
+    function, run eagerly."""
+    from leafgrasp_tpu_torch.vla import llava_torch as tl
+    b, t = ids.shape
+    cap = -(-(t + n_new) // tl.CACHE_QUANTUM) * tl.CACHE_QUANTUM
+    caches = tl._new_caches(model.cfg, b, cap, ids.device)
+    with torch.no_grad():
+        first, caches = tl._generate_prefill(model, ids, pad, None, None,
+                                             caches)
+        steps = tl._decode_steps(
+            model, caches, first, pad,
+            torch.full((), t, dtype=torch.int64, device=ids.device),
+            n_new - 1)
+    return torch.cat([first[:, None], steps], dim=1).to(torch.int32)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_graph_replays_the_uncaptured_steps_bit_for_bit(cuda,
+                                                               quantized):
+    """``greedy_generate_llava`` on the card captures the decode steps
+    once a (rows, capacity, steps) and replays them: its tokens equal the
+    same step function's run uncaptured at the same capacity, in bf16 and
+    int8, at 3 and 5 rows with unequal pads; a second call of a shape
+    reads its new inputs, a prompt one token longer replays (the same
+    capacity), more rows capture anew, and the first shape's graph still
+    replays after that capture."""
+    from leafgrasp_tpu_torch.vla.llava_torch import greedy_generate_llava
+    model = _graph_llava(cuda, quantized)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    calls = [(3, 150, [0, 7, 40], "captured"),
+             (3, 150, [5, 0, 60], "replayed"),
+             (3, 151, [2, 9, 0], "replayed"),
+             (5, 151, [0, 3, 17, 1, 30], "captured"),
+             (5, 151, [4, 0, 2, 11, 6], "replayed"),
+             (3, 150, [1, 1, 0], "replayed")]
+    seen = []
+    for b, t, pads, route in calls:
+        ids = torch.randint(1, 200, (b, t), generator=gen, device=cuda)
+        pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+        ids[torch.arange(t, device=cuda)[None, :] < pad[:, None]] = 0
+        timings = {}
+        got = greedy_generate_llava(model, ids, max_new_tokens=10,
+                                    pad_lens=pad, timings=timings)
+        want = _uncaptured_tokens(model, ids, pad, 10)
+        assert timings["decode_graph"] == route, (b, t, pads)
+        assert timings["decode_ms"] > 0
+        assert got.dtype == torch.int32 and got.shape == (b, 10)
+        assert torch.equal(got, want), (b, t, pads)
+        seen.append(got.cpu())
+    assert not torch.equal(seen[0], seen[1])
+    assert not torch.equal(seen[3], seen[4])
+    # a parameter that moves (a new tensor, as an assigning load makes)
+    # leaves the graphs reading the old one: they are captured anew
+    head = model.lm_head
+    name = "kernel_q" if quantized else "weight"
+    setattr(head, name, torch.nn.Parameter(
+        getattr(head, name).detach().flip(-1).clone(), requires_grad=False))
+    timings = {}
+    got = greedy_generate_llava(model, ids, max_new_tokens=10,
+                                pad_lens=pad, timings=timings)
+    assert timings["decode_graph"] == "captured"
+    assert torch.equal(got, _uncaptured_tokens(model, ids, pad, 10))
+    assert not torch.equal(got.cpu(), seen[-1])
+
+
+def test_scorer_reports_the_capture_then_the_replays(cuda):
+    """``LlavaTorchScorer.last["decode_graph"]`` on the card: "captured"
+    on the first rerank of a shape, "replayed" after it, and "captured"
+    again where a batch of another size is new."""
+    from leafgrasp_tpu_torch.vla.llava_runtime import LlavaTorchScorer
+
+    class Tok:
+        def encode(self, text):
+            data = np.frombuffer(text.encode(), np.uint8).astype(np.int64)
+            fold = np.zeros(-(-len(data) // 24) * 24, np.int64)
+            fold[:len(data)] = data
+            return [1] + (fold.reshape(-1, 24).sum(0) % 190 + 3).tolist()
+
+        def decode(self, ids):
+            return "0." + "".join(str(int(i) % 10) for i in ids)
+
+    cands = [dict(leaf_id=i + 1, x=float(10 + 7 * i), y=float(30 - 3 * i),
+                  clutter_score=0.2 + 0.1 * i, distance_score=0.9 - 0.1 * i,
+                  geometric_score=0.5 + 0.05 * i) for i in range(5)]
+    scorer = LlavaTorchScorer(_graph_llava(cuda, False), Tok(),
+                              max_new_tokens=6)
+    first = scorer.score(None, cands, "Select")
+    assert scorer.last["decode_graph"] == "captured"
+    assert scorer.score(None, cands, "Select") == first
+    assert scorer.last["decode_graph"] == "replayed"
+    scorer.max_batch = 2
+    scorer.score(None, cands, "Select")
+    assert scorer.last["decode_graph"] == "captured"
+    scorer.score(None, cands, "Select")
+    assert scorer.last["decode_graph"] == "replayed"

@@ -851,3 +851,63 @@ def test_greedy_generate_records_its_prefill_and_decode_spans():
                              image_features=feats, max_new_tokens=4)
     st = timer.summary()
     assert st["vla_prefill"]["count"] == st["vla_decode"]["count"] == 2
+
+
+def _random_model(seed=0, **kw):
+    gen = torch.Generator().manual_seed(seed)
+    model = tl.LlavaTorch(tl.LlavaTorchConfig(**{**TINY, **kw}),
+                          device="cpu")
+    return tl.init_random_(model, gen, std=0.1)
+
+
+def test_decode_at_a_rounded_capacity_gives_the_exact_lengths_tokens():
+    """The graph route's cache capacity (prompt and new tokens rounded
+    up to ``CACHE_QUANTUM``), run uncaptured on the CPU: the prompt pass
+    into the longer caches and the steps, with the prompt length on the
+    device, give ``greedy_generate_llava``'s tokens at the exact length.
+    The slots past the prompt are masked, so they may hold anything
+    finite."""
+    model = _random_model(1)
+    ids, px = _inputs(12, b=3, t=13)
+    ids = torch.from_numpy(ids).long()
+    pad = torch.tensor([0, 3, 6], dtype=torch.int32)
+    feats = model.vision_project(torch.from_numpy(px[:1]))
+    feats = feats.expand(3, *feats.shape[1:])
+    want = tl.greedy_generate_llava(model, ids, image_features=feats,
+                                    max_new_tokens=6, pad_lens=pad)
+    cap = tl.CACHE_QUANTUM
+    assert cap > 13 + 6
+    caches = tl._new_caches(model.cfg, 3, cap, ids.device)
+    with torch.no_grad():
+        for ck, cv, _ in caches:
+            ck[:, 13:].fill_(7.0)
+            cv[:, 13:].fill_(-3.0)
+        first, caches = tl._generate_prefill(model, ids, pad, None, feats,
+                                             caches)
+        steps = tl._decode_steps(model, caches, first, pad,
+                                 torch.full((), 13, dtype=torch.int64), 5)
+    got = torch.cat([first[:, None], steps], dim=1).to(torch.int32)
+    assert len(set(map(tuple, want.tolist()))) > 1
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_decode_stays_eager_off_the_card_and_under_tensor_parallel():
+    """The route follows what the call observes: a CPU device, or a
+    tensor-parallel projection anywhere in the model (a capture cannot
+    hold its collectives), keeps the eager loop, and the scorer says
+    so in ``last``."""
+    from leafgrasp_tpu_torch.parallel.sharding import ColumnParallel
+    model = _random_model(2, image_grid_pinpoints=PINPOINTS)
+    assert tl._decode_graphs(model, torch.device("cpu")) is None
+    scorer = tr.LlavaTorchScorer(model, _Tok(), max_new_tokens=4,
+                                 anyres=True)
+    image = np.random.default_rng(25).integers(0, 256, (60, 80, 3)) \
+        .astype(np.uint8)
+    scorer.score(image, _candidates(25), "Select")
+    assert scorer.last["decode_graph"] == "eager"
+    scorer.max_batch = 2
+    scorer.score(image, _candidates(25), "Select")
+    assert scorer.last["decode_graph"] == "eager"
+    attn = model.layers[1].self_attn
+    attn.q_proj = ColumnParallel(attn.q_proj, axis=None)
+    assert tl._decode_graphs(model, torch.device("cuda")) is None

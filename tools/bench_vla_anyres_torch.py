@@ -18,7 +18,7 @@ prefill, 10-token decode) with random weights at the 7B widths:
   hand-written CUDA kernel of kernels/csrc/flash_prefill.cu) against the
   default chunked route in one process, best of three interleaved, and
   whether the greedy tokens agree. The "flash+scan" variant runs too;
-  here it is the same eager decode loop, and a failure of it raises.
+  here it takes the same decode route, and a failure of it raises.
 
 Prints the JAX tool's lines and its JSON record, plus ``device`` (the
 card's name and power limit).

@@ -9,7 +9,8 @@ In one process, bf16 first (then freed), then the quantized model:
   * the batched 5-candidate rerank (prefill of 576 image + 60 text tokens
     and a 10-token greedy decode);
   * the quantized model's rerank once more with ``decode_mode="scan"``
-    (the same eager loop here; a failure raises);
+    (the same route here: on the card the decode graph; a failure
+    raises);
   * the weights' resident memory (``torch.cuda.memory_allocated`` after
     the build, less what was allocated before it).
 
@@ -137,20 +138,27 @@ def time_steps_decode(model, b, t, dev, steps=32):
     after a ``t``-token prompt: ``steps - 1`` chained steps, best of 3."""
     import torch
     from leafgrasp_tpu_torch.vla.llava_torch import (_generate_decode_step,
-                                                     _generate_prefill)
+                                                     _generate_prefill,
+                                                     _new_caches)
     n_new = steps + 1
     ids = torch.full((b, t), 7, dtype=torch.long, device=dev)
     pad = torch.zeros((b,), dtype=torch.int32, device=dev)
-    last, caches = _generate_prefill(model, ids, pad, None, None, n_new)
-    _generate_decode_step(model, caches, last, pad, 0, t, n_new)
+    prompt_len = torch.full((), t, dtype=torch.int64, device=dev)
+
+    def prefill():
+        caches = _new_caches(model.cfg, b, t + n_new, dev)
+        return _generate_prefill(model, ids, pad, None, None, caches)
+
+    last, caches = prefill()
+    _generate_decode_step(model, caches, last, pad, 0, prompt_len)
     start, stop = _timer(dev)
     out = []
     for _ in range(3):
-        last, caches = _generate_prefill(model, ids, pad, None, None, n_new)
+        last, caches = prefill()
         start()
         for i in range(1, steps):
-            last, caches = _generate_decode_step(model, caches, last, pad,
-                                                 i, t, n_new)
+            last = _generate_decode_step(model, caches, last, pad, i,
+                                         prompt_len)
         wall, dev_s = stop()
         out.append((wall / (steps - 1),
                     None if dev_s is None else dev_s / (steps - 1)))
