@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase 15]
 
 Phases, each a hard failure (non-zero exit):
 
@@ -232,6 +232,23 @@ Phases, each a hard failure (non-zero exit):
    (stages); and the stage tool's four full frames against the port's
    CPU path (leaf, pixel, flag).
 
+15. the deepseek_v3 decoder's kernels at Moonlight-16B-A3B's widths:
+   (a) the flash prefill at latent attention's split heads (q and k 192,
+   v 128) against its plain version at the MoE rerank's shape (5, 2400,
+   16 heads) with unequal pads and a longer cache holding NaN past t,
+   and at a ragged (2, 257) shape, within the bf16 tolerance of phase 2;
+   (b) the grouped expert kernel against its plain version (a loop over
+   the experts) at a prompt pass's 12000 tokens and a decode step's 5, 6
+   of 64 experts a token, an expert left without a pair, within 2^-6 of
+   the value plus 2^-6 of the row's largest; their kernel, bound and
+   plain milliseconds; (c) the rerank through ``LlavaTorchScorer(anyres
+   =True)`` over the whole decoder (27 layers, 16.27 G parameters drawn
+   in bf16), launches counted from a reset just before a rerank whose
+   decode replays its captured graph (the ``launches_moe_serve`` term:
+   a flash prefill and an expert call a layer of the prompt pass, none
+   from the replayed steps). ``python3 chip_smoke.py --phase 15`` runs
+   phases 1 and 15 alone.
+
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
 it prints the card's name and power limit and one JSON line of
@@ -329,7 +346,9 @@ KERNEL_FUNCTIONS = {
     "flash_prefill_kernel": "flash_prefill",
     "flash_prefill_f32_kernel": "flash_prefill",
     "flash_prefill_bwd_dq_kernel": "flash_prefill_bwd_dq",
-    "flash_prefill_bwd_dkv_kernel": "flash_prefill_bwd_dkv"}
+    "flash_prefill_bwd_dkv_kernel": "flash_prefill_bwd_dkv",
+    "moe_experts_gate_up_kernel": "moe_experts",
+    "moe_experts_down_kernel": "moe_experts"}
 # Late in this script a profile loses the records of the first kernels
 # it runs (NVIDIA H100 80GB HBM3, 700.00 W: 0 of 10 launches and then
 # 4 of the next kernel's, 3 of 10, 15 of 20, 0 of 3), never the last, so
@@ -4956,6 +4975,219 @@ def run_phase_14(torch):
     return counts, perf
 
 
+def check_flash_split(torch, dev):
+    """Phase 15a: the flash prefill at latent attention's split heads
+    against its plain version, then its time at the MoE rerank's
+    shape."""
+    import torch.nn.functional as F
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        flash_prefill, flash_prefill_plain)
+    shapes = {"ragged": ((2, 257, 16, 192, 128), (130, 70)),
+              "path": ((5, 2400, 16, 192, 128), (0, 1, 64, 700, 2399))}
+    rng = np.random.default_rng(15)
+    errs, shares = {}, {}
+    for name, ((b, t, heads, hd, hdv), pads) in shapes.items():
+        q = torch.as_tensor(rng.standard_normal((b, t, heads, hd)),
+                            device=dev).to(torch.bfloat16)
+        k = torch.as_tensor(rng.standard_normal((b, t + 10, heads, hd)),
+                            device=dev).to(torch.bfloat16)
+        v = torch.as_tensor(rng.standard_normal((b, t + 10, heads, hdv)),
+                            device=dev).to(torch.bfloat16)
+        k[:, t:] = float("nan")               # beyond t: never to be read
+        v[:, t:] = float("nan")
+        pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+        got = flash_prefill(q, k, v, pad)
+        torch.cuda.synchronize()
+        want = flash_prefill_plain(q, k, v, pad, chunk=256)
+        errs[name], shares[name], over = flash_diff(got, want,
+                                                    FLASH_TOL["bfloat16"])
+        pad_zero = all(not got[i, :p].any() for i, p in enumerate(pads))
+        finite = bool(torch.isfinite(got.float()).all())
+        log(f"phase 15a flash_prefill split {(b, t, heads, hd, hdv)} pads "
+            f"{pads}: max abs err {errs[name]}, over the tolerance by "
+            f"{over} (must be <= 0), pad rows zero {pad_zero}, finite "
+            f"{finite}")
+        if got.shape != (b, t, heads, hdv) or not (
+                over <= 0.0 and pad_zero and finite):
+            raise RuntimeError(f"flash_prefill split {name}: shape "
+                               f"{tuple(got.shape)}, over the tolerance by "
+                               f"{over}, pad rows zero {pad_zero}, finite "
+                               f"{finite}")
+        del got, want
+    (b, t, heads, hd, hdv), _ = shapes["path"]
+    pad0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+    k, v = k[:, :t].contiguous(), v[:, :t].contiguous()
+    ops = b * 2.0 * heads * (hd + hdv) * t * (t + 1) / 2
+    moved = 2.0 * b * t * heads * (2 * hd + 2 * hdv) + 4.0 * b
+    b_ms, b_by = bound(moved, ops, PEAK_BF16_OPS_PER_S)
+    ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_err, _, lib_over = flash_diff(flash_prefill(q, k, v, pad0),
+                                      lib.transpose(1, 2),
+                                      FLASH_TOL["bfloat16"])
+    if not lib_over <= 0.0:
+        raise RuntimeError(f"flash_prefill split against the library "
+                           f"call: err {lib_err}, over by {lib_over}")
+    rec = {"name": "flash_prefill_192_128", "route": "cuda",
+           "source": "leafgrasp_tpu_torch/kernels/csrc/flash_prefill.cu",
+           "replaces": "none (the JAX package has no latent attention)",
+           "tolerance_rel": FLASH_TOL["bfloat16"]["rel"],
+           "tolerance_row": FLASH_TOL["bfloat16"]["row"],
+           "max_abs_err": max(errs.values()),
+           "max_row_share": max(shares.values()),
+           "shape": [b, t, heads, heads, hd, hdv],
+           "ms": kernel_ms(lambda: flash_prefill(q, k, v, pad0),
+                           "flash_prefill_kernel", iters=10),
+           "plain_ms": cuda_ms(
+               lambda: flash_prefill_plain(q, k, v, pad0, chunk=480),
+               iters=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               ql, kl, vl, is_causal=True), iters=10),
+           "max_abs_diff_vs_library": lib_err, "operations": ops,
+           "bytes": moved}
+    log(f"phase 15a {json.dumps(rec)}")
+    return rec
+
+
+def check_moe_experts(torch, dev):
+    """Phase 15b: the grouped expert kernel against its plain version at
+    a prompt pass's and a decode step's tokens, an expert idle in each,
+    and its times."""
+    from leafgrasp_tpu_torch.kernels.moe_experts import (
+        expert_counts, moe_experts, moe_experts_plain)
+    e, k, hidden, width = 64, 6, 2048, 1408
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    ws = [(torch.randn(shape, generator=gen, device=dev) * 0.02)
+          .to(torch.bfloat16) for shape in ((e, width, hidden),
+                                            (e, width, hidden),
+                                            (e, hidden, width))]
+    rec = {"name": "moe_experts", "route": "triton",
+           "source": "leafgrasp_tpu_torch/kernels/moe_experts.py",
+           "replaces": "none (the JAX package has no expert layer)",
+           "tolerance_rel": 2.0 ** -6, "tolerance_row": 2.0 ** -6,
+           "experts": e, "per_token": k, "hidden": hidden, "width": width}
+    for name, n_tok, idle in (("prefill", 12000, (3,)),
+                              ("decode", 5, (0,))):
+        x = torch.randn((n_tok, hidden), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        score = torch.rand((n_tok, e), generator=gen, device=dev)
+        score[:, list(idle)] = -1.0
+        ids = torch.topk(score, k, dim=-1).indices
+        w = torch.rand((n_tok, k), generator=gen, device=dev)
+        counts = expert_counts(ids, e)
+        got = moe_experts(x, ids, w, *ws)
+        want = moe_experts_plain(x, ids, w, *ws)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        allowed = 2.0 ** -6 * want.float().abs() \
+            + 2.0 ** -6 * want.float().abs().amax(-1, keepdim=True)
+        over = float((diff - allowed).max())
+        read = int((counts > 0).sum())
+        log(f"phase 15b moe_experts {name}: {n_tok} tokens, {read} experts "
+            f"read, idle {idle} without pairs "
+            f"{[int(counts[i]) for i in idle]}; max abs err "
+            f"{float(diff.max())}, over the tolerance by {over} (must be "
+            f"<= 0)")
+        if over > 0.0 or any(int(counts[i]) for i in idle) \
+                or not bool(torch.isfinite(got.float()).all()):
+            raise RuntimeError(f"moe_experts {name}: over the tolerance "
+                               f"by {over}")
+        pairs = n_tok * k
+        ops = 2.0 * 3 * hidden * width * pairs
+        moved = read * 3.0 * hidden * width * 2 + 2.0 * n_tok * hidden * 2
+        b_ms, b_by = bound(moved, ops, PEAK_BF16_OPS_PER_S)
+        rec[name] = {
+            "tokens": n_tok, "experts_read": read,
+            "max_abs_err": float(diff.max()),
+            "ms": kernel_ms(lambda: moe_experts(x, ids, w, *ws),
+                            ("moe_experts_gate_up_kernel",
+                             "moe_experts_down_kernel"), iters=10),
+            "wrapper_ms": cuda_ms(lambda: moe_experts(x, ids, w, *ws),
+                                  iters=10),
+            "plain_ms": cuda_ms(lambda: moe_experts_plain(x, ids, w, *ws),
+                                iters=2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "operations": ops,
+            "bytes": moved}
+        del got, want
+    rec["max_abs_err"] = max(rec[n]["max_abs_err"]
+                             for n in ("prefill", "decode"))
+    log(f"phase 15b {json.dumps(rec)}")
+    return rec
+
+
+def run_phase_15(torch, dev):
+    """Phase 15: the deepseek_v3 decoder's kernels, then a rerank over
+    the whole decoder with its launches counted."""
+    from leafgrasp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from leafgrasp_tpu_torch.vla.llava_runtime import LlavaTorchScorer
+    from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                     LlavaTorchConfig,
+                                                     init_random_)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        records = [check_flash_split(torch, dev),
+                   check_moe_experts(torch, dev)]
+    torch.cuda.empty_cache()
+    cfg = LlavaTorchConfig(
+        decoder="deepseek_v3", dtype="bfloat16", prefill_attn_impl="flash",
+        image_grid_pinpoints=VLA_PINPOINTS, hidden=2048, intermediate=11264,
+        layers=27, heads=16, kv_heads=16, vocab_size=163840,
+        rope_theta=50000.0, rms_eps=1e-5, image_token_index=163839,
+        kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, n_routed_experts=64, num_experts_per_tok=6,
+        n_shared_experts=2, moe_intermediate_size=1408,
+        first_k_dense_replace=1, routed_scaling_factor=2.446,
+        norm_topk_prob=True)
+    model = LlavaTorch(cfg, device=dev, param_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    init_random_(model, gen, std=0.02)
+    n_params = sum(p.numel() for p in model.parameters())
+    scorer = LlavaTorchScorer(model, FixedLenTok(cfg.vocab_size),
+                              max_new_tokens=10, anyres=True)
+    rgb = (np.random.default_rng(15).uniform(0, 255, (H, W, 3))
+           .astype(np.uint8))
+    rng = np.random.default_rng(16)
+    cands = [dict(leaf_id=i + 1, x=float(rng.uniform(100, W - 100)),
+                  y=float(rng.uniform(100, H - 100)),
+                  clutter_score=float(rng.uniform(0.2, 1.0)),
+                  distance_score=float(rng.uniform(0.2, 1.0)),
+                  visibility_score=float(rng.uniform(0.2, 1.0)),
+                  geometric_score=float(rng.uniform(0.2, 1.0)))
+             for i in range(5)]
+    instruction = "Select the best leaf for grasping"
+    scorer.score(rgb, cands, instruction)      # captures the decode graph
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    scores = scorer.score(rgb, cands, instruction)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    last = scorer.last
+    want = {"flash_prefill": cfg.layers,
+            "moe_experts": cfg.layers - cfg.first_k_dense_replace}
+    log(f"phase 15c rerank over {n_params / 1e9:.3f} G parameters: scores "
+        f"{scores}; t {last['prompt_len']}, image tokens "
+        f"{last['n_image_tokens']}, route {last['decode_graph']}, "
+        f"launches {json.dumps(counts)}, load "
+        f"{[round(float(np.median(b)), 3) for b in last['moe_load']]}")
+    if last["decode_graph"] != "replayed" \
+            or any(counts[key] != n for key, n in want.items()) \
+            or len(scores) != len(cands):
+        raise RuntimeError(f"phase 15c: route {last['decode_graph']}, "
+                           f"launches {counts}, want {want}")
+    for rec in records:
+        rec["launches_moe_serve"] = counts["flash_prefill" if
+                                           rec["name"].startswith("flash")
+                                           else rec["name"]]
+        rec["launches"] = rec["launches_moe_serve"]
+    del model, scorer
+    torch.cuda.empty_cache()
+    return records, {"seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     try:
         import torch
@@ -4988,6 +5220,20 @@ def main() -> int:
     load_library(verbose=True)
     log(f"phase 1: kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--phase", "15"]:
+        moe_records, moe_perf = run_phase_15(torch, dev)
+        log(f"phase 15: the deepseek_v3 decoder's kernels held their plain "
+            f"versions and served a rerank ({moe_perf['seconds']:.1f} s)")
+        log(card_line())
+        print(json.dumps({"kernels": moe_records}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"usage: chip_smoke.py [--phase 15], got {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     scenes = {name: make_leaf_scene(H, W, num_leaves=n, seed=seed,
                                     margin=margin)
               for name, n, seed, margin in FAMILIES}
@@ -5077,6 +5323,10 @@ def main() -> int:
     log(f"phase 14: the frame's A/B and stage tools ran on the card and "
         f"their checks held ({micro_perf['seconds']:.1f} s)")
 
+    moe_records, moe_perf = run_phase_15(torch, dev)
+    log(f"phase 15: the deepseek_v3 decoder's kernels held their plain "
+        f"versions and served a rerank ({moe_perf['seconds']:.1f} s)")
+
     phases = {"frames": counts, "service": service_counts,
               "vla_service": vla_counts, "teacher": teacher_counts,
               "train": train_counts, "vla_train": vla_train_counts,
@@ -5097,6 +5347,7 @@ def main() -> int:
     # tensor-parallel generate and pipelined LoRA step (11c, 11d)
     f32["launches"] = vla_train_counts["flash_prefill"] \
         + ckpt_counts["flash_prefill"] + pipe_perf["f32_flash"]
+    records.extend(moe_records)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": records}), flush=True)

@@ -61,7 +61,8 @@
 // nothing forms inf - inf, and pad rows are written as exact zeros.
 // Resources (nvcc 12.8, -Xptxas -v): 168 registers at entry, 240 a
 // consumer thread and 24 a producer thread after setmaxnreg, no spills;
-// 161 KB of dynamic shared memory at head size 128 (81 KB at 64): one
+// 161 KB of dynamic shared memory at head size 128 (81 KB at 64; 209 KB
+// at latent attention's q/k 192 and v 128): one
 // block an SM. What is left on the table: both warpgroups start an item
 // together, so its first softmax and its last product find the tensor
 // cores idle, and the group that owns the upper 64 rows multiplies the
@@ -142,13 +143,17 @@ constexpr int HALF_BYTES = 128 * 128;         // 128 rows of 64 bf16
 constexpr int ATOM_BYTES = 8 * 128;           // eight rows: a swizzle atom
 constexpr uint32_t EMPTY_ARRIVALS = WG_CONSUMERS * 4;   // a lane of each warp
 
-template <int HD> struct WgLayout {
-  static constexpr int NH = HD / 64;                      // halves a tile
-  static constexpr int TILE = NH * HALF_BYTES;
+// HDK: the head size of q and k; HDV: that of v and the output (equal
+// but for latent attention's split heads, 192 and 128)
+template <int HDK, int HDV> struct WgLayout {
+  static constexpr int NH = HDK / 64;                     // halves of Q, K
+  static constexpr int NHV = HDV / 64;                    // halves of V
+  static constexpr int TILE = NH * HALF_BYTES;            // Q or K tile
+  static constexpr int TILE_V = NHV * HALF_BYTES;
   static constexpr int Q = 0;
   static constexpr int K = TILE;
   static constexpr int V = TILE * (1 + WG_STAGES);
-  static constexpr int BARS = TILE * (1 + 2 * WG_STAGES);
+  static constexpr int BARS = V + TILE_V * WG_STAGES;
   // barriers: q_full, q_empty, then k_full, k_empty, v_full, v_empty a stage
   static constexpr int NBARS = 2 + 4 * WG_STAGES;
   static constexpr int BYTES = BARS + NBARS * 8 + 1024;   // + alignment
@@ -294,7 +299,7 @@ __device__ __forceinline__ Work decode_work(int idx, int n_mt, int b_n,
   return w;
 }
 
-template <int HD, bool LSE>
+template <int HD, int HDV, bool LSE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -303,8 +308,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
                      float* __restrict__ lse, int b_n, int t, int heads,
                      int rep, Strides os, float scale2, int n_mt,
                      int n_work) {
-  using L = WgLayout<HD>;
-  constexpr int NO = HD / 2;                  // output accumulators a thread
+  using L = WgLayout<HD, HDV>;
+  constexpr int NO = HDV / 2;                 // output accumulators a thread
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + L::BARS;
@@ -354,10 +359,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
             tma_load_4d(base + L::K + s * L::TILE + c * HALF_BYTES, &map_k,
                         k_full(s), c * 64, kt * WG_BN, kvh, w.b);
           mbar_wait(v_empty(s), ph);
-          mbar_arrive_expect_tx(v_full(s), L::TILE);
+          mbar_arrive_expect_tx(v_full(s), L::TILE_V);
 #pragma unroll
-          for (int c = 0; c < L::NH; ++c)
-            tma_load_4d(base + L::V + s * L::TILE + c * HALF_BYTES, &map_v,
+          for (int c = 0; c < L::NHV; ++c)
+            tma_load_4d(base + L::V + s * L::TILE_V + c * HALF_BYTES, &map_v,
                         v_full(s), c * 64, kt * WG_BN, kvh, w.b);
         }
         ++items;
@@ -380,9 +385,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
       float* lb = LSE ? lse + ((long long)w.b * heads + w.h) * t : nullptr;
       if (w.empty) {                          // pad rows only: zeros
         const int ctid = threadIdx.x;         // 0 .. 255
-        for (int i = ctid; i < (w.row_hi - w.q0) * (HD / 8);
+        for (int i = ctid; i < (w.row_hi - w.q0) * (HDV / 8);
              i += WG_CONSUMERS * 128) {
-          const int r = i / (HD / 8), c = i % (HD / 8);
+          const int r = i / (HDV / 8), c = i % (HDV / 8);
           *reinterpret_cast<uint4*>(ob + (long long)(w.q0 + r) * os.t
                                     + 8 * c) = make_uint4(0, 0, 0, 0);
         }
@@ -447,7 +452,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_commit();
         mbar_wait(v_full(sv), phv);
         wgmma_fence();                        // P's registers feed this one
-        issue_pv<HD>(o, pr, base + L::V + sv * L::TILE);
+        issue_pv<HDV>(o, pr, base + L::V + sv * L::TILE_V);
         wgmma_commit();
         wgmma_wait<1>();                      // the scores have landed
         reg_fence(sc);
@@ -466,7 +471,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_wait(v_full(sv), (it / WG_STAGES) & 1);
         reg_fence(o);
         wgmma_fence();
-        issue_pv<HD>(o, pr, base + L::V + sv * L::TILE);
+        issue_pv<HDV>(o, pr, base + L::V + sv * L::TILE_V);
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(o);
@@ -516,14 +521,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int tokens,
                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int HD, bool LSE>
+template <int HD, int HDV, bool LSE>
 int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
                 void* out, float* lse, int b, int t, int heads, int kv_heads,
                 Strides qs, Strides ks, Strides vs, Strides os, float scale,
                 cudaStream_t stream) {
-  using L = WgLayout<HD>;
+  using L = WgLayout<HD, HDV>;
   static int sm_count = 0;
-  auto kernel = flash_prefill_kernel<HD, LSE>;
+  auto kernel = flash_prefill_kernel<HD, HDV, LSE>;
   if (sm_count == 0) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -541,7 +546,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, HD, t, heads, b, qs, WG_BM)
       || !make_map(&mk, k, HD, t, kv_heads, b, ks, WG_BN)
-      || !make_map(&mv, v, HD, t, kv_heads, b, vs, WG_BN))
+      || !make_map(&mv, v, HDV, t, kv_heads, b, vs, WG_BN))
     return (int)cudaErrorInvalidValue;
   const int n_mt = (t + WG_BM - 1) / WG_BM;
   const long long n_work = (long long)n_mt * b * heads;
@@ -770,37 +775,57 @@ int launch_f32(const void* q, const void* k, const void* v, const int* pad,
 
 }  // namespace
 
-// q, out: (b, t, heads, hd); k, v: (b, >= t, kv_heads, hd), only the first
-// t rows are read. strides: twelve element strides, (batch, token, head)
-// of q, k, v, out; the last dimension is contiguous and every row starts
-// on a 16-byte boundary. is_bf16: 1 for bf16 in and out, 0 for f32. hd is
-// 64 or 128 (the sizes instantiated). lse: null, or (b, heads, t) f32
-// contiguous for the row log-sum-exp.
+// q: (b, t, heads, hd); k: (b, >= t, kv_heads, hd); v: (b, >= t,
+// kv_heads, hd_v), only the first t rows of k and v are read; out: (b, t,
+// heads, hd_v). strides: twelve element strides, (batch, token, head) of
+// q, k, v, out; the last dimension is contiguous and every row starts on a
+// 16-byte boundary. is_bf16: 1 for bf16 in and out, 0 for f32. hd_v is hd
+// at 64 or 128 (the sizes instantiated), or, for latent attention's split
+// heads (DeepSeek-V3's MLA with its latent expanded to per-head K and V),
+// 128 with an hd of 192, in bf16 only: Q and two K stages of 48 KB, two V
+// stages of 32 KB, 209 KB of shared memory, the accumulators of head size
+// 128. lse: null, or (b, heads, t) f32 contiguous for the row log-sum-exp.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const int* pad, void* out, int b, int t,
-                             int heads, int kv_heads, int hd, int is_bf16,
-                             const long long* strides, float scale,
-                             float* lse, cudaStream_t stream) {
+                             int heads, int kv_heads, int hd, int hd_v,
+                             int is_bf16, const long long* strides,
+                             float scale, float* lse, cudaStream_t stream) {
   if (b <= 0 || t <= 0 || heads <= 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads != 0 || (hd != 64 && hd != 128))
+  const bool split = hd_v != hd;
+  if (kv_heads <= 0 || heads % kv_heads != 0
+      || (split ? !(is_bf16 && hd == 192 && hd_v == 128)
+                : (hd != 64 && hd != 128)))
     return (int)cudaErrorInvalidValue;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
+  if (split) {
+    if (lse != nullptr)
+      return launch_bf16<192, 128, true>(q, k, v, pad, out, lse, b, t,
+                                         heads, kv_heads, qs, ks, vs, os,
+                                         scale, stream);
+    return launch_bf16<192, 128, false>(q, k, v, pad, out, nullptr, b, t,
+                                        heads, kv_heads, qs, ks, vs, os,
+                                        scale, stream);
+  }
   if (is_bf16) {
     if (lse != nullptr) {
       if (hd == 64)
-        return launch_bf16<64, true>(q, k, v, pad, out, lse, b, t, heads,
-                                     kv_heads, qs, ks, vs, os, scale, stream);
-      return launch_bf16<128, true>(q, k, v, pad, out, lse, b, t, heads,
-                                    kv_heads, qs, ks, vs, os, scale, stream);
+        return launch_bf16<64, 64, true>(q, k, v, pad, out, lse, b, t,
+                                         heads, kv_heads, qs, ks, vs, os,
+                                         scale, stream);
+      return launch_bf16<128, 128, true>(q, k, v, pad, out, lse, b, t,
+                                         heads, kv_heads, qs, ks, vs, os,
+                                         scale, stream);
     }
     if (hd == 64)
-      return launch_bf16<64, false>(q, k, v, pad, out, nullptr, b, t, heads,
-                                    kv_heads, qs, ks, vs, os, scale, stream);
-    return launch_bf16<128, false>(q, k, v, pad, out, nullptr, b, t, heads,
-                                   kv_heads, qs, ks, vs, os, scale, stream);
+      return launch_bf16<64, 64, false>(q, k, v, pad, out, nullptr, b, t,
+                                        heads, kv_heads, qs, ks, vs, os,
+                                        scale, stream);
+    return launch_bf16<128, 128, false>(q, k, v, pad, out, nullptr, b, t,
+                                        heads, kv_heads, qs, ks, vs, os,
+                                        scale, stream);
   }
   if (lse != nullptr) {
     if (hd == 64)
@@ -815,3 +840,4 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   return launch_f32<128, false>(q, k, v, pad, out, nullptr, b, t, heads,
                                 kv_heads, qs, ks, vs, os, scale, stream);
 }
+

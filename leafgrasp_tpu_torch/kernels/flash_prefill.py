@@ -8,7 +8,9 @@ f32 scores, softmax and accumulation; rows ``i < pad[b]`` (the left pad
 of a batched prompt) come back as zeros. ``q`` is (b, t, heads, hd),
 ``k`` / ``v`` are (b, s >= t, kv_heads, hd) of which the first ``t``
 rows are read (the KV cache as it is: any batch / token / head strides,
-no repeat to ``heads``), ``pad`` is (b,) int32.
+no repeat to ``heads``), ``pad`` is (b,) int32. ``v`` may have a head
+size of its own (latent attention's split heads: q and k of 192, v and
+the output of 128), and the scale is then q's, 1 / sqrt(192).
 
 Replaces the TPU route ``_flash_prefill``
 (leafgrasp_tpu/vla/llava_jax.py:284), which pads the sequence to a block
@@ -55,14 +57,16 @@ __all__ = ["flash_prefill", "flash_prefill_plain", "flash_prefill_backward",
            "flash_prefill_trainable"]
 
 _HEAD_DIMS = (64, 128)             # instantiated in the kernel
+_SPLIT_HEAD_DIMS = ((192, 128),)   # (q and k, v) instantiated, bf16
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_args(q, k, v, pad):
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: want (b, t, heads, hd) and "
-                         f"two (b, s, kv_heads, hd)")
+                         f"{tuple(v.shape)}: want (b, t, heads, hd), "
+                         f"(b, s, kv_heads, hd) and (b, s, kv_heads, hd_v)")
     b, t, heads, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or k.shape[1] < t:
         raise ValueError(f"k {tuple(k.shape)} does not fit q "
@@ -100,9 +104,10 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rep = heads // kvh
     kf = k[:, :t].to(torch.float32)
     vt = v[:, :t]
+    hdv = v.shape[3]
     key = torch.arange(t, device=q.device)
     padl = pad.to(torch.int64)
-    out = torch.empty_like(q)
+    out = torch.empty((b, t, heads, hdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, kvh, rep, t), dtype=torch.float32,
                       device=q.device)
     step = t if chunk is None else max(1, int(chunk))
@@ -121,7 +126,7 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = torch.einsum("bkrts,bskd->btkrd", probs, vt)
         real = (row[None, :] >= padl[:, None])[:, :, None, None, None]
         out[:, lo:hi] = torch.where(real, o, torch.zeros_like(o)) \
-            .reshape(b, hi - lo, heads, hd)
+            .reshape(b, hi - lo, heads, hdv)
     if return_lse:
         return out, lse.reshape(b, heads, t)
     return out
@@ -188,8 +193,13 @@ def _check_kernel_args(q, k, v, pad):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k, v, pad)
-    hd = q.shape[3]
-    if hd not in _HEAD_DIMS or q.dtype not in _DTYPES:
+    hd, hdv = q.shape[3], v.shape[3]
+    if hd != hdv:
+        if (hd, hdv) not in _SPLIT_HEAD_DIMS or q.dtype != torch.bfloat16:
+            raise ValueError(f"split heads: the kernel takes bf16 with "
+                             f"(q/k, v) head sizes in {_SPLIT_HEAD_DIMS}, "
+                             f"got {q.dtype} with {(hd, hdv)}")
+    elif hd not in _HEAD_DIMS or q.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes f32 or bf16 with a head size in "
                          f"{_HEAD_DIMS}, got {q.dtype} with {hd}")
 
@@ -203,7 +213,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_prefill_plain(q, k, v, pad, return_lse=return_lse)
     _check_kernel_args(q, k, v, pad)
     b, t, heads, hd = q.shape
-    out = torch.empty((b, t, heads, hd), dtype=q.dtype, device=q.device)
+    hdv = v.shape[3]
+    out = torch.empty((b, t, heads, hdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, heads, t), dtype=torch.float32, device=q.device) \
         if return_lse else None
     if out.numel() == 0:
@@ -216,7 +227,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = load_library()
     err = lib.flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
-        out.data_ptr(), b, t, heads, k.shape[2], hd,
+        out.data_ptr(), b, t, heads, k.shape[2], hd, hdv,
         int(q.dtype == torch.bfloat16),
         (ctypes.c_longlong * 12)(*strides), 1.0 / math.sqrt(hd),
         None if lse is None else lse.data_ptr(),
@@ -239,7 +250,11 @@ def _input_rows(x: torch.Tensor, name: str) -> torch.Tensor:
 def flash_prefill_backward(q, k, v, pad, out, lse, dout):
     """f32 (dq, dk, dv) of the flash prefill (shapes of q, k, v): the two
     CUDA kernels for CUDA tensors (raising for a type or head size they
-    lack), the plain version for CPU tensors."""
+    lack), the plain version for CPU tensors. One head size for q, k and
+    v: split heads are served, not trained."""
+    if v.dim() == 4 and q.dim() == 4 and v.shape[3] != q.shape[3]:
+        raise ValueError(f"the backward takes one head size, got q "
+                         f"{q.shape[3]} and v {v.shape[3]}")
     if q.device.type == "cpu":
         return flash_prefill_backward_plain(q, k, v, pad, out, lse, dout)
     _check_kernel_args(q, k, v, pad)

@@ -106,8 +106,11 @@ class LlavaTorchScorer:
     counts, the generated tokens, the decode's route ``decode_graph``
     ("captured" where one of its batches captured a graph, else
     "replayed" or "eager") and, on a CUDA device, the split into
-    encode / prefill / decode milliseconds; ``scores``, the parsed
-    scores, only once the call has returned them.
+    encode / prefill / decode milliseconds; for a decoder with experts
+    ``moe_load``, each expert layer's busiest expert's routed pairs over
+    the mean in a batch's prompt pass (computed on the device, fetched
+    after the batch's tokens); ``scores``, the parsed scores, only once
+    the call has returned them.
     """
 
     def __init__(self, model, tokenizer, max_new_tokens: int = 10,
@@ -213,6 +216,9 @@ class LlavaTorchScorer:
             pad_lens=torch.as_tensor(pad).to(dev),
             decode_mode=self.decode_mode, timings=timings)
         gen = host_read(gen)           # the one transfer of the batch
+        load = timings.pop("moe_load", None)
+        if load is not None:           # the tokens' read has synchronized
+            self.last.setdefault("moe_load", []).append(load.tolist())
         # ``score`` resets ``last`` a call; a caller of this method alone
         # (the rerank stability tool) finds it filled as it goes
         self.last["prompt_len"] = t

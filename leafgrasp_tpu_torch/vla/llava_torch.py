@@ -3,6 +3,14 @@ projector, Mistral decoder with grouped-query attention, RoPE and
 RMSNorm. Port of leafgrasp_tpu/vla/llava_jax.py, for serving and for
 LoRA training (``vla/llava_trainer.py``).
 
+The config's ``decoder`` may instead name ``"deepseek_v3"``: DeepSeek-V3's
+decoder (Moonlight, Kimi-VL) behind the same tower and projector, with
+latent attention (``vla/mla.py``) in every layer, a SwiGLU MLP in the
+first ``first_k_dense_replace`` layers and routed and shared experts
+(``vla/moe.py``) in the rest, served in the compute type (no LoRA, no
+quantization). Its caches are one latent tensor a layer, ``(b, total,
+kv_lora_rank + qk_rope_head_dim)``, in place of K and V.
+
 Types follow the JAX module operation by operation, so that a bf16 run
 rounds where the JAX run rounds: a layer with a compute type casts its
 input and its parameters to it; ``_RMSNorm`` normalizes in f32, casts
@@ -104,6 +112,32 @@ class LlavaTorchConfig:
     # card it raises for a head size or type its kernel lacks);
     # everything else takes "chunked"
     prefill_attn_impl: str = "chunked"
+    # the decoder: "mistral" (the fields above) or "deepseek_v3" (the
+    # fields below with ``hidden``, ``intermediate`` (the dense layers'
+    # width), ``layers``, ``heads``, ``rope_theta``, ``rms_eps``; DeepSeek's
+    # names in the comments). No query compression (q_lora_rank null) and
+    # one expert group (n_group = topk_group = 1): the sizes served.
+    decoder: str = "mistral"
+    kv_lora_rank: int = 0                  # the latent cached a token
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    n_routed_experts: int = 0
+    num_experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    moe_intermediate_size: int = 0
+    first_k_dense_replace: int = 0         # leading dense layers
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+
+    @property
+    def mla(self) -> bool:
+        return self.decoder == "deepseek_v3"
+
+    @property
+    def rope_dim(self) -> int:
+        """The rotated columns of a query or key head."""
+        return self.qk_rope_head_dim if self.mla else self.head_dim
 
     @property
     def head_dim(self) -> int:
@@ -124,7 +158,25 @@ def config_from_hf(hf_config) -> "LlavaTorchConfig":
     attributes) -> LlavaTorchConfig."""
     v = hf_config.vision_config
     t = hf_config.text_config
-    return LlavaTorchConfig(
+    deepseek = {}
+    if getattr(t, "model_type", None) == "deepseek_v3":
+        if getattr(t, "q_lora_rank", None) is not None \
+                or getattr(t, "n_group", 1) != 1 \
+                or getattr(t, "topk_group", 1) != 1:
+            raise ValueError("deepseek_v3: query compression and expert "
+                             "groups are not served")
+        deepseek = dict(
+            decoder="deepseek_v3", kv_lora_rank=t.kv_lora_rank,
+            qk_nope_head_dim=t.qk_nope_head_dim,
+            qk_rope_head_dim=t.qk_rope_head_dim, v_head_dim=t.v_head_dim,
+            n_routed_experts=t.n_routed_experts,
+            num_experts_per_tok=t.num_experts_per_tok,
+            n_shared_experts=t.n_shared_experts,
+            moe_intermediate_size=t.moe_intermediate_size,
+            first_k_dense_replace=t.first_k_dense_replace,
+            routed_scaling_factor=float(t.routed_scaling_factor),
+            norm_topk_prob=bool(t.norm_topk_prob))
+    return LlavaTorchConfig(**deepseek,
         vis_hidden=v.hidden_size, vis_intermediate=v.intermediate_size,
         vis_layers=v.num_hidden_layers, vis_heads=v.num_attention_heads,
         image_size=v.image_size, patch_size=v.patch_size,
@@ -463,6 +515,11 @@ class LlavaTorch(nn.Module):
         super().__init__()
         if cfg.prefill_attn_impl not in ("chunked", "flash"):
             raise ValueError(f"prefill_attn_impl {cfg.prefill_attn_impl!r}")
+        if cfg.decoder not in ("mistral", "deepseek_v3"):
+            raise ValueError(f"decoder {cfg.decoder!r}")
+        if cfg.mla and (cfg.lora_rank > 0 or cfg.quantized):
+            raise ValueError("the deepseek_v3 decoder is served in its "
+                             "compute type: no LoRA, no quantization")
         self.cfg = cfg
         fk = dict(device=resolve_device(device), dtype=param_dtype)
         self.vision_tower = ClipVisionTower(cfg, **fk)
@@ -471,8 +528,8 @@ class LlavaTorch(nn.Module):
                                   **fk)
         self.mm_linear_2 = _Dense(cfg.hidden, cfg.hidden, dt, bias=True, **fk)
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden, **fk)
-        self.layers = nn.ModuleList(_MistralLayer(cfg, **fk)
-                                    for _ in range(cfg.layers))
+        self.layers = nn.ModuleList(_decoder_layer(cfg, i, **fk)
+                                    for i in range(cfg.layers))
         self.norm = _RMSNorm(cfg.hidden, cfg.rms_eps, **fk)
         if cfg.quantized:
             self.lm_head = QuantDense(cfg.hidden, cfg.vocab_size,
@@ -585,7 +642,7 @@ class LlavaTorch(nn.Module):
         if mask is None:
             mask, pad = causal_mask(c, b, t, dev)
 
-        rope = _rope_tables(positions, c.head_dim, c.rope_theta)
+        rope = _rope_tables(positions, c.rope_dim, c.rope_theta)
         new_caches = []
         for i, layer in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
@@ -593,6 +650,13 @@ class LlavaTorch(nn.Module):
             new_caches.append(nc)
         logits = self.head(x, logits_last_only)
         return logits, (new_caches if caches is not None else None)
+
+
+def _decoder_layer(cfg: LlavaTorchConfig, i: int, **fk) -> nn.Module:
+    if not cfg.mla:
+        return _MistralLayer(cfg, **fk)
+    from leafgrasp_tpu_torch.vla.moe import DeepseekLayer
+    return DeepseekLayer(cfg, i, **fk)
 
 
 def causal_mask(c: LlavaTorchConfig, b: int, t: int, dev):
@@ -778,7 +842,13 @@ CACHE_QUANTUM = 64
 
 
 def _new_caches(c: LlavaTorchConfig, b: int, total: int, dev) -> List:
+    """A cache a layer: (K, V, cursor) of the Mistral decoder, (latent,
+    None, cursor) of latent attention."""
     dt = c.torch_dtype
+    if c.mla:
+        return [(torch.zeros((b, total, c.kv_lora_rank + c.qk_rope_head_dim),
+                             dtype=dt, device=dev), None, 0)
+                for _ in range(c.layers)]
     return [(torch.zeros((b, total, c.kv_heads, c.head_dim), dtype=dt,
                          device=dev),
              torch.zeros((b, total, c.kv_heads, c.head_dim), dtype=dt,
@@ -849,14 +919,17 @@ def _decode_steps(model: LlavaTorch, caches, last, pad, prompt_len, n: int):
 class _DecodeGraph:
     """The decode loop of one (rows, capacity, steps), captured once as a
     CUDA graph over static caches (``kv``: (layers, 2, rows, capacity,
-    kv_heads, hd)) and static inputs, and replayed by every later call of
-    that shape."""
+    kv_heads, hd), or the latent caches (layers, rows, capacity, width))
+    and static inputs, and replayed by every later call of that shape."""
 
     def __init__(self, model: LlavaTorch, kv, n: int, pool):
         dev = kv.device
-        b = kv.shape[2]
+        self.latent = kv.dim() == 4
+        b = kv.shape[1] if self.latent else kv.shape[2]
         self.kv = kv
-        self.caches = [(kv[i, 0], kv[i, 1], 0) for i in range(kv.shape[0])]
+        self.caches = [(kv[i], None, 0) if self.latent
+                       else (kv[i, 0], kv[i, 1], 0)
+                       for i in range(kv.shape[0])]
         self.last = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.pad = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.prompt_len = torch.zeros((), dtype=torch.int64, device=dev)
@@ -883,7 +956,10 @@ class _DecodeGraph:
     def caches_from(self, t: int) -> List:
         """The static caches with every slot from ``t`` on zeroed, as
         ``_new_caches`` gives them."""
-        self.kv[:, :, :, t:].zero_()
+        if self.latent:
+            self.kv[:, :, t:].zero_()
+        else:
+            self.kv[:, :, :, t:].zero_()
         return self.caches
 
     def replay(self, last, pad, prompt_len: int):
@@ -924,9 +1000,10 @@ class _DecodeGraphs:
         if graph is not None:
             return graph, "replayed"
         if key not in self.kv:
-            self.kv[key] = torch.zeros(
-                (c.layers, 2, b, cap, c.kv_heads, c.head_dim),
-                dtype=c.torch_dtype, device=model.device)
+            shape = (c.layers, b, cap, c.kv_lora_rank + c.qk_rope_head_dim) \
+                if c.mla else (c.layers, 2, b, cap, c.kv_heads, c.head_dim)
+            self.kv[key] = torch.zeros(shape, dtype=c.torch_dtype,
+                                       device=model.device)
         with span("vla_graph_capture"):
             graph = _DecodeGraph(model, self.kv[key], n, self.pool)
         self.graphs[(*key, n)] = graph
@@ -981,7 +1058,9 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
     and give the same tokens.
 
     timings: optional dict. It receives ``decode_graph``: "captured",
-    "replayed" or "eager"; on a CUDA device also ``prefill_ms`` and
+    "replayed" or "eager"; for a decoder with experts ``moe_load``, on
+    the device: each expert layer's busiest expert's routed pairs over
+    the mean, in the prompt pass; on a CUDA device also ``prefill_ms`` and
     ``decode_ms`` (CUDA events, one synchronization at the end, under
     the span ``device_wait``). The prompt pass runs under the span
     ``vla_prefill`` and the steps under ``vla_decode``: the host's time
@@ -1012,6 +1091,9 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
         first, caches = _generate_prefill(model, input_ids, pad,
                                           pixel_values, image_features,
                                           caches)
+        if timings is not None and model.cfg.mla:
+            from leafgrasp_tpu_torch.vla.moe import moe_load
+            timings["moe_load"] = moe_load(model)
     if timed:
         ev[1].record()
     with span("vla_decode"):

@@ -1282,3 +1282,190 @@ def test_scorer_reports_the_capture_then_the_replays(cuda):
     assert scorer.last["decode_graph"] == "captured"
     scorer.score(None, cands, "Select")
     assert scorer.last["decode_graph"] == "replayed"
+
+
+# ------------------------------------------------ latent attention, experts --
+
+@pytest.mark.parametrize("shape,pads", [
+    ((5, 2400, 16), (0, 0, 0, 0, 0)),
+    ((2, 333, 16), (70, 5)),
+    ((3, 129, 4), (128, 0, 64)),
+    ((1, 1, 2), (0,)),
+])
+def test_flash_prefill_split_heads_match_plain_on_card(cuda, shape, pads):
+    """Latent attention's split heads (q and k of 192, v of 128, bf16):
+    the kernel against its plain version, v read as the value half of
+    ``kv_b_proj``'s (b, t, heads, 256) output and k through the strides
+    of a longer tensor that holds NaN beyond t, with and without the
+    log-sum-exp; the flash tolerances of bf16, pad rows exactly zero,
+    the same bits on a second run."""
+    b, t, heads = shape
+    rng = np.random.default_rng(23)
+
+    def t_(*s):
+        return torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                               device=cuda).to(torch.bfloat16)
+
+    q = t_(b, t, heads, 192)
+    k = t_(b, t + 10, heads, 192)
+    kv = t_(b, t + 10, heads, 256)
+    k[:, t:] = float("nan")
+    kv[:, t:] = float("nan")
+    v = kv[..., 128:]
+    pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    got = flash_prefill(q, k, v, pad)
+    again = flash_prefill(q, k, v, pad)
+    got_lse, lse = flash_prefill(q, k, v, pad, return_lse=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_prefill"] == 3
+    assert torch.equal(got, again)
+    want, lse_plain = flash_prefill_plain(q, k, v, pad, chunk=256,
+                                          return_lse=True)
+    atol, rtol, rowtol = FLASH_TOL[torch.bfloat16]
+    allowed = rtol * want.float().abs() \
+        + rowtol * want.float().abs().amax(-1, keepdim=True)
+    for out in (got, got_lse):
+        assert out.shape == (b, t, heads, 128)
+        assert torch.isfinite(out.float()).all()
+        for i, p in enumerate(pads):
+            assert not out[i, :p].any()
+        diff = (out.float() - want.float()).abs()
+        assert float((diff - allowed).max()) <= atol, float(diff.max())
+    real = torch.isfinite(lse_plain)
+    assert torch.equal(real, torch.isfinite(lse))
+    assert float((lse - lse_plain)[real].abs().max()) <= 1e-5
+    with pytest.raises(ValueError):
+        flash_prefill(q.float(), k.float(), v.float(), pad)
+
+
+def _moe_operands(cuda, n_tok, k=6, e=64, hidden=2048, width=1408,
+                  idle=()):
+    """Moonlight's expert widths in bf16 and a routing of ``n_tok``
+    tokens that leaves the experts ``idle`` without a pair."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n_tok)
+    x = torch.randn((n_tok, hidden), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    ws = [(torch.randn(s, generator=gen, device=cuda) * 0.02)
+          .to(torch.bfloat16) for s in ((e, width, hidden),
+                                        (e, width, hidden),
+                                        (e, hidden, width))]
+    score = torch.rand((n_tok, e), generator=gen, device=cuda)
+    if idle:
+        score[:, list(idle)] = -1.0
+    ids = torch.topk(score, k, dim=-1).indices
+    w = torch.rand((n_tok, k), generator=gen, device=cuda)
+    return x, ids, w, ws
+
+
+@pytest.mark.parametrize("n_tok,idle", [(2400, ()), (2400, (3, 40, 63)),
+                                        (5, ()), (1, (0,)), (43, ())])
+def test_moe_experts_kernel_matches_plain_on_card(cuda, n_tok, idle):
+    """The grouped expert kernel at Moonlight's widths against its plain
+    version (a loop over the experts): a prompt pass's tokens, a decode
+    step's five, one token, and routings that leave experts without a
+    pair; within 2^-6 of the value plus 2^-6 of the row's largest (bf16
+    outputs and the rounding of h, from f32 sums in another order); the
+    same bits on a second run; the idle experts without pairs."""
+    from leafgrasp_tpu_torch.kernels import moe_experts as me
+    x, ids, w, ws = _moe_operands(cuda, n_tok, idle=idle)
+    kernels.reset_launch_counts()
+    got = me.moe_experts(x, ids, w, *ws)
+    again = me.moe_experts(x, ids, w, *ws)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_experts"] == 2
+    assert torch.equal(got, again)
+    want = me.moe_experts_plain(x, ids, w, *ws)
+    allowed = 2.0 ** -6 * want.float().abs() \
+        + 2.0 ** -6 * want.float().abs().amax(-1, keepdim=True)
+    diff = (got.float() - want.float()).abs()
+    assert float((diff - allowed).max()) <= 0.0, float(diff.max())
+    counts = me.expert_counts(ids, 64).cpu()
+    assert int(counts.sum()) == n_tok * 6
+    for i in idle:
+        assert int(counts[i]) == 0
+
+
+def _graph_moe_llava(cuda):
+    """A small random LLaVA over the deepseek_v3 decoder in bf16 at
+    Moonlight's head sizes (q/k 192, v 128, so prompts of 128 tokens or
+    more take the split-head flash prefill): 3 layers, one dense, 8
+    experts, 2 a token, one shared."""
+    from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                     LlavaTorchConfig,
+                                                     init_random_)
+    cfg = LlavaTorchConfig(
+        vis_hidden=32, vis_intermediate=64, vis_layers=1, vis_heads=2,
+        image_size=28, patch_size=14, vocab_size=256, hidden=256,
+        intermediate=512, layers=3, heads=2, kv_heads=2,
+        image_token_index=200, dtype="bfloat16", prefill_attn_impl="flash",
+        decoder="deepseek_v3", kv_lora_rank=64, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=8,
+        num_experts_per_tok=2, n_shared_experts=1,
+        moe_intermediate_size=128, first_k_dense_replace=1,
+        routed_scaling_factor=2.446, rope_theta=50000.0)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    return init_random_(LlavaTorch(cfg, device=cuda,
+                                   param_dtype=torch.bfloat16), gen, std=0.1)
+
+
+def test_moe_decode_graph_replays_the_uncaptured_steps(cuda):
+    """The deepseek_v3 decoder's decode on the graph route (latent caches,
+    the grouped expert kernel, routing that depends on the data) gives
+    the tokens of the same steps run uncaptured, at 3 and 5 rows with
+    unequal pads, for a capture and a replay; the prompt pass launches
+    the split-head flash kernel once a layer."""
+    from leafgrasp_tpu_torch.vla.llava_torch import greedy_generate_llava
+    model = _graph_moe_llava(cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(12)
+    calls = [(3, 150, [0, 7, 40], "captured"),
+             (3, 150, [5, 0, 60], "replayed"),
+             (5, 151, [0, 3, 17, 1, 30], "captured")]
+    for b, t, pads, route in calls:
+        ids = torch.randint(1, 200, (b, t), generator=gen, device=cuda)
+        pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+        ids[torch.arange(t, device=cuda)[None, :] < pad[:, None]] = 0
+        timings = {}
+        kernels.reset_launch_counts()
+        got = greedy_generate_llava(model, ids, max_new_tokens=8,
+                                    pad_lens=pad, timings=timings)
+        counts = kernels.launch_counts()
+        assert timings["decode_graph"] == route
+        assert timings["moe_load"].shape == (2,)
+        want = _uncaptured_tokens(model, ids, pad, 8)
+        assert torch.equal(got, want), (b, t, pads)
+        assert counts["flash_prefill"] == 3
+
+
+def test_moe_prefill_and_decode_step_never_synchronize(cuda):
+    """The deepseek_v3 decoder's prompt pass and a decode step (routing,
+    grouped experts, latent caches, the flash prefill) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the
+    card (after one warm-up pass that builds the kernels)."""
+    from leafgrasp_tpu_torch.vla import llava_torch as tl
+    model = _graph_moe_llava(cuda)
+    b, t = 5, 140
+    ids = torch.randint(1, 200, (b, t), device=cuda)
+    pad = torch.tensor([0, 3, 0, 9, 1], dtype=torch.int32, device=cuda)
+    prompt_len = torch.full((), t, dtype=torch.int64, device=cuda)
+
+    def passes():
+        caches = tl._new_caches(model.cfg, b, 192, cuda)
+        first, caches = tl._generate_prefill(model, ids, pad, None, None,
+                                             caches)
+        return tl._generate_decode_step(model, caches, first, pad, 0,
+                                        prompt_len)
+
+    with torch.no_grad():
+        passes()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = passes()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out.shape == (b,)

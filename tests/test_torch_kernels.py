@@ -503,7 +503,8 @@ def test_build_flags_and_sources():
     for p in build._sources():
         text = p.read_text()
         assert "extern \"C\" int " in text and "Replaces" in text
-    assert set(build._SIGNATURES) == set(kernels.LAUNCHES)
+    # moe_experts is a Triton kernel: it has no C export
+    assert set(build._SIGNATURES) | {"moe_experts"} == set(kernels.LAUNCHES)
     assert len(build._digest(build._sources())) == 16
 
 

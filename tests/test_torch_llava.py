@@ -497,10 +497,22 @@ def test_config_from_hf_matches_jax():
         image_token_index=100,
         image_grid_pinpoints=[[28, 56], [56, 28]])
     # quant_packed picks the JAX package's int4 storage; the port stores
-    # int4 nibble-packed only and has no such field
+    # int4 nibble-packed only and has no such field. The port's decoder
+    # kind and the deepseek_v3 fields, which the JAX package lacks, are
+    # the Mistral decoder's defaults for a Mistral config
     want = dataclasses.asdict(jl.config_from_hf(hf))
     assert want.pop("quant_packed") is False
-    assert dataclasses.asdict(tl.config_from_hf(hf)) == want
+    got = dataclasses.asdict(tl.config_from_hf(hf))
+    port_only = {f.name: f.default for f in dataclasses.fields(
+        tl.LlavaTorchConfig) if f.name not in want}
+    assert set(port_only) == {
+        "decoder", "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+        "v_head_dim", "n_routed_experts", "num_experts_per_tok",
+        "n_shared_experts", "moe_intermediate_size",
+        "first_k_dense_replace", "routed_scaling_factor", "norm_topk_prob"}
+    assert {k: got.pop(k) for k in port_only} == port_only
+    assert port_only["decoder"] == "mistral"
+    assert got == want
 
 
 ARCH = dict(vis_hidden=64, vis_intermediate=128, vis_layers=2, vis_heads=4,

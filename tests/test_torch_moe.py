@@ -1,0 +1,226 @@
+"""The deepseek_v3 decoder of ``LlavaTorch`` (latent attention, routed and
+shared experts) against the plain float32 reference of the benchmark
+(``benchmark/reference/llava_moe_ref.py``) on seeded weights at a tiny
+size, on the CPU: full-forward logits, the prompt pass then decode
+steps through the latent cache against the reference's full forward,
+the router's picks and weights; the expert kernel's and the split-head
+flash prefill's plain versions against loops written here.
+
+Everything is float32, so the two sides differ only in the order of
+their sums: logits within 1e-4 (values of order one), router weights
+within 1e-6.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark.reference import llava_moe_ref as ref
+from leafgrasp_tpu_torch.kernels.flash_prefill import flash_prefill_plain
+from leafgrasp_tpu_torch.kernels.moe_experts import (expert_counts,
+                                                     moe_experts,
+                                                     moe_experts_plain)
+from leafgrasp_tpu_torch.vla import llava_torch as lt
+from leafgrasp_tpu_torch.vla.moe import MoE
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+TINY = lt.LlavaTorchConfig(
+    vis_hidden=16, vis_intermediate=32, vis_layers=1, vis_heads=2,
+    image_size=28, patch_size=14, vocab_size=96, hidden=64,
+    intermediate=96, layers=3, heads=4, kv_heads=4, image_token_index=90,
+    rope_theta=50000.0, decoder="deepseek_v3", kv_lora_rank=32,
+    qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+    n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1,
+    moe_intermediate_size=24, first_k_dense_replace=1,
+    routed_scaling_factor=2.446)
+LOGIT_TOL = 1e-4
+
+
+def _model(cfg=TINY, seed=0, bias_std=0.05):
+    model = lt.LlavaTorch(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    lt.init_random_(model, gen, std=0.1)
+    with torch.no_grad():
+        for layer in model.layers:
+            if isinstance(layer.mlp, MoE):
+                layer.mlp.gate.e_score_correction_bias.normal_(
+                    0.0, bias_std, generator=gen)
+    return model
+
+
+def _weights(model):
+    return ref.Weights({k: v.detach() for k, v in
+                        model.state_dict().items()})
+
+
+def _rows(seed=1, b=3, prefix=7, suffix=5, vocab=90):
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, vocab, prefix)
+    return torch.as_tensor(np.stack([np.concatenate(
+        [shared, rng.integers(1, vocab, suffix)]) for _ in range(b)]))
+
+
+def _ref_logits(model, ids, prefix):
+    emb = model.embed_tokens.weight.detach()
+    return ref.decoder_logits(_weights(model), model.cfg, emb[ids[0, :prefix]],
+                              emb[ids[:, prefix:]], 0)
+
+
+def test_full_forward_logits_match_reference():
+    model = _model()
+    ids = _rows()
+    with torch.no_grad():
+        logits, _ = model(ids)
+    want = _ref_logits(model, ids, 7)
+    got = logits[:, 7:]
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("impl", ["chunked", "flash"])
+def test_prefill_then_latent_cache_decode_match_reference(impl):
+    """The generate functions' prompt pass into the latent caches, then
+    one step a token through ``_generate_decode_step``'s pass (a cursor
+    on the device, the absorbed form): the logits at every read position
+    against the reference's full forward over the prompt and the fed
+    tokens; rows with unequal left pads."""
+    model = _model(seed=3)
+    model.set_prefill_attn(impl)
+    c = model.cfg
+    ids = _rows(seed=4, b=3, prefix=6, suffix=4)
+    pads = [0, 2, 5]
+    ids[1, :2] = 0
+    ids[2, :5] = 0
+    feed = torch.as_tensor(np.random.default_rng(5).integers(1, 90, (3, 4)))
+    b, t = ids.shape
+    pad = torch.tensor(pads, dtype=torch.int32)
+    total = t + feed.shape[1]
+    caches = lt._new_caches(c, b, total, "cpu")
+    positions = torch.clamp(torch.arange(t)[None] - pad[:, None], min=0)
+    mask = torch.tril(torch.ones((t, total), dtype=torch.bool))[None, None] \
+        & (torch.arange(total)[None, None, None] >= pad[:, None, None, None])
+    got = []
+    with torch.no_grad():
+        logits, caches = model(ids, positions=positions, mask=mask,
+                               caches=caches, pad=pad)
+        got.append(logits[:, -1])
+        for i in range(feed.shape[1]):
+            pos = torch.tensor(t + i)
+            key = torch.arange(total)
+            step_mask = ((key[None] <= pos) & (key[None] >= pad[:, None]))
+            logits, _ = model(feed[:, i:i + 1], positions=(pos - pad)[:, None],
+                              mask=step_mask[:, None, None],
+                              caches=[(lc, None, pos.reshape(1))
+                                      for lc, _, _ in caches])
+            got.append(logits[:, -1])
+    got = torch.stack(got, 1)
+    emb = model.embed_tokens.weight.detach()
+    W = _weights(model)
+    for r in range(b):
+        row = torch.cat([ids[r, pads[r]:], feed[r]])
+        want = ref.decoder_logits(W, c, emb[row[:0]], emb[row][None],
+                                  t - pads[r] - 1)[0]
+        assert float((got[r] - want).abs().max()) <= LOGIT_TOL, r
+
+
+def test_router_picks_and_weights_match_reference():
+    model = _model(seed=6, bias_std=0.2)
+    layer = model.layers[1].mlp
+    h = torch.randn((40, TINY.hidden), generator=torch.Generator()
+                    .manual_seed(7))
+    with torch.no_grad():
+        ids, w = layer.gate(h)
+    rids, rw = ref.route(_weights(model), TINY, "layers.1.", h)
+    order, rorder = ids.argsort(-1), rids.argsort(-1)
+    assert torch.equal(ids.gather(1, order), rids.gather(1, rorder))
+    assert float((w.gather(1, order) - rw.gather(1, rorder)).abs().max()) \
+        <= 1e-6
+    assert torch.allclose(w.sum(-1), torch.full((40,), 2.446), atol=1e-5)
+    # the correction bias chooses, and only chooses: without it other
+    # experts win, and the weights stay the chosen experts' scores
+    with torch.no_grad():
+        layer.gate.e_score_correction_bias.zero_()
+        ids0, _ = layer.gate(h)
+    assert not torch.equal(ids0.sort(-1).values, ids.sort(-1).values)
+
+
+def test_expert_kernel_plain_version_matches_a_token_loop():
+    """``moe_experts`` on CPU tensors (the plain version, a loop over the
+    experts) against a loop over the tokens and their k experts, with an
+    expert that gets no token."""
+    gen = torch.Generator().manual_seed(8)
+    t, k, e, hid, wid = 30, 3, 6, 16, 12
+    x = torch.randn((t, hid), generator=gen)
+    ids = torch.stack([torch.randperm(e - 1, generator=gen)[:k]
+                       for _ in range(t)])          # expert e-1 idle
+    w = torch.rand((t, k), generator=gen)
+    wg, wu = torch.randn((2, e, wid, hid), generator=gen)
+    wd = torch.randn((e, hid, wid), generator=gen)
+    got = moe_experts(x, ids, w, wg, wu, wd)
+    want = torch.zeros_like(x)
+    for i in range(t):
+        for j in range(k):
+            ex = int(ids[i, j])
+            g, u = wg[ex] @ x[i], wu[ex] @ x[i]
+            want[i] += w[i, j] * (wd[ex] @ (torch.nn.functional.silu(g) * u))
+    assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
+    assert moe_experts_plain(x, ids, w, wg, wu, wd).shape == x.shape
+    counts = expert_counts(ids, e)
+    assert int(counts[e - 1]) == 0 and int(counts.sum()) == t * k
+
+
+@pytest.mark.parametrize("pads", [(0, 0), (3, 0), (0, 8)])
+def test_flash_prefill_plain_with_split_heads_matches_a_loop(pads):
+    """The flash prefill's plain version with q and k of one head size
+    and v of another (latent attention's split heads): causal attention
+    over the keys from each row's pad at scale 1 / sqrt(q's head size),
+    pad rows zero."""
+    gen = torch.Generator().manual_seed(9)
+    b, t, h, dk, dv = 2, 9, 3, 24, 8
+    q = torch.randn((b, t, h, dk), generator=gen)
+    k = torch.randn((b, t + 2, h, dk), generator=gen)
+    v = torch.randn((b, t + 2, h, dv), generator=gen)
+    pad = torch.tensor(pads, dtype=torch.int32)
+    got = flash_prefill_plain(q, k, v, pad, chunk=4)
+    assert got.shape == (b, t, h, dv)
+    for r in range(b):
+        p = pads[r]
+        assert not got[r, :p].any()
+        for i in range(p, t):
+            s = torch.einsum("hd,jhd->hj", q[r, i], k[r, p:i + 1]) \
+                / math.sqrt(dk)
+            want = torch.einsum("hj,jhd->hd", torch.softmax(s, -1),
+                                v[r, p:i + 1])
+            assert torch.allclose(got[r, i], want, atol=1e-5)
+
+
+def test_config_from_hf_reads_the_deepseek_fields():
+    """A HF-style config of the LLaVA-NeXT stack over Moonlight's decoder
+    gives the deepseek_v3 kind with its published sizes."""
+    from types import SimpleNamespace as NS
+    text = NS(model_type="deepseek_v3", vocab_size=163840, hidden_size=2048,
+              intermediate_size=11264, num_hidden_layers=27,
+              num_attention_heads=16, num_key_value_heads=16,
+              rope_theta=50000.0, rms_norm_eps=1e-5, q_lora_rank=None,
+              kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+              v_head_dim=128, n_routed_experts=64, num_experts_per_tok=6,
+              n_shared_experts=2, moe_intermediate_size=1408,
+              first_k_dense_replace=1, routed_scaling_factor=2.446,
+              norm_topk_prob=True, n_group=1, topk_group=1)
+    vision = NS(hidden_size=1024, intermediate_size=4096,
+                num_hidden_layers=24, num_attention_heads=16,
+                image_size=336, patch_size=14)
+    cfg = lt.config_from_hf(NS(vision_config=vision, text_config=text,
+                               vision_feature_layer=-2,
+                               image_token_index=163839))
+    assert cfg.mla and cfg.rope_dim == 64 and cfg.n_routed_experts == 64
+    assert (cfg.kv_lora_rank, cfg.v_head_dim) == (512, 128)
+    with pytest.raises(ValueError):
+        lt.config_from_hf(NS(vision_config=vision, text_config=NS(
+            **dict(vars(text), q_lora_rank=1536)), vision_feature_layer=-2,
+            image_token_index=1))
+    with pytest.raises(ValueError):
+        lt.LlavaTorch(dataclasses.replace(TINY, lora_rank=4), device="meta")
