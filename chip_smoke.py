@@ -62,12 +62,13 @@ Phases, each a hard failure (non-zero exit):
 6. build ``LlavaTorch`` at the LLaVA-1.6-Mistral-7B widths (32 layers,
    bf16, random weights from seed 0, the five anyres pinpoints, flash
    prefill) and score five candidates on a 1080 x 1440 frame directly
-   (t = 2400 tokens, 32 flash launches), again through the chunked
+   (t = 2400 tokens, 64 flash launches: the shared image prefix's and
+   the rows' text's attention, 32 each), again through the chunked
    route (first-step logits and tokens compared) and one by one, then
    serve frames through
    ``GraspService(hybrid_selector=HybridGraspSelector(VLAProcessor(
    scorer)))``: every measured frame must carry a VLA choice, publish a
-   message and launch the flash kernel 32 times; then the two
+   message and launch the flash kernel 64 times; then the two
    degradations on purpose (a backend that raises, a selector that
    raises), and ``TinyVLAScorer`` on the card once;
 7. training: (a) the attention gate's gradient kernel against its plain
@@ -136,12 +137,13 @@ Phases, each a hard failure (non-zero exit):
    int8 and int4 codes and scales bit-equal to the host quantizer on the
    same tensors; then one rerank a mode through
    ``tools/serve_llava_torch.py``'s ``main`` (anyres, 1080 x 1440 frame),
-   the flash prefill launched once a layer and the scorer's own record
+   the flash prefill launched once a layer (twice on the shared route:
+   the prefix and the text) and the scorer's own record
    showing the rerank finished (its scores, and every candidate's tokens
    decoded); (b) the 7.567 G-parameter model of phase 6 quantized to
    int8 on the card by ``quantize_llava_state_device`` (peak at most the
    bf16 model and one kernel's f32 working set), five candidates scored
-   (t 2400, 32 flash launches), profiled, and scored one by one;
+   (t 2400, 64 flash launches), profiled, and scored one by one;
    ``QuantDense`` at 5 and 12,000 rows: int8 and int4's per-group
    partials within one bf16 rounding of the f64 product (and int8's
    product rounded to bf16 before its scale shown to miss that limit),
@@ -245,9 +247,15 @@ Phases, each a hard failure (non-zero exit):
    =True)`` over the whole decoder (27 layers, 16.27 G parameters drawn
    in bf16), launches counted from a reset just before a rerank whose
    decode replays its captured graph (the ``launches_moe_serve`` term:
-   a flash prefill and an expert call a layer of the prompt pass, none
-   from the replayed steps). ``python3 chip_smoke.py --phase 15`` runs
-   phases 1 and 15 alone.
+   two flash prefills a layer of the shared route's prompt pass, the
+   prefix's and the rows' text's, and one expert call a layer, none
+   from the replayed steps); (d) the
+   flash prefill's calls on the shared route in both bf16
+   instantiations, the image prefix (one row of 2340 at offset 0) and
+   the rows' text (five rows of 60 queries at offset 2340), against
+   their plain versions and timed beside the single pass over five rows
+   of 2400. ``python3 chip_smoke.py --phase 15`` runs phases 1 and 15
+   alone.
 
 TF32 is off for convolutions and matmuls in every phase, so the card
 computes the CNN in full f32 as the CPU path does. Before the last line
@@ -1695,9 +1703,13 @@ def run_vla(torch, dev, cnn, scenes):
     if not (len(scores) == 5 and np.isfinite(scores).all()
             and len(set(scores)) > 1):
         raise RuntimeError(f"phase 6.1: bad scores {scores}")
-    if flash_n != layers or last["n_image_tokens"] != n_img_want \
+    # the shared route: the image prefix once, then the rows' text, each
+    # pass launching the flash kernel once a layer
+    if flash_n != 2 * layers or last["prefill_route"] != "shared" \
+            or last["n_image_tokens"] != n_img_want \
             or last["prompt_len"] != n_img_want + N_TEXT:
-        raise RuntimeError(f"phase 6.1: {flash_n} flash launches, "
+        raise RuntimeError(f"phase 6.1: {flash_n} flash launches, route "
+                           f"{last['prefill_route']}, "
                            f"{last['n_image_tokens']} image tokens, t "
                            f"{last['prompt_len']}")
 
@@ -1849,7 +1861,7 @@ def run_vla(torch, dev, cnn, scenes):
         out = feed(i)
         rose = launch_counts()["flash_prefill"] - before
         if out is None or not out["found"] or out["vla"] is None \
-                or not out["message"] or rose != layers:
+                or not out["message"] or rose != 2 * layers:
             raise RuntimeError(
                 f"phase 6.3 frame {i}: found "
                 f"{out and out['found']}, vla {out and out['vla']}, flash "
@@ -3258,7 +3270,8 @@ def run_phase_9a(torch, dev, n_bytes):
         # own record proves the rerank ran to its end (scores are set
         # only when it returns; every candidate decoded its tokens)
         n = len(res["candidates"])
-        if (cnt["flash_prefill"] != CKPT_LAYERS or not n
+        if (cnt["flash_prefill"] != CKPT_LAYERS * (2 if n > 1 else 1)
+                or not n
                 or res["best"] is None or res["vla_scores"] is None
                 or len(res["vla_scores"]) != n
                 or res["generated_tokens"] != [SERVE_NEW_TOKENS] * n
@@ -3449,7 +3462,7 @@ def run_phase_9b(torch, dev, bf16_perf):
     last = dict(scorer.last)
     tokens = last.pop("tokens")
     if not (len(scores) == 5 and np.isfinite(scores).all()) \
-            or counts["flash_prefill"] != layers:
+            or counts["flash_prefill"] != 2 * layers:
         raise RuntimeError(f"phase 9b: scores {scores}, flash launches "
                            f"{counts['flash_prefill']}")
     prof = profile_rerank(torch, scorer, rgb, cands, instruction, "phase 9b")
@@ -5050,6 +5063,71 @@ def check_flash_split(torch, dev):
     return rec
 
 
+def check_flash_offset(torch, dev):
+    """Phase 15d: the flash prefill as the rerank's shared route calls it,
+    both bf16 instantiations (32 query heads over 8 of 128; latent
+    attention's 16 of 192/128): the image prefix, one row of 2340 tokens
+    at offset 0, and the rows' text, five rows of 60 queries at offset
+    2340 over 2400 keys, each against its plain version, then their
+    times beside the single pass over five rows of 2400."""
+    from leafgrasp_tpu_torch.kernels.flash_prefill import (
+        flash_prefill, flash_prefill_plain)
+    n_img, n_text, b = 2340, 60, 5
+    keys = n_img + n_text
+    rng = np.random.default_rng(16)
+    out = {"name": "flash_prefill_offset", "route": "cuda",
+           "source": "leafgrasp_tpu_torch/kernels/csrc/flash_prefill.cu",
+           "replaces": "none (the TPU kernel runs every row's prompt)",
+           "tolerance_rel": FLASH_TOL["bfloat16"]["rel"],
+           "tolerance_row": FLASH_TOL["bfloat16"]["row"]}
+    for name, (heads, kvh, hd, hdv) in (("hd128", (32, 8, 128, 128)),
+                                        ("split_192_128",
+                                         (16, 16, 192, 128))):
+        def t_(*shape):
+            return torch.as_tensor(rng.standard_normal(shape)
+                                   .astype(np.float32),
+                                   device=dev).to(torch.bfloat16)
+        k, v = t_(b, keys, kvh, hd), t_(b, keys, kvh, hdv)
+        q = t_(b, keys, heads, hd)
+        pad0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+        calls = {"prefix": (q[:1, :n_img], k[:1], v[:1], pad0[:1], 0),
+                 "suffix": (q[:, n_img:], k, v, pad0, n_img),
+                 "full": (q, k, v, pad0, 0)}
+        rec = {}
+        for call, (qq, kk, vv, pp, o) in calls.items():
+            got = flash_prefill(qq, kk, vv, pp, o)
+            torch.cuda.synchronize()
+            want = flash_prefill_plain(qq, kk, vv, pp, o, chunk=240)
+            err, share, over = flash_diff(got, want, FLASH_TOL["bfloat16"])
+            if not over <= 0.0 or not bool(torch.isfinite(got.float()).all()):
+                raise RuntimeError(f"phase 15d {name} {call}: over the "
+                                   f"tolerance by {over}")
+            rows, t = qq.shape[:2]
+            pairs = rows * heads * (t * o + t * (t + 1) / 2)
+            ops = 2.0 * (hd + hdv) * pairs
+            moved = 2.0 * (rows * t * heads * (hd + hdv)
+                           + rows * (o + t) * kvh * (hd + hdv))
+            b_ms, b_by = bound(moved, ops, PEAK_BF16_OPS_PER_S)
+            rec[call] = {
+                "shape": [rows, t, o, heads, kvh, hd, hdv],
+                "max_abs_err": err, "max_row_share": share,
+                "ms": kernel_ms(lambda: flash_prefill(qq, kk, vv, pp, o),
+                                "flash_prefill_kernel", iters=10),
+                "plain_ms": cuda_ms(lambda: flash_prefill_plain(
+                    qq, kk, vv, pp, o, chunk=240), iters=2, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by, "operations": ops,
+                "bytes": moved}
+            del got, want
+            log(f"phase 15d flash_prefill {name} {call} "
+                f"{json.dumps(rec[call])}")
+        out[name] = rec
+    out["max_abs_err"] = max(out[n][c]["max_abs_err"]
+                             for n in ("hd128", "split_192_128")
+                             for c in ("prefix", "suffix", "full"))
+    log(f"phase 15d {json.dumps(out)}")
+    return out
+
+
 def check_moe_experts(torch, dev):
     """Phase 15b: the grouped expert kernel against its plain version at
     a prompt pass's and a decode step's tokens, an expert idle in each,
@@ -5129,6 +5207,7 @@ def run_phase_15(torch, dev):
     t0 = time.perf_counter()
     with torch.no_grad():
         records = [check_flash_split(torch, dev),
+                   check_flash_offset(torch, dev),
                    check_moe_experts(torch, dev)]
     torch.cuda.empty_cache()
     cfg = LlavaTorchConfig(
@@ -5166,7 +5245,9 @@ def run_phase_15(torch, dev):
     torch.cuda.synchronize()
     counts = launch_counts()
     last = scorer.last
-    want = {"flash_prefill": cfg.layers,
+    # the shared route: a flash launch a layer for the prefix and one for
+    # the rows' text, and one expert call a layer over both
+    want = {"flash_prefill": 2 * cfg.layers,
             "moe_experts": cfg.layers - cfg.first_k_dense_replace}
     log(f"phase 15c rerank over {n_params / 1e9:.3f} G parameters: scores "
         f"{scores}; t {last['prompt_len']}, image tokens "
@@ -5174,10 +5255,12 @@ def run_phase_15(torch, dev):
         f"launches {json.dumps(counts)}, load "
         f"{[round(float(np.median(b)), 3) for b in last['moe_load']]}")
     if last["decode_graph"] != "replayed" \
+            or last["prefill_route"] != "shared" \
             or any(counts[key] != n for key, n in want.items()) \
             or len(scores) != len(cands):
-        raise RuntimeError(f"phase 15c: route {last['decode_graph']}, "
-                           f"launches {counts}, want {want}")
+        raise RuntimeError(f"phase 15c: routes {last['decode_graph']}, "
+                           f"{last['prefill_route']}, launches {counts}, "
+                           f"want {want}")
     for rec in records:
         rec["launches_moe_serve"] = counts["flash_prefill" if
                                            rec["name"].startswith("flash")

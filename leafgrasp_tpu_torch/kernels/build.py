@@ -72,8 +72,8 @@ _SIGNATURES = {
     # depth, ids, lo, inv_w, n, num, r, blocks, out, stream
     "segment_histogram": [_VP] * 4 + [_I] * 4 + [_VP, _VP],
     # q, k, v, pad, out, b, t, heads, kv_heads, hd, hd_v, is_bf16,
-    # strides (12 int64), scale, lse (or null), stream
-    "flash_prefill": [_VP] * 5 + [_I] * 7 + [_VP, _F, _VP, _VP],
+    # q_offset, strides (12 int64), scale, lse (or null), stream
+    "flash_prefill": [_VP] * 5 + [_I] * 8 + [_VP, _F, _VP, _VP],
     # q, k, v, o, dout, pad, lse, dsum, dq, b, t, heads, kv_heads, hd,
     # is_bf16, strides (18 int64), scale, stream
     "flash_prefill_bwd_dq": [_VP] * 9 + [_I] * 6 + [_VP, _F, _VP],

@@ -6,6 +6,11 @@
 //                        * v[b, j, h / rep]      over pad[b] <= j <= i
 //
 // for real query rows i >= pad[b]; rows i < pad[b] are written as zeros.
+// With a query offset o the t query rows are the key axis's
+// rows o .. o + t - 1: row i reads the keys pad[b] <= j <= o + i of the
+// o + t rows of K and V, and is a pad row where o + i < pad[b]. That is
+// the rows' text after an image prefix whose K/V another pass wrote into
+// the cache: the prefix's keys are read, its queries are not recomputed.
 // Scores, the running softmax and the output accumulate in f32; the
 // probabilities are rounded to the input type before the second product,
 // as the plain version rounds them.
@@ -35,8 +40,9 @@
 // padded on the host) into a ring of two K and two V stages, each with a
 // "full" and an "empty" mbarrier, so a K/V tile in shared memory serves
 // 128 query rows and no consumer thread spends an instruction on a load.
-// The token dimension of the maps is t, not the cache's length: TMA
-// zero-fills the ragged last tile and never reads a row beyond t. A tile
+// The token dimension of the maps is t (Q) and o + t (K/V), not the
+// cache's length: TMA zero-fills the ragged last tile and never reads a
+// row beyond them. A tile
 // lies in shared memory as one or two 64-column halves of 128-byte rows
 // in the 128-byte swizzle that the wgmma descriptors name. S = Q K^T is
 // wgmma m64n128k16 with Q and K from shared memory, both as they lie
@@ -47,8 +53,9 @@
 // tile of one head of one row), heaviest first, strided over the grid,
 // so the producer loads the next item's tiles while the consumers finish
 // this one. Within an item it walks the key tiles from the pad's tile up
-// to the diagonal, skewed by one tile: S(n) and O += P(n-1) V(n-1) are
-// issued together and the softmax of tile n starts as soon as S(n) has
+// to the diagonal (shifted by the query offset), skewed by one tile:
+// S(n) and O += P(n-1) V(n-1) are issued together and the softmax of
+// tile n starts as soon as S(n) has
 // landed, while the tensor cores still multiply (waiting for each
 // product before the softmax took a tenth longer at the serving shape).
 // The masked
@@ -82,7 +89,8 @@
 // as it lies, MN-major with the transpose bit, which wgmma offers for
 // 16-bit types only: hence bf16 planes and not TF32. A block is one
 // warpgroup that owns 64 query rows of one head, heaviest tiles first,
-// and walks 32-key tiles from the pad's tile to the diagonal. TMA lands
+// and walks 32-key tiles from the pad's tile to the diagonal (shifted by
+// the query offset, as in the bf16 kernel). TMA lands
 // the f32 rows of Q (once) and of a K and a V tile (a ring of three
 // stages) in dense rows inside the region of their planes; a thread pass
 // splits them in place (split_tile). The walk is skewed: P(n) V(n) and
@@ -279,12 +287,14 @@ __device__ __forceinline__ void rescale(float (&o)[N], float al_a,
 
 // a work item: query tile mt of head h of batch row b; items are ordered
 // heaviest (last query tile) first, the heads of a K/V group side by side
+// (q0 and row_hi are query rows; p and the key tiles are on the key axis,
+// where query row i is key row q_off + i)
 struct Work {
   int b, h, q0, p, row_hi;
   bool empty;                                 // pad rows only
 };
 __device__ __forceinline__ Work decode_work(int idx, int n_mt, int b_n,
-                                            int heads, int t,
+                                            int heads, int t, int q_off,
                                             const int* __restrict__ pad) {
   Work w;
   const int per = b_n * heads;
@@ -293,9 +303,9 @@ __device__ __forceinline__ Work decode_work(int idx, int n_mt, int b_n,
   w.b = rem / heads;
   w.h = rem % heads;
   w.q0 = mt * WG_BM;
-  w.p = min(max(pad[w.b], 0), t);
+  w.p = min(max(pad[w.b], 0), q_off + t);
   w.row_hi = min(w.q0 + WG_BM, t);
-  w.empty = w.row_hi <= w.p;
+  w.empty = q_off + w.row_hi <= w.p;
   return w;
 }
 
@@ -305,10 +315,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const int* __restrict__ pad, bf16* __restrict__ out,
-                     float* __restrict__ lse, int b_n, int t, int heads,
-                     int rep, Strides os, float scale2, int n_mt,
+                     float* __restrict__ lse, int b_n, int t, int q_off,
+                     int heads, int rep, Strides os, float scale2, int n_mt,
                      int n_work) {
   using L = WgLayout<HD, HDV>;
+  const int n_keys = q_off + t;
   constexpr int NO = HDV / 2;                 // output accumulators a thread
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -339,7 +350,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x == WG_CONSUMERS * 128) {
       int it = 0, items = 0;                  // tiles, work items so far
       for (int idx = blockIdx.x; idx < n_work; idx += gridDim.x) {
-        const Work w = decode_work(idx, n_mt, b_n, heads, t, pad);
+        const Work w = decode_work(idx, n_mt, b_n, heads, t, q_off, pad);
         if (w.empty) continue;
         const int kvh = w.h / rep;
         mbar_wait(q_empty, (items & 1) ^ 1);
@@ -348,7 +359,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int c = 0; c < L::NH; ++c)
           tma_load_4d(base + L::Q + c * HALF_BYTES, &map_q, q_full, c * 64,
                       w.q0, w.h, w.b);
-        const int kt_first = w.p / WG_BN, kt_last = (w.row_hi - 1) / WG_BN;
+        const int kt_first = w.p / WG_BN;
+        const int kt_last = (q_off + w.row_hi - 1) / WG_BN;
         for (int kt = kt_first; kt <= kt_last; ++kt, ++it) {
           const int s = it % WG_STAGES;
           const uint32_t ph = ((it / WG_STAGES) & 1) ^ 1;
@@ -380,7 +392,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
 
     int it = 0, items = 0;
     for (int idx = blockIdx.x; idx < n_work; idx += gridDim.x) {
-      const Work w = decode_work(idx, n_mt, b_n, heads, t, pad);
+      const Work w = decode_work(idx, n_mt, b_n, heads, t, q_off, pad);
       bf16* ob = out + w.b * os.b + w.h * os.h;
       float* lb = LSE ? lse + ((long long)w.b * heads + w.h) * t : nullptr;
       if (w.empty) {                          // pad rows only: zeros
@@ -397,9 +409,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
         continue;
       }
       const int p = w.p;
-      const int row_a = w.q0 + lr, row_b = row_a + 8;
-      const int wg_first = w.q0 + wg * WG_ROWS;           // rows of the group
-      const int kt_first = p / WG_BN, kt_last = (w.row_hi - 1) / WG_BN;
+      const int row_a = w.q0 + lr, row_b = row_a + 8;     // query rows
+      const int key_a = q_off + row_a, key_b = key_a + 8; // on the key axis
+      const int wg_first = q_off + w.q0 + wg * WG_ROWS;   // the group's first
+      const int kt_first = p / WG_BN;
+      const int kt_last = (q_off + w.row_hi - 1) / WG_BN;
 
       float o[NO];
 #pragma unroll
@@ -409,9 +423,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t pr[32];                        // P in bf16: the A fragments
       float al_a, al_b;
       // A tile behind the pad, under the group's first row and inside the
-      // sequence has no masked key.
+      // key axis has no masked key.
       auto masked = [&](int k0) {
-        return (k0 < p) || (k0 + WG_BN - 1 > wg_first) || (k0 + WG_BN > t);
+        return (k0 < p) || (k0 + WG_BN - 1 > wg_first)
+               || (k0 + WG_BN > n_keys);
       };
       auto release_k = [&](int s, bool last) {
         if (lane == 0) {
@@ -436,8 +451,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
         reg_fence(sc);
         release_k(s, kt_first == kt_last);
         const int k0 = kt_first * WG_BN;
-        softmax_tile(sc, st, al_a, al_b, masked(k0), k0, p, t, row_a, row_b,
-                     tq, scale2);             // o is zero: nothing to rescale
+        softmax_tile(sc, st, al_a, al_b, masked(k0), k0, p, n_keys, key_a,
+                     key_b, tq, scale2);      // o is zero: nothing to rescale
         pack_p(sc, pr);
       }
       for (int kt = kt_first + 1; kt <= kt_last; ++kt) {
@@ -458,8 +473,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
         reg_fence(sc);
         release_k(s, kt == kt_last);
         const int k0 = kt * WG_BN;
-        softmax_tile(sc, st, al_a, al_b, masked(k0), k0, p, t, row_a, row_b,
-                     tq, scale2);
+        softmax_tile(sc, st, al_a, al_b, masked(k0), k0, p, n_keys, key_a,
+                     key_b, tq, scale2);
         wgmma_wait<0>();                      // O += P V has landed
         reg_fence(o);
         if (lane == 0) mbar_arrive(v_empty(sv));
@@ -486,12 +501,12 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap map_q,
       l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-      const float inv_a = (row_a >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
-      const float inv_b = (row_b >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
+      const float inv_a = (key_a >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
+      const float inv_b = (key_b >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
       if constexpr (LSE) {                    // maxima in raw score units
         if (tq == 0) {
-          if (row_a < t) lb[row_a] = lse_of(st.m_a * scale2, l_a, row_a >= p);
-          if (row_b < t) lb[row_b] = lse_of(st.m_b * scale2, l_b, row_b >= p);
+          if (row_a < t) lb[row_a] = lse_of(st.m_a * scale2, l_a, key_a >= p);
+          if (row_b < t) lb[row_b] = lse_of(st.m_b * scale2, l_b, key_b >= p);
         }
       }
 #pragma unroll
@@ -523,9 +538,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int tokens,
 
 template <int HD, int HDV, bool LSE>
 int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
-                void* out, float* lse, int b, int t, int heads, int kv_heads,
-                Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                cudaStream_t stream) {
+                void* out, float* lse, int b, int t, int q_off, int heads,
+                int kv_heads, Strides qs, Strides ks, Strides vs, Strides os,
+                float scale, cudaStream_t stream) {
   using L = WgLayout<HD, HDV>;
   static int sm_count = 0;
   auto kernel = flash_prefill_kernel<HD, HDV, LSE>;
@@ -545,15 +560,15 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* pad,
   }
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, HD, t, heads, b, qs, WG_BM)
-      || !make_map(&mk, k, HD, t, kv_heads, b, ks, WG_BN)
-      || !make_map(&mv, v, HDV, t, kv_heads, b, vs, WG_BN))
+      || !make_map(&mk, k, HD, q_off + t, kv_heads, b, ks, WG_BN)
+      || !make_map(&mv, v, HDV, q_off + t, kv_heads, b, vs, WG_BN))
     return (int)cudaErrorInvalidValue;
   const int n_mt = (t + WG_BM - 1) / WG_BM;
   const long long n_work = (long long)n_mt * b * heads;
   if (n_work > INT32_MAX) return (int)cudaErrorInvalidValue;
   const int grid = (int)(n_work < sm_count ? n_work : sm_count);
   kernel<<<grid, WG_THREADS, L::BYTES, stream>>>(
-      mq, mk, mv, pad, static_cast<bf16*>(out), lse, b, t, heads,
+      mq, mk, mv, pad, static_cast<bf16*>(out), lse, b, t, q_off, heads,
       heads / kv_heads, os, scale * 1.4426950408889634f, n_mt, (int)n_work);
   return (int)cudaGetLastError();
 }
@@ -589,10 +604,12 @@ flash_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const int* __restrict__ pad, float* __restrict__ out,
-                         float* __restrict__ lse, int b_n, int t, int heads,
-                         int rep, Strides os, float scale2, int n_mt) {
+                         float* __restrict__ lse, int b_n, int t, int q_off,
+                         int heads, int rep, Strides os, float scale2,
+                         int n_mt) {
   using L = F32Layout<HD>;
   constexpr int BN = F_BN;
+  const int n_keys = q_off + t;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_u32 = smem_u32(smem_raw);
   const uint32_t base = (raw_u32 + 1023u) & ~1023u;
@@ -604,16 +621,18 @@ flash_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
   // the block's query tile, batch row and head: the last query tiles (the
-  // longest walks) first, the heads of a K/V group side by side
+  // longest walks) first, the heads of a K/V group side by side. q0 and
+  // row_hi are query rows; p and the key tiles are on the key axis, where
+  // query row i is key row q_off + i
   const int per = b_n * heads;
   const int q0 = (n_mt - 1 - (int)blockIdx.x / per) * PLANE_M;
   const int bi = (int)blockIdx.x % per / heads;
   const int h = (int)blockIdx.x % heads;
-  const int p = min(max(pad[bi], 0), t);
+  const int p = min(max(pad[bi], 0), n_keys);
   const int row_hi = min(q0 + PLANE_M, t);
   float* ob = out + bi * os.b + h * os.h;
   float* lb = LSE ? lse + ((long long)bi * heads + h) * t : nullptr;
-  if (row_hi <= p) {                          // pad rows only: zeros
+  if (q_off + row_hi <= p) {                  // pad rows only: zeros
     for (int i = tid; i < (row_hi - q0) * (HD / 4); i += PLANE_THREADS) {
       const int r = i / (HD / 4), c = i % (HD / 4);
       *reinterpret_cast<float4*>(ob + (long long)(q0 + r) * os.t + 4 * c) =
@@ -625,7 +644,7 @@ flash_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   // the walk: key tiles kt0 .. up to the tile's last row, of K/V head kvh
   const int kt0 = p / BN;
-  const int n_steps = (row_hi - 1) / BN - kt0 + 1;
+  const int n_steps = (q_off + row_hi - 1) / BN - kt0 + 1;
   const int kvh = h / rep;
   auto load_stage = [&](int n) {              // thread 0 only
     const int s = n % F_NST, row0 = (kt0 + n) * BN;
@@ -656,8 +675,9 @@ flash_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_q,
   split_stage(0);
   __syncthreads();                            // the planes are published
 
-  // this thread's rows: ra and ra + 8
+  // this thread's query rows, ra and ra + 8, and their key rows
   const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  const int key_a = q_off + ra, key_b = key_a + 8;
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
@@ -670,12 +690,14 @@ flash_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_q,
                                L::SPLANE);
   };
   // the probabilities of tile n from its scores, split for P V. A tile
-  // behind the pad, under the block's first row and inside the sequence
+  // behind the pad, under the block's first row and inside the key axis
   // has no masked key.
   auto probs = [&](int n) {
     const int c0 = (kt0 + n) * BN;
-    const bool masked = c0 < p || c0 + BN - 1 > q0 || c0 + BN > t;
-    softmax_tile(x, st, al_a, al_b, masked, c0, p, t, ra, rb, tq, scale2);
+    const bool masked = c0 < p || c0 + BN - 1 > q_off + q0
+                        || c0 + BN > n_keys;
+    softmax_tile(x, st, al_a, al_b, masked, c0, p, n_keys, key_a, key_b, tq,
+                 scale2);
     split_frag<BN / 2>(x, p0, p1);
   };
 
@@ -719,12 +741,12 @@ flash_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_q,
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float inv_a = (ra >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
-  const float inv_b = (rb >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
+  const float inv_a = (key_a >= p && l_a > 0.0f) ? 1.0f / l_a : 0.0f;
+  const float inv_b = (key_b >= p && l_b > 0.0f) ? 1.0f / l_b : 0.0f;
   if constexpr (LSE) {                        // maxima in raw score units
     if (tq == 0) {
-      if (ra < t) lb[ra] = lse_of(st.m_a * scale2, l_a, ra >= p);
-      if (rb < t) lb[rb] = lse_of(st.m_b * scale2, l_b, rb >= p);
+      if (ra < t) lb[ra] = lse_of(st.m_a * scale2, l_a, key_a >= p);
+      if (rb < t) lb[rb] = lse_of(st.m_b * scale2, l_b, key_b >= p);
     }
   }
 #pragma unroll
@@ -741,9 +763,9 @@ flash_prefill_f32_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int HD, bool LSE>
 int launch_f32(const void* q, const void* k, const void* v, const int* pad,
-               void* out, float* lse, int b, int t, int heads, int kv_heads,
-               Strides qs, Strides ks, Strides vs, Strides os, float scale,
-               cudaStream_t stream) {
+               void* out, float* lse, int b, int t, int q_off, int heads,
+               int kv_heads, Strides qs, Strides ks, Strides vs, Strides os,
+               float scale, cudaStream_t stream) {
   using L = F32Layout<HD>;
   static bool ready = false;
   auto kernel = flash_prefill_f32_kernel<HD, LSE>;
@@ -753,33 +775,37 @@ int launch_f32(const void* q, const void* k, const void* v, const int* pad,
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  // f32 rows as they lie, whole (no swizzle): the split pass reads them
-  auto map = [&](CUtensorMap* m, const void* ptr, int n_heads, Strides s,
-                 int rows) {
-    return make_map_4d(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, HD, t,
-                       n_heads, b, s.b, s.t, s.h, HD, rows,
+  // f32 rows as they lie, whole (no swizzle): the split pass reads them;
+  // t rows of Q, q_off + t of K and V
+  auto map = [&](CUtensorMap* m, const void* ptr, int tokens, int n_heads,
+                 Strides s, int rows) {
+    return make_map_4d(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, HD,
+                       tokens, n_heads, b, s.b, s.t, s.h, HD, rows,
                        CU_TENSOR_MAP_SWIZZLE_NONE);
   };
   CUtensorMap mq, mk, mv;
-  if (!map(&mq, q, heads, qs, PLANE_M) || !map(&mk, k, kv_heads, ks, F_BN)
-      || !map(&mv, v, kv_heads, vs, F_BN))
+  if (!map(&mq, q, t, heads, qs, PLANE_M)
+      || !map(&mk, k, q_off + t, kv_heads, ks, F_BN)
+      || !map(&mv, v, q_off + t, kv_heads, vs, F_BN))
     return (int)cudaErrorInvalidValue;
   const int n_mt = (t + PLANE_M - 1) / PLANE_M;
   const long long blocks = (long long)n_mt * b * heads;
   if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
   kernel<<<(int)blocks, PLANE_THREADS, L::BYTES, stream>>>(
-      mq, mk, mv, pad, static_cast<float*>(out), lse, b, t, heads,
+      mq, mk, mv, pad, static_cast<float*>(out), lse, b, t, q_off, heads,
       heads / kv_heads, os, scale * 1.4426950408889634f, n_mt);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (b, t, heads, hd); k: (b, >= t, kv_heads, hd); v: (b, >= t,
-// kv_heads, hd_v), only the first t rows of k and v are read; out: (b, t,
-// heads, hd_v). strides: twelve element strides, (batch, token, head) of
-// q, k, v, out; the last dimension is contiguous and every row starts on a
-// 16-byte boundary. is_bf16: 1 for bf16 in and out, 0 for f32. hd_v is hd
+// q: (b, t, heads, hd); k: (b, >= q_offset + t, kv_heads, hd); v: (b,
+// >= q_offset + t, kv_heads, hd_v), only the first q_offset + t rows of k
+// and v are read; out: (b, t, heads, hd_v). strides: twelve element
+// strides, (batch, token, head) of q, k, v, out; the last dimension is
+// contiguous and every row starts on a 16-byte boundary. is_bf16: 1 for
+// bf16 in and out, 0 for f32. q_offset: the key row of the first query
+// row. hd_v is hd
 // at 64 or 128 (the sizes instantiated), or, for latent attention's split
 // heads (DeepSeek-V3's MLA with its latent expanded to per-head K and V),
 // 128 with an hd of 192, in bf16 only: Q and two K stages of 48 KB, two V
@@ -788,10 +814,13 @@ int launch_f32(const void* q, const void* k, const void* v, const int* pad,
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              const int* pad, void* out, int b, int t,
                              int heads, int kv_heads, int hd, int hd_v,
-                             int is_bf16, const long long* strides,
-                             float scale, float* lse, cudaStream_t stream) {
+                             int is_bf16, int q_offset,
+                             const long long* strides, float scale,
+                             float* lse, cudaStream_t stream) {
   if (b <= 0 || t <= 0 || heads <= 0) return 0;
   const bool split = hd_v != hd;
+  if (q_offset < 0 || (long long)q_offset + t > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   if (kv_heads <= 0 || heads % kv_heads != 0
       || (split ? !(is_bf16 && hd == 192 && hd_v == 128)
                 : (hd != 64 && hd != 128)))
@@ -803,41 +832,45 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   if (split) {
     if (lse != nullptr)
       return launch_bf16<192, 128, true>(q, k, v, pad, out, lse, b, t,
-                                         heads, kv_heads, qs, ks, vs, os,
-                                         scale, stream);
+                                         q_offset, heads, kv_heads, qs, ks,
+                                         vs, os, scale, stream);
     return launch_bf16<192, 128, false>(q, k, v, pad, out, nullptr, b, t,
-                                        heads, kv_heads, qs, ks, vs, os,
-                                        scale, stream);
+                                        q_offset, heads, kv_heads, qs, ks,
+                                        vs, os, scale, stream);
   }
   if (is_bf16) {
     if (lse != nullptr) {
       if (hd == 64)
         return launch_bf16<64, 64, true>(q, k, v, pad, out, lse, b, t,
-                                         heads, kv_heads, qs, ks, vs, os,
-                                         scale, stream);
+                                         q_offset, heads, kv_heads, qs, ks,
+                                         vs, os, scale, stream);
       return launch_bf16<128, 128, true>(q, k, v, pad, out, lse, b, t,
-                                         heads, kv_heads, qs, ks, vs, os,
-                                         scale, stream);
+                                         q_offset, heads, kv_heads, qs, ks,
+                                         vs, os, scale, stream);
     }
     if (hd == 64)
       return launch_bf16<64, 64, false>(q, k, v, pad, out, nullptr, b, t,
-                                        heads, kv_heads, qs, ks, vs, os,
-                                        scale, stream);
+                                        q_offset, heads, kv_heads, qs, ks,
+                                        vs, os, scale, stream);
     return launch_bf16<128, 128, false>(q, k, v, pad, out, nullptr, b, t,
-                                        heads, kv_heads, qs, ks, vs, os,
-                                        scale, stream);
+                                        q_offset, heads, kv_heads, qs, ks,
+                                        vs, os, scale, stream);
   }
   if (lse != nullptr) {
     if (hd == 64)
-      return launch_f32<64, true>(q, k, v, pad, out, lse, b, t, heads,
-                                  kv_heads, qs, ks, vs, os, scale, stream);
-    return launch_f32<128, true>(q, k, v, pad, out, lse, b, t, heads,
-                                 kv_heads, qs, ks, vs, os, scale, stream);
+      return launch_f32<64, true>(q, k, v, pad, out, lse, b, t,
+                                  q_offset, heads, kv_heads, qs, ks, vs, os,
+                                  scale, stream);
+    return launch_f32<128, true>(q, k, v, pad, out, lse, b, t,
+                                 q_offset, heads, kv_heads, qs, ks, vs, os,
+                                 scale, stream);
   }
   if (hd == 64)
-    return launch_f32<64, false>(q, k, v, pad, out, nullptr, b, t, heads,
-                                 kv_heads, qs, ks, vs, os, scale, stream);
-  return launch_f32<128, false>(q, k, v, pad, out, nullptr, b, t, heads,
-                                kv_heads, qs, ks, vs, os, scale, stream);
+    return launch_f32<64, false>(q, k, v, pad, out, nullptr, b, t,
+                                 q_offset, heads, kv_heads, qs, ks, vs, os,
+                                 scale, stream);
+  return launch_f32<128, false>(q, k, v, pad, out, nullptr, b, t,
+                                q_offset, heads, kv_heads, qs, ks, vs, os,
+                                scale, stream);
 }
 

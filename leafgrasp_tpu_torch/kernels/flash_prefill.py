@@ -12,6 +12,13 @@ no repeat to ``heads``), ``pad`` is (b,) int32. ``v`` may have a head
 size of its own (latent attention's split heads: q and k of 192, v and
 the output of 128), and the scale is then q's, 1 / sqrt(192).
 
+A query offset ``o`` (``q_offset``) puts the t query rows at the key
+rows o .. o + t - 1: row i reads the keys ``pad[b] <= j <= o + i`` of
+the first o + t rows of k and v, and is a pad row where ``o + i <
+pad[b]``. That is a pass over the text after an image prefix whose K/V
+are already in the cache. Both forward kernels (bf16 and f32) take
+it; the backward takes none.
+
 Replaces the TPU route ``_flash_prefill``
 (leafgrasp_tpu/vla/llava_jax.py:284), which pads the sequence to a block
 multiple on the host and repeats K/V to the query head count first; the
@@ -61,16 +68,18 @@ _SPLIT_HEAD_DIMS = ((192, 128),)   # (q and k, v) instantiated, bf16
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_args(q, k, v, pad):
+def _check_args(q, k, v, pad, q_offset: int = 0):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: want (b, t, heads, hd), "
                          f"(b, s, kv_heads, hd) and (b, s, kv_heads, hd_v)")
     b, t, heads, hd = q.shape
-    if k.shape[0] != b or k.shape[3] != hd or k.shape[1] < t:
+    if q_offset < 0:
+        raise ValueError(f"query offset {q_offset} below 0")
+    if k.shape[0] != b or k.shape[3] != hd or k.shape[1] < q_offset + t:
         raise ValueError(f"k {tuple(k.shape)} does not fit q "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(q.shape)} at query offset {q_offset}")
     if k.shape[2] < 1 or heads % k.shape[2] != 0:
         raise ValueError(f"{heads} query heads over {k.shape[2]} K/V heads")
     if not (q.dtype == k.dtype == v.dtype):
@@ -90,22 +99,24 @@ def _mask(key: torch.Tensor, row: torch.Tensor, padl: torch.Tensor):
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        pad: torch.Tensor, chunk: int | None = None,
-                        return_lse: bool = False):
+                        pad: torch.Tensor, q_offset: int = 0,
+                        chunk: int | None = None, return_lse: bool = False):
     """Plain PyTorch version: the dense grouped-query attention with the
-    mask built from ``pad``, f32 scores and softmax, probabilities cast
-    to the input type before the second product. ``chunk`` computes that
-    many query rows at a time, so that the f32 scores of a long prompt
-    fit; the result is the same row by row. ``return_lse`` also returns
-    the row log-sum-exp of the scaled scores, (b, heads, t) f32."""
-    _check_args(q, k, v, pad)
+    mask built from ``pad`` and ``q_offset``, f32 scores and softmax,
+    probabilities cast to the input type before the second product.
+    ``chunk`` computes that many query rows at a time, so that the f32
+    scores of a long prompt fit; the result is the same row by row.
+    ``return_lse`` also returns the row log-sum-exp of the scaled scores,
+    (b, heads, t) f32."""
+    _check_args(q, k, v, pad, q_offset)
     b, t, heads, hd = q.shape
     kvh = k.shape[2]
     rep = heads // kvh
-    kf = k[:, :t].to(torch.float32)
-    vt = v[:, :t]
+    s = q_offset + t
+    kf = k[:, :s].to(torch.float32)
+    vt = v[:, :s]
     hdv = v.shape[3]
-    key = torch.arange(t, device=q.device)
+    key = torch.arange(s, device=q.device)
     padl = pad.to(torch.int64)
     out = torch.empty((b, t, heads, hdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, kvh, rep, t), dtype=torch.float32,
@@ -116,8 +127,8 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qg = q[:, lo:hi].reshape(b, hi - lo, kvh, rep, hd)
         scores = torch.einsum("btkrd,bskd->bkrts", qg.to(torch.float32), kf)
         scores = scores / math.sqrt(hd)
-        row = key[lo:hi]
-        mask = _mask(key, row, padl)[:, None, None]           # (b, tq, t)
+        row = key[q_offset + lo:q_offset + hi]
+        mask = _mask(key, row, padl)[:, None, None]           # (b, tq, s)
         if return_lse:
             lse[..., lo:hi] = torch.logsumexp(torch.where(
                 mask, scores, torch.full_like(scores, -math.inf)), dim=-1)
@@ -188,11 +199,11 @@ def _row_strides(x: torch.Tensor, name: str) -> list:
     return [sb, st, sh]
 
 
-def _check_kernel_args(q, k, v, pad):
+def _check_kernel_args(q, k, v, pad, q_offset: int = 0):
     """Device, shapes and what the kernels are instantiated for."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_args(q, k, v, pad)
+    _check_args(q, k, v, pad, q_offset)
     hd, hdv = q.shape[3], v.shape[3]
     if hd != hdv:
         if (hd, hdv) not in _SPLIT_HEAD_DIMS or q.dtype != torch.bfloat16:
@@ -205,13 +216,15 @@ def _check_kernel_args(q, k, v, pad):
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  pad: torch.Tensor, return_lse: bool = False):
+                  pad: torch.Tensor, q_offset: int = 0,
+                  return_lse: bool = False):
     """(b, t, heads, hd) attention output in ``q``'s type: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors. With
     ``return_lse`` also the row log-sum-exp, (b, heads, t) f32."""
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, pad, return_lse=return_lse)
-    _check_kernel_args(q, k, v, pad)
+        return flash_prefill_plain(q, k, v, pad, q_offset,
+                                   return_lse=return_lse)
+    _check_kernel_args(q, k, v, pad, q_offset)
     b, t, heads, hd = q.shape
     hdv = v.shape[3]
     out = torch.empty((b, t, heads, hdv), dtype=q.dtype, device=q.device)
@@ -228,7 +241,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
         out.data_ptr(), b, t, heads, k.shape[2], hd, hdv,
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), int(q_offset),
         (ctypes.c_longlong * 12)(*strides), 1.0 / math.sqrt(hd),
         None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -330,12 +343,16 @@ class FlashPrefill(torch.autograd.Function):
 
 
 def flash_prefill_trainable(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, pad: torch.Tensor
-                            ) -> torch.Tensor:
+                            v: torch.Tensor, pad: torch.Tensor,
+                            q_offset: int = 0) -> torch.Tensor:
     """``flash_prefill`` for a pass that may be differentiated: through
     ``FlashPrefill`` when autograd records and q, k or v needs a
-    gradient, else the serving launch itself (no log-sum-exp)."""
+    gradient (at query offset 0 only: the backward takes none), else the
+    serving launch itself (no log-sum-exp)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if q_offset:
+            raise ValueError("the flash prefill's backward takes no query "
+                             "offset")
         return FlashPrefill.apply(q, k, v, pad)
-    return flash_prefill(q, k, v, pad)
+    return flash_prefill(q, k, v, pad, q_offset)

@@ -103,9 +103,12 @@ class LlavaTorchScorer:
     and the newline row; needs ``cfg.image_grid_pinpoints``.
 
     ``last`` holds what the newest ``score`` call measured: token
-    counts, the generated tokens, the decode's route ``decode_graph``
-    ("captured" where one of its batches captured a graph, else
-    "replayed" or "eager") and, on a CUDA device, the split into
+    counts, the generated tokens, the prompt pass's route
+    ``prefill_route`` of the newest batch ("shared" where its rows'
+    image prefix ran once, else "full"), the decode's route
+    ``decode_graph`` ("captured" where one of its batches captured a
+    graph, else "replayed" or "eager") and, on a CUDA device, the split
+    into
     encode / prefill / decode milliseconds; for a decoder with experts
     ``moe_load``, each expert layer's busiest expert's routed pairs over
     the mean in a batch's prompt pass (computed on the device, fetched
@@ -166,11 +169,13 @@ class LlavaTorchScorer:
     def score(self, image, candidates: List[dict],
               instruction: str) -> List[float]:
         """Score every candidate in ONE batched generate (or in batches
-        of ``max_batch``). The shared image is encoded once and its
-        features are broadcast across the rows. Masking keeps rows from
-        attending across the batch or into pad slots, so batched scoring
-        equals one-by-one scoring up to the order of floating-point
-        sums."""
+        of ``max_batch``). The shared image is encoded once and, where
+        every row holds just its tokens, its features go to the generate
+        once for all the rows, which then computes the rows' image prefix
+        once (``greedy_generate_llava``'s shared route). Masking keeps
+        rows from attending across the batch or into pad slots, so
+        batched scoring equals one-by-one scoring up to the order of
+        floating-point sums."""
         dev = self.model.device
         timed = dev.type == "cuda"
         self.last = {"n_image_tokens": 0, "prompt_len": 0, "tokens": [],
@@ -207,13 +212,17 @@ class LlavaTorchScorer:
         for i, r in enumerate(rows):
             pad[i] = t - len(r)
             ids[i, pad[i]:] = r
-        if feats is not None:
+        image = self.model.cfg.image_token_index
+        if feats is not None and any(r.count(image) != feats.shape[1]
+                                     for r in rows):
+            # a text id that reads as the image token takes the next
+            # feature of the flattened batch (the JAX scorer's splice):
+            # the rows then share no prefix, and each gets the features
             feats = feats.expand(b, *feats.shape[1:])
         timings: dict = {}
         gen = greedy_generate_llava(
             self.model, torch.as_tensor(ids).to(dev), image_features=feats,
-            max_new_tokens=self.max_new_tokens,
-            pad_lens=torch.as_tensor(pad).to(dev),
+            max_new_tokens=self.max_new_tokens, pad_lens=pad,
             decode_mode=self.decode_mode, timings=timings)
         gen = host_read(gen)           # the one transfer of the batch
         load = timings.pop("moe_load", None)
@@ -223,6 +232,7 @@ class LlavaTorchScorer:
         # (the rerank stability tool) finds it filled as it goes
         self.last["prompt_len"] = t
         self.last.setdefault("tokens", []).extend(gen)
+        self.last["prefill_route"] = timings.pop("prefill_route")
         route = timings.pop("decode_graph")
         if self.last.get("decode_graph") != "captured":
             self.last["decode_graph"] = route

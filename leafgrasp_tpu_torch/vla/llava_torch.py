@@ -28,14 +28,17 @@ JAX module chooses: ``"flash"`` (the CUDA kernel of
 ``kernels/flash_prefill``, with its backward kernels when autograd
 records; the plain versions for CPU tensors), the dense
 grouped einsum, and the same einsum over chunks of query rows. Caches
-are ``(b, total, kv_heads, hd)`` tensors written in place; the cache
-cursor is a Python int, or on a decode step its slot as a tensor on the
-device. Pixel values are ``(B, H, W, 3)`` at every public function, as
-in the JAX package.
+are ``(b, total, kv_heads, hd)`` views of one tensor for all layers,
+written in place; the cache cursor is a Python int (the first slot of a
+prompt-sized pass, whose queries on the flash route are the key rows
+from it on), or on a decode step its slot as a tensor on the device.
+Pixel values are ``(B, H, W, 3)`` at every public function, as in the
+JAX package.
 
-Greedy decode on a CUDA device replays one CUDA graph of its steps over
-static caches (``greedy_generate_llava``); elsewhere the same steps run
-eagerly.
+Greedy decode computes an image prefix that its rows share once
+(``greedy_generate_llava``'s shared route), and on a CUDA device
+replays one CUDA graph of its steps over static caches; elsewhere the
+same steps run eagerly.
 """
 
 from __future__ import annotations
@@ -392,6 +395,50 @@ def _rope_hf(x, positions, theta: float):
     return _apply_rope(x, *_rope_tables(positions, x.shape[-1], theta))
 
 
+@dataclasses.dataclass
+class _SharedPrompt:
+    """A layer's cache on the prompt pass of rows that share an image
+    (``_generate_prefill_shared``), in place of (K, V, cursor). The pass
+    runs flat tokens, (1, n + rows * (t - n), ...): the n image tokens
+    once, then each row's slots [n, t). ``attend`` is the layer's
+    attention over them."""
+    caches: tuple                # the layer's: (K, V), or (latents,)
+    n: int
+    t: int
+    rows: int
+    runs: List[tuple]            # (lo, hi, p): rows lo .. hi - 1 of pad p
+    prefix_mask: torch.Tensor    # (1, 1, n, n)
+    prefix_pad: torch.Tensor     # (1,) zeros
+    text_mask: torch.Tensor      # (rows, 1, t - n, t)
+    pad: torch.Tensor            # (rows,)
+
+    def text(self, x):
+        """The flat tokens' text part as (rows, t - n, ...)."""
+        return x[0, self.n:].reshape(self.rows, self.t - self.n,
+                                     *x.shape[2:])
+
+    def attend(self, rows, attend):
+        """Writes what each flat token leaves in each cache (``rows``, one
+        a cache, (1, n + rows * (t - n), ...)): the prefix's into each
+        row's slots [pad, n), the text's into [n, t). Then attends the
+        prefix over its own and each row's text over its cache's first t
+        slots from its pad, at the cursor n, through the layer's
+        ``attend(part, keys, mask, pad, cursor)``, where ``part`` takes a
+        query tensor's prefix or text. Returns the flat tokens' output."""
+        n, t = self.n, self.t
+        rows = [row.to(cache.dtype) for cache, row in zip(self.caches, rows)]
+        for cache, row in zip(self.caches, rows):
+            for lo, hi, p in self.runs:
+                cache[lo:hi, p:n] = row[:, :n - p]
+            cache[:, n:t] = self.text(row)
+        out_p = attend(lambda x: x[:, :n], [row[:, :n] for row in rows],
+                       self.prefix_mask, self.prefix_pad, 0)
+        out_t = attend(self.text, [cache[:, :t] for cache in self.caches],
+                       self.text_mask, self.pad, n)
+        return torch.cat([out_p, out_t.reshape(1, -1, *out_t.shape[2:])],
+                         dim=1)
+
+
 class _MistralAttention(nn.Module):
     def __init__(self, cfg: LlavaTorchConfig, **fk):
         super().__init__()
@@ -405,14 +452,20 @@ class _MistralAttention(nn.Module):
     def forward(self, x, rope, mask, cache=None, pad=None):
         """``rope``: the (cos, sin) of ``_rope_tables`` for this pass's
         positions. ``pad`` (b,) int32 is the caller's word that ``mask``
-        is exactly causal AND key >= pad: only then may the flash route
-        replace the mask by the pad lengths."""
+        is exactly causal from the cache cursor (key <= cursor + query
+        row) AND key >= pad: only then may the flash route replace the
+        mask by the pad lengths and the cursor."""
         c = self.cfg
         hd = c.head_dim
         b, t = x.shape[:2]
         q = _apply_rope(self.q_proj(x).reshape(b, t, c.heads, hd), *rope)
         k = _apply_rope(self.k_proj(x).reshape(b, t, c.kv_heads, hd), *rope)
         v = self.v_proj(x).reshape(b, t, c.kv_heads, hd)
+        if isinstance(cache, _SharedPrompt):
+            out = cache.attend((k, v), lambda part, kv, mask, pad, cur:
+                               self._attend(part(q), *kv, mask, pad, cur,
+                                            x.dtype))
+            return self.o_proj(out.reshape(b, t, c.heads * hd)), cache
 
         cur = 0
         if cache is not None:
@@ -429,7 +482,16 @@ class _MistralAttention(nn.Module):
                 cv[:, cur:cur + t] = v.to(cv.dtype)
             k, v = ck, cv
             cache = (ck, cv, cur + t)
+        out = self._attend(q, k, v, mask, pad, cur, x.dtype)
+        return self.o_proj(out.reshape(b, t, c.heads * hd)), cache
 
+    def _attend(self, q, k, v, mask, pad, cur, dt):
+        """(b, t, heads, hd) attention of the queries ``q`` (the key rows
+        from the cursor ``cur`` on) over the keys ``k``/``v`` under
+        ``mask``, by the configured route; probabilities in ``dt``."""
+        c = self.cfg
+        hd = c.head_dim
+        t = q.shape[1]
         rep = c.heads // c.kv_heads
 
         def attend(qc, mc):
@@ -446,7 +508,7 @@ class _MistralAttention(nn.Module):
             else:                             # head-dim-1 mask
                 mcb = mc[:, :, None]
             scores = scores.masked_fill(~mcb, -1e30)
-            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            probs = torch.softmax(scores, dim=-1).to(dt)
             out = _einsum_promoted("bkrts,bskd->btkrd", probs, v)
             return out.reshape(bq, tq, c.heads, hd)
 
@@ -454,19 +516,21 @@ class _MistralAttention(nn.Module):
         head1_prefill_mask = (mask.dim() == 4 and mask.shape[1] == 1
                               and mask.shape[2] == t)
         kernel_dt = torch.promote_types(q.dtype, k.dtype)
+        keys = None if isinstance(cur, torch.Tensor) else cur + t
         if (c.prefill_attn_impl == "flash" and head1_prefill_mask
-                and pad is not None and cur == 0
-                and t >= FLASH_MIN_TOKENS
-                and (c.sliding_window is None or t <= c.sliding_window)):
+                and pad is not None and keys is not None
+                and keys >= FLASH_MIN_TOKENS
+                and (c.sliding_window is None or keys <= c.sliding_window)):
             # K/V go in as the cache holds them: kv_heads heads, the row
-            # stride of the whole cache, the first t rows read. On the
-            # card the wrapper raises for a head size or type its kernel
+            # stride of the whole cache, the first cur + t rows read; the
+            # queries are the key rows from the cursor on. On the card
+            # the wrapper raises for a head size or type its kernel
             # lacks; nothing here gives way to another route for it. A
             # pass that autograd records goes through the kernels'
             # autograd Function, and the gradient through the casts
             out = _fp.flash_prefill_trainable(q.to(kernel_dt),
                                               k.to(kernel_dt),
-                                              v.to(kernel_dt), pad)
+                                              v.to(kernel_dt), pad, cur)
         elif tc is None or t <= tc or not head1_prefill_mask:
             # chunking assumes a head-dim-1 mask; a per-head mask takes
             # the exact unchunked path
@@ -479,8 +543,7 @@ class _MistralAttention(nn.Module):
             out = torch.cat([attend(q[:, lo:lo + tc],
                                     mask[:, :, lo:lo + tc])
                              for lo in range(0, t, tc)], dim=1)
-        out = self.o_proj(out.reshape(b, t, c.heads * hd))
-        return out, cache
+        return out
 
 
 class _MistralLayer(nn.Module):
@@ -841,18 +904,42 @@ def attach_lora(model: LlavaTorch, state: Dict[str, Any],
 CACHE_QUANTUM = 64
 
 
+def _cache_store(c: LlavaTorchConfig, b: int, total: int, dev):
+    """Every layer's cache as one zeroed tensor: K and V of the Mistral
+    decoder, (layers, 2, b, total, kv_heads, hd), or the latents of latent
+    attention, (layers, b, total, kv_lora_rank + rope)."""
+    shape = (c.layers, b, total, c.kv_lora_rank + c.qk_rope_head_dim) \
+        if c.mla else (c.layers, 2, b, total, c.kv_heads, c.head_dim)
+    return torch.zeros(shape, dtype=c.torch_dtype, device=dev)
+
+
+def _layer_caches(kv) -> List:
+    """A cache a layer, views of ``_cache_store``'s tensor ``kv``: (K, V,
+    cursor 0) of the Mistral decoder, (latent, None, cursor 0) of latent
+    attention."""
+    if kv.dim() == 4:
+        return [(kv[i], None, 0) for i in range(kv.shape[0])]
+    return [(kv[i, 0], kv[i, 1], 0) for i in range(kv.shape[0])]
+
+
 def _new_caches(c: LlavaTorchConfig, b: int, total: int, dev) -> List:
-    """A cache a layer: (K, V, cursor) of the Mistral decoder, (latent,
-    None, cursor) of latent attention."""
-    dt = c.torch_dtype
-    if c.mla:
-        return [(torch.zeros((b, total, c.kv_lora_rank + c.qk_rope_head_dim),
-                             dtype=dt, device=dev), None, 0)
-                for _ in range(c.layers)]
-    return [(torch.zeros((b, total, c.kv_heads, c.head_dim), dtype=dt,
-                         device=dev),
-             torch.zeros((b, total, c.kv_heads, c.head_dim), dtype=dt,
-                         device=dev), 0) for _ in range(c.layers)]
+    """Zeroed caches of ``total`` slots, a (K, V, cursor) or (latent,
+    None, cursor) a layer."""
+    return _layer_caches(_cache_store(c, b, total, dev))
+
+
+def _slots(kv, lo: int, n: int):
+    """Slots lo .. lo + n - 1 of every row and layer in ``kv``."""
+    return kv.narrow(2 if kv.dim() == 4 else 3, lo, n)
+
+
+def _expert_pairs(model: LlavaTorch):
+    """For a decoder with experts, each expert layer's routed pairs an
+    expert in its last pass (``moe.expert_pairs``); else None."""
+    if not model.cfg.mla:
+        return None
+    from leafgrasp_tpu_torch.vla.moe import expert_pairs
+    return expert_pairs(model)
 
 
 def _generate_prefill(model: LlavaTorch, input_ids, pad, pixel_values,
@@ -880,6 +967,73 @@ def _generate_prefill(model: LlavaTorch, input_ids, pad, pixel_values,
                            positions=positions, mask=mask, caches=caches,
                            logits_last_only=True, pad=pad)
     return torch.argmax(logits[:, -1, :], dim=-1), caches
+
+
+def _generate_prefill_shared(model: LlavaTorch, input_ids, pad, pads,
+                             image_features, kv):
+    """The prompt pass of rows that share one image, into the zeroed
+    store ``kv``: ``image_features`` (1, N, hidden) are the N tokens that
+    follow each row's pad (``pads``, ``pad`` on the host).
+
+    One pass over flat tokens: the N image tokens once, then every row's
+    slots [N, t). Each layer runs the token-wise work once over them and
+    writes the prefix's K/V (latents) into each row's slots [pad_r, N)
+    and the text's into [N, t) (``_SharedPrompt``); its attention runs
+    the prefix over itself and the text over each row's keys from its
+    pad, at cache cursor N. A row's slots from N start with its last
+    pad_r image tokens (features N - pad_r on), which it recomputes:
+    their features go in in that order.
+
+    The slots before each row's pad stay as ``kv`` held them. Returns the
+    first greedy token, the caches and, for a decoder with experts, the
+    routed pairs of the pass (else None)."""
+    c = model.cfg
+    dev = input_ids.device
+    b, t = input_ids.shape
+    n = image_features.shape[1]
+    if any(t - p <= n for p in pads):
+        raise ValueError(f"rows of {t} slots with pads {pads} do not all "
+                         f"hold the {n} shared image tokens and a token "
+                         f"after them")
+    runs = []                       # rows of one pad before N, in runs
+    for r, p in enumerate(pads):
+        if runs and runs[-1][1] == r and runs[-1][2] == p:
+            runs[-1] = (runs[-1][0], r + 1, p)
+        elif p < n:
+            runs.append((r, r + 1, p))
+    ids = torch.full((1, n), c.image_token_index, dtype=input_ids.dtype,
+                     device=dev)
+    tail = [image_features[0, n - min(p, n):] for p in pads if p > 0]
+    x = torch.cat([model.embed(ids, image_features=image_features),
+                   model.embed(input_ids[:, n:],
+                               image_features=torch.cat(tail) if tail
+                               else None).reshape(1, b * (t - n), -1)],
+                  dim=1)
+    slot = torch.arange(t, device=dev)
+    text = slot[n:]
+    positions = torch.cat([slot[:n], torch.clamp(
+        text[None, :] - pad[:, None], min=0).reshape(-1)])[None]
+    rope = _rope_tables(positions, c.rope_dim, c.rope_theta)
+    prefix_mask = slot[None, :n] <= slot[:n, None]
+    text_mask = slot[None, :] <= text[:, None]
+    if c.sliding_window is not None:
+        # pad is a shared prefix, so absolute distance == pad-relative
+        prefix_mask = prefix_mask \
+            & (slot[:n, None] - slot[None, :n] < c.sliding_window)
+        text_mask = text_mask \
+            & (text[:, None] - slot[None, :] < c.sliding_window)
+    shared = _SharedPrompt(
+        (), n, t, b, runs, prefix_mask[None, None],
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+        text_mask[None, None]
+        & (slot[None, None, None, :] >= pad[:, None, None, None]), pad)
+    caches = _layer_caches(kv)
+    for layer, (ck, cv, _) in zip(model.layers, caches):
+        x, _ = layer(x, rope, None, dataclasses.replace(
+            shared, caches=(ck,) if cv is None else (ck, cv)), pad)
+    logits = model.head(shared.text(x), logits_last_only=True)
+    return torch.argmax(logits[:, -1, :], dim=-1), caches, \
+        _expert_pairs(model)
 
 
 def _generate_decode_step(model: LlavaTorch, caches, last, pad, step_i: int,
@@ -924,12 +1078,9 @@ class _DecodeGraph:
 
     def __init__(self, model: LlavaTorch, kv, n: int, pool):
         dev = kv.device
-        self.latent = kv.dim() == 4
-        b = kv.shape[1] if self.latent else kv.shape[2]
+        b = kv.shape[1 if kv.dim() == 4 else 2]
         self.kv = kv
-        self.caches = [(kv[i], None, 0) if self.latent
-                       else (kv[i, 0], kv[i, 1], 0)
-                       for i in range(kv.shape[0])]
+        self.caches = _layer_caches(kv)
         self.last = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.pad = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.prompt_len = torch.zeros((), dtype=torch.int64, device=dev)
@@ -952,15 +1103,6 @@ class _DecodeGraph:
         with torch.cuda.graph(self.graph, pool=pool, stream=side,
                               capture_error_mode="thread_local"):
             self.out = loop()
-
-    def caches_from(self, t: int) -> List:
-        """The static caches with every slot from ``t`` on zeroed, as
-        ``_new_caches`` gives them."""
-        if self.latent:
-            self.kv[:, :, t:].zero_()
-        else:
-            self.kv[:, :, :, t:].zero_()
-        return self.caches
 
     def replay(self, last, pad, prompt_len: int):
         """The loop's (b, n) tokens after ``last``: a copy of the graph's
@@ -1000,10 +1142,7 @@ class _DecodeGraphs:
         if graph is not None:
             return graph, "replayed"
         if key not in self.kv:
-            shape = (c.layers, b, cap, c.kv_lora_rank + c.qk_rope_head_dim) \
-                if c.mla else (c.layers, 2, b, cap, c.kv_heads, c.head_dim)
-            self.kv[key] = torch.zeros(shape, dtype=c.torch_dtype,
-                                       device=model.device)
+            self.kv[key] = _cache_store(c, b, cap, model.device)
         with span("vla_graph_capture"):
             graph = _DecodeGraph(model, self.kv[key], n, self.pool)
         self.graphs[(*key, n)] = graph
@@ -1041,6 +1180,16 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
     decodes as it would alone: this is how the VLA scorer batches its
     candidate prompts into one pass over the weights.
 
+    The prompt pass takes one of two routes, by the image features'
+    shape and the row count. Features of one image, (1, N, hidden),
+    under more than one row say that every row starts, after its pad,
+    with those N image tokens: one pass then runs the prefix once,
+    writes its K/V into every row, and runs the rows' text over them
+    (``_generate_prefill_shared``; pad_lens are read on the host, so
+    give them as a list or array, not on the card). Everything else
+    (one row, no image, pixels, features flattened or of every row) is
+    one pass over every slot of every row.
+
     The steps take one of two routes, by what the call can observe. On a
     CUDA device, for a model without the tensor-parallel projections of
     ``parallel/sharding.py``, the prompt pass writes into static caches
@@ -1051,21 +1200,23 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
     at a time. Everywhere else the steps run eagerly on fresh caches of
     exactly ``prompt + max_new_tokens`` slots. Both routes run
     ``_generate_decode_step``, which reads the prompt length from the
-    device.
+    device, over caches that hold zeros wherever no pass wrote.
 
     decode_mode: "scan" or "steps". The JAX package compiles them as one
     fused program or one program a token; here both take the route above
     and give the same tokens.
 
-    timings: optional dict. It receives ``decode_graph``: "captured",
-    "replayed" or "eager"; for a decoder with experts ``moe_load``, on
-    the device: each expert layer's busiest expert's routed pairs over
-    the mean, in the prompt pass; on a CUDA device also ``prefill_ms`` and
-    ``decode_ms`` (CUDA events, one synchronization at the end, under
-    the span ``device_wait``). The prompt pass runs under the span
-    ``vla_prefill`` and the steps under ``vla_decode``: the host's time
-    to launch them (on the graph route the replay), which for the steps
-    includes any block on a launch queue the prefill still fills.
+    timings: optional dict. It receives ``prefill_route``: "shared" or
+    "full"; ``decode_graph``: "captured", "replayed" or "eager"; for a
+    decoder with experts ``moe_load``, on the device: each expert
+    layer's busiest expert's routed pairs over the mean, over the
+    prompt; on a CUDA device also
+    ``prefill_ms`` and ``decode_ms`` (CUDA events, one synchronization at
+    the end, under the span ``device_wait``). The prompt pass runs under
+    the span ``vla_prefill`` and the steps under ``vla_decode``: the
+    host's time to launch them (on the graph route the replay), which for
+    the steps includes any block on a launch queue the prefill still
+    fills.
     """
     if decode_mode not in ("scan", "steps"):
         raise ValueError(f"decode_mode {decode_mode!r}: 'scan' or 'steps'")
@@ -1075,6 +1226,8 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
         pad = torch.zeros((b,), dtype=torch.int32, device=dev)
     else:
         pad = torch.as_tensor(pad_lens).to(device=dev, dtype=torch.int32)
+    shared = image_features is not None and image_features.dim() == 3 \
+        and image_features.shape[0] == 1 and b > 1
     n = max_new_tokens - 1
     graphs = _decode_graphs(model, dev) if n > 0 else None
     graph, route = None, "eager"
@@ -1086,14 +1239,26 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
     with span("vla_prefill"):
-        caches = _new_caches(model.cfg, b, t + max_new_tokens, dev) \
-            if graph is None else graph.caches_from(t)
-        first, caches = _generate_prefill(model, input_ids, pad,
-                                          pixel_values, image_features,
-                                          caches)
-        if timings is not None and model.cfg.mla:
+        if graph is None:
+            kv = _cache_store(model.cfg, b, t + max_new_tokens, dev)
+        else:                       # what the last call left: zero it
+            kv = graph.kv
+            _slots(kv, t, cap - t).zero_()
+        if shared:
+            pads = [0] * b if pad_lens is None else \
+                [int(p) for p in torch.as_tensor(pad_lens).tolist()]
+            if graph is not None and max(pads) > 0:
+                _slots(kv, 0, max(pads)).zero_()
+            first, caches, pairs = _generate_prefill_shared(
+                model, input_ids, pad, pads, image_features, kv)
+        else:
+            first, caches = _generate_prefill(model, input_ids, pad,
+                                              pixel_values, image_features,
+                                              _layer_caches(kv))
+            pairs = _expert_pairs(model)
+        if timings is not None and pairs is not None:
             from leafgrasp_tpu_torch.vla.moe import moe_load
-            timings["moe_load"] = moe_load(model)
+            timings["moe_load"] = moe_load(pairs)
     if timed:
         ev[1].record()
     with span("vla_decode"):
@@ -1111,5 +1276,6 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
         timings["prefill_ms"] = ev[0].elapsed_time(ev[1])
         timings["decode_ms"] = ev[1].elapsed_time(ev[2])
     if timings is not None:
+        timings["prefill_route"] = "shared" if shared else "full"
         timings["decode_graph"] = route
     return out

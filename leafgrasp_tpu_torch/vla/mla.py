@@ -16,13 +16,17 @@ kv_lora_rank + rope): the normalised latent and the rotated k_r of each
 token, shared by every head.
 
 The prompt pass (a cache cursor of 0, or no cache) expands the latent to
-per-head K (nope + rope) and V and attends over the prompt: through
-``kernels/flash_prefill`` (its split-head instantiation on the card) on
-the ``"flash"`` route, else its plain version or a masked einsum. Any
-other pass (a decode step, whose cursor is a tensor on the device) takes
-the absorbed form over the whole cache: ``kv_b_proj``'s key half folded
-into the query, its value half applied after the sum, so that every
-head reads the one shared latent; scores and sums in f32.
+per-head K (nope + rope) and V and attends over the prompt. On the
+shared route of rows that share an image (``_SharedPrompt``) a layer
+expands twice: the prefix's own latents, and each row's cached latents
+for its text, whose queries sit at the prefix's offset on the key axis.
+Both go through ``kernels/flash_prefill`` (its split-head instantiation
+on the card) on the ``"flash"`` route, else its plain version or a
+masked einsum. Any other pass (a decode step, whose cursor is a tensor
+on the device) takes the absorbed form over the whole cache:
+``kv_b_proj``'s key half folded into the query, its value half applied
+after the sum, so that every head reads the one shared latent; scores
+and sums in f32.
 """
 
 from __future__ import annotations
@@ -35,8 +39,8 @@ from torch import nn
 from leafgrasp_tpu_torch.kernels import flash_prefill as _fp
 from leafgrasp_tpu_torch.vla.llava_torch import (FLASH_MIN_TOKENS,
                                                  LlavaTorchConfig, _Dense,
-                                                 _RMSNorm, _apply_rope,
-                                                 _matmul_f32)
+                                                 _RMSNorm, _SharedPrompt,
+                                                 _apply_rope, _matmul_f32)
 
 __all__ = ["MLAttention", "deinterleave"]
 
@@ -87,6 +91,14 @@ class MLAttention(nn.Module):
         ckv = self.kv_a_proj_with_mqa(x)
         lat = self.kv_a_layernorm(ckv[..., :r])
         k_rope = _apply_rope(deinterleave(ckv[..., None, r:]), *rope)
+        if isinstance(cache, _SharedPrompt):
+            def attend(part, keys, mask, pad, cur):
+                lk = keys[0]
+                return self._expanded(part(q_nope), part(q_rope),
+                                      lk[..., :r], lk[..., None, r:], mask,
+                                      pad, cur, scale)
+            out = cache.attend((self._cache_row(ckv, lat, k_rope),), attend)
+            return self.o_proj(out.reshape(b, t, h * dv)), cache
 
         cur = 0
         if cache is not None:
@@ -100,26 +112,37 @@ class MLAttention(nn.Module):
             if isinstance(cur, torch.Tensor) or cur != 0:
                 out = self._absorbed(q_nope, q_rope, lc, mask, scale)
                 return self.o_proj(out.reshape(b, t, h * dv)), cache
+        out = self._expanded(q_nope, q_rope, lat, k_rope, mask, pad, 0,
+                             scale)
+        return self.o_proj(out.reshape(b, t, h * dv)), cache
 
-        # the prompt pass: per-head K and V from the prompt's latents
-        kv = self.kv_b_proj(lat).reshape(b, t, h, dn + dv)
-        k = torch.cat([kv[..., :dn], k_rope.expand(b, t, h, dr)
+    def _expanded(self, q_nope, q_rope, lat, k_rope, mask, pad, cur, scale):
+        """(b, t, heads, v) attention of the queries (the key rows from
+        the cursor ``cur`` on) over the keys' latents ``lat`` (b, cur + t,
+        rank) and rotated ``k_rope`` expanded to per-head K and V."""
+        c = self.cfg
+        h, dn, dr, dv = c.heads, c.qk_nope_head_dim, c.qk_rope_head_dim, \
+            c.v_head_dim
+        b, t = q_nope.shape[:2]
+        s = cur + t
+        kv = self.kv_b_proj(lat).reshape(b, s, h, dn + dv)
+        k = torch.cat([kv[..., :dn], k_rope.expand(b, s, h, dr)
                        .to(kv.dtype)], dim=-1)
         qq = torch.cat([q_nope, q_rope.to(q_nope.dtype)], dim=-1)
         v = kv[..., dn:]
-        mask = mask[..., :t]
+        mask = mask[..., :s]
         pure = pad is not None and mask.dim() == 4 and mask.shape[1] == 1 \
             and mask.shape[2] == t
-        if pure and c.prefill_attn_impl == "flash" and t >= FLASH_MIN_TOKENS:
+        if pure and c.prefill_attn_impl == "flash" and s >= FLASH_MIN_TOKENS:
             # on the card the split-head kernel (q/k 192, v 128 in bf16);
             # it raises for sizes or types it lacks
-            out = _fp.flash_prefill(qq, k, v, pad)
+            out = _fp.flash_prefill(qq, k, v, pad, cur)
         elif pure:
-            out = _fp.flash_prefill_plain(qq, k, v, pad,
+            out = _fp.flash_prefill_plain(qq, k, v, pad, cur,
                                           chunk=c.prefill_attn_chunk)
         else:
             out = _attend_masked(qq, k, v, mask, scale)
-        return self.o_proj(out.reshape(b, t, h * dv)), cache
+        return out
 
     def _cache_row(self, ckv, lat, k_rope):
         """What a token leaves in the cache: its normalised latent and

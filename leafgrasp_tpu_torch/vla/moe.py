@@ -18,7 +18,8 @@ A layer of the first ``first_k_dense_replace`` is a dense SwiGLU of
 each layer's attention and experts under the spans ``mla`` and ``moe``
 (a decode step, whose cache cursor is a tensor, records none); an expert
 layer keeps the last pass's pair count of each expert on the device
-(``last_counts``), which ``moe_load`` turns into the load of the pass.
+(``last_counts``), which ``expert_pairs`` gathers and ``moe_load`` turns
+into the load of a pass, or of the passes of one prompt summed.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorchConfig, _Dense,
 from leafgrasp_tpu_torch.vla.mla import MLAttention
 
 __all__ = ["Router", "Experts", "SwiGLU", "MoE", "DeepseekLayer",
-           "moe_load"]
+           "expert_pairs", "moe_load"]
 
 
 class SwiGLU(nn.Module):
@@ -129,8 +130,8 @@ class DeepseekLayer(nn.Module):
             else MoE(cfg, **fk)
 
     def forward(self, x, rope, mask, cache=None, pad=None):
-        eager = cache is None or not isinstance(cache[2], torch.Tensor)
-        timed = span if eager else (lambda _: contextlib.nullcontext())
+        step = isinstance(cache, tuple) and isinstance(cache[2], torch.Tensor)
+        timed = (lambda _: contextlib.nullcontext()) if step else span
         with timed("mla"):
             h, cache = self.self_attn(self.input_layernorm(x), rope, mask,
                                       cache, pad)
@@ -140,10 +141,15 @@ class DeepseekLayer(nn.Module):
         return x, cache
 
 
-def moe_load(model) -> torch.Tensor:
-    """(expert layers,) f32 on the device: in each expert layer's last
-    pass, its busiest expert's routed pairs over the mean pairs an
-    expert."""
-    counts = torch.stack([layer.mlp.last_counts for layer in model.layers
-                          if isinstance(layer.mlp, MoE)]).to(torch.float32)
-    return counts.amax(dim=1) / counts.mean(dim=1).clamp(min=1e-30)
+def expert_pairs(model) -> torch.Tensor:
+    """(expert layers, experts) f32 on the device: each expert layer's
+    routed pairs an expert in its last pass."""
+    return torch.stack([layer.mlp.last_counts for layer in model.layers
+                        if isinstance(layer.mlp, MoE)]).to(torch.float32)
+
+
+def moe_load(pairs: torch.Tensor) -> torch.Tensor:
+    """(expert layers,) f32 on the device: of ``expert_pairs`` (one pass,
+    or the passes of one prompt summed), each layer's busiest expert's
+    routed pairs over the mean pairs an expert."""
+    return pairs.amax(dim=1) / pairs.mean(dim=1).clamp(min=1e-30)

@@ -1469,3 +1469,216 @@ def test_moe_prefill_and_decode_step_never_synchronize(cuda):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert out.shape == (b,)
+
+
+# ---------------------------------- the shared image prefix: a query offset --
+
+@pytest.mark.parametrize("pads", [(0, 0, 0, 0, 0), (0, 3, 700, 2350, 2401)])
+@pytest.mark.parametrize("t", [61, 128])
+@pytest.mark.parametrize("heads,dtype", [
+    ("gqa_128", torch.bfloat16), ("split_192_128", torch.bfloat16),
+    ("gqa_128", torch.float32), ("gqa_64", torch.float32)])
+def test_flash_prefill_query_offset_matches_plain_on_card(cuda, heads, dtype,
+                                                          t, pads):
+    """The bf16 kernel's instantiations and the f32 kernel at the rerank's
+    suffix shape: 5 rows of t queries at the key rows 2401 - t .. 2400 of
+    a cache whose rows past 2401 hold NaN (never to be read), pads at 0
+    and unequal (inside the prefix, inside the queries, past every key).
+    Real rows within the flash tolerance of their type of the plain
+    version at the same offset, pad rows exactly zero, everything
+    finite, the same bits on a second run; with the log-sum-exp too, it
+    within 1e-5 of the plain one, -inf on pad rows."""
+    b, keys = 5, 2401
+    o = keys - t
+    h, kvh, hd, hdv = {"gqa_128": (32, 8, 128, 128),
+                       "gqa_64": (8, 2, 64, 64),
+                       "split_192_128": (16, 16, 192, 128)}[heads]
+    rng = np.random.default_rng(41)
+
+    def t_(*s):
+        return torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                               device=cuda).to(dtype)
+
+    q = t_(b, t, h, hd)
+    k = t_(b, keys + 10, kvh, hd)
+    kv = t_(b, keys + 10, kvh, 2 * hdv)
+    k[:, keys:] = float("nan")
+    kv[:, keys:] = float("nan")
+    v = kv[..., hdv:]
+    pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    got = flash_prefill(q, k, v, pad, o)
+    again = flash_prefill(q, k, v, pad, o)
+    got_lse, lse = flash_prefill(q, k, v, pad, o, return_lse=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_prefill"] == 3
+    assert torch.equal(got, again)
+    want, lse_plain = flash_prefill_plain(q, k, v, pad, o, chunk=64,
+                                          return_lse=True)
+    atol, rtol, rowtol = FLASH_TOL[dtype]
+    allowed = rtol * want.float().abs() \
+        + rowtol * want.float().abs().amax(-1, keepdim=True)
+    for out in (got, got_lse):
+        assert out.dtype == dtype and out.shape == (b, t, h, hdv)
+        assert torch.isfinite(out.float()).all()
+        for i, p in enumerate(pads):
+            assert not out[i, :max(p - o, 0)].any()
+        diff = (out.float() - want.float()).abs()
+        assert float((diff - allowed).max()) <= atol, float(diff.max())
+    real = torch.isfinite(lse_plain)
+    assert torch.equal(real, torch.isfinite(lse))
+    assert float((lse - lse_plain)[real].abs().max()) <= 1e-5
+
+
+def _shared_prefix_inputs(cuda, model, n, texts, seed):
+    """Rows of n image tokens then text, left padded to one length, and
+    features of one image: (ids, pad on the card, pads, features)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    t = n + max(texts)
+    ids = torch.zeros((len(texts), t), dtype=torch.int64, device=cuda)
+    pads = []
+    for r, m in enumerate(texts):
+        p = t - n - m
+        ids[r, p:p + n] = model.cfg.image_token_index
+        ids[r, p + n:] = torch.randint(1, 200, (m,), generator=gen,
+                                       device=cuda)
+        pads.append(p)
+    feats = torch.randn((1, n, model.cfg.hidden), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+    return ids, torch.tensor(pads, dtype=torch.int32, device=cuda), pads, \
+        feats
+
+
+def _uncaptured_shared_tokens(model, ids, pad, pads, feats, n_new):
+    """The shared route's tokens without a graph: its prompt pass into a
+    fresh store of the graph route's capacity, then the step function,
+    run eagerly."""
+    from leafgrasp_tpu_torch.vla import llava_torch as tl
+    b, t = ids.shape
+    cap = -(-(t + n_new) // tl.CACHE_QUANTUM) * tl.CACHE_QUANTUM
+    kv = tl._cache_store(model.cfg, b, cap, ids.device)
+    with torch.no_grad():
+        first, caches, _ = tl._generate_prefill_shared(model, ids, pad, pads,
+                                                       feats, kv)
+        steps = tl._decode_steps(
+            model, caches, first, pad,
+            torch.full((), t, dtype=torch.int64, device=ids.device),
+            n_new - 1)
+    return torch.cat([first[:, None], steps], dim=1).to(torch.int32)
+
+
+@pytest.mark.parametrize("decoder", ["mistral", "deepseek_v3"])
+def test_shared_prefix_route_on_the_graph_replays_its_eager_steps(cuda,
+                                                                  decoder):
+    """Features of one image under several rows on the card: the
+    prefix's attention and the rows' text's both launch the flash
+    kernel, a layer each (no other attention), and the graph route's
+    tokens equal the same pass and steps run eagerly on a fresh store,
+    bit for bit, for a capture and replays with other pads (the static
+    caches' old slots zeroed), rows of equal length, and more rows; for
+    the decoder with experts one expert launch a layer for the whole
+    prompt."""
+    from leafgrasp_tpu_torch.vla.llava_torch import greedy_generate_llava
+    model = _graph_llava(cuda, False) if decoder == "mistral" \
+        else _graph_moe_llava(cuda)
+    c = model.cfg
+    calls = [((20, 9, 31), "captured"), ((31, 20, 9), "replayed"),
+             ((14, 14, 14), "replayed"), ((5, 30, 12, 1, 25), "captured"),
+             ((30, 5, 1, 25, 12), "replayed")]
+    seen = []
+    for i, (texts, route) in enumerate(calls):
+        ids, pad, pads, feats = _shared_prefix_inputs(cuda, model, 140,
+                                                      texts, 20 + i)
+        timings = {}
+        kernels.reset_launch_counts()
+        got = greedy_generate_llava(model, ids, image_features=feats,
+                                    max_new_tokens=8, pad_lens=pads,
+                                    timings=timings)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert (timings["prefill_route"], timings["decode_graph"]) \
+            == ("shared", route)
+        assert counts["flash_prefill"] == 2 * c.layers
+        if c.mla and route == "replayed":
+            assert counts["moe_experts"] \
+                == c.layers - c.first_k_dense_replace
+        want = _uncaptured_shared_tokens(model, ids, pad, pads, feats, 8)
+        assert torch.equal(got, want), texts
+        seen.append(got.cpu())
+    assert not torch.equal(seen[0], seen[1])
+
+
+@pytest.mark.parametrize("decoder", ["mistral", "deepseek_v3"])
+def test_shared_prefix_route_never_synchronizes(cuda, decoder):
+    """The shared route's prompt pass (the prefix, its K/V written into
+    every row, the rows' text at a query offset) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the
+    card (after one warm-up that builds the kernels)."""
+    from leafgrasp_tpu_torch.vla import llava_torch as tl
+    model = _graph_llava(cuda, False) if decoder == "mistral" \
+        else _graph_moe_llava(cuda)
+    ids, pad, pads, feats = _shared_prefix_inputs(cuda, model, 140,
+                                                  (20, 9, 31, 2, 14), 30)
+
+    def prefill():
+        kv = tl._cache_store(model.cfg, ids.shape[0], 256, cuda)
+        return tl._generate_prefill_shared(model, ids, pad, pads, feats,
+                                           kv)[0]
+
+    with torch.no_grad():
+        prefill()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = prefill()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out.shape == (ids.shape[0],)
+
+
+def test_checkpoint_scorer_in_f32_shares_the_image_prefix_on_card(cuda,
+                                                                  tmp_path):
+    """A checkpoint loaded onto the card keeps the f32 compute type (the
+    serving CLI's case); its anyres scorer passes the frame's features
+    once for several candidates, so the rows' text runs the f32 kernel at
+    a query offset: two flash launches a layer (the prefix's and the
+    text's), nothing else for the prompt's attention. Every row decodes
+    the tokens that scoring the candidates one by one gives (one row: the
+    single pass), and the scores are the same."""
+    from leafgrasp_tpu_torch.vla.checkpoint_io import (
+        load_llava_checkpoint, write_synthetic_llava_checkpoint)
+    from leafgrasp_tpu_torch.vla.llava_runtime import LlavaTorchScorer
+    from leafgrasp_tpu_torch.vla.llava_torch import (FLASH_MIN_TOKENS,
+                                                     LlavaTorchConfig)
+    cfg = LlavaTorchConfig(
+        vis_hidden=64, vis_intermediate=128, vis_layers=2, vis_heads=2,
+        image_size=112, patch_size=14, vocab_size=256, hidden=256,
+        intermediate=512, layers=2, heads=2, kv_heads=1,
+        image_token_index=200,
+        image_grid_pinpoints=((112, 224), (224, 112), (224, 224)))
+    d = str(tmp_path / "ckpt")
+    write_synthetic_llava_checkpoint(d, cfg, seed=6, n_shards=2)
+    model, _, tok = load_llava_checkpoint(d, dtype="bfloat16", device=cuda)
+    assert model.cfg.torch_dtype == torch.float32
+    model.set_prefill_attn("flash")
+    rgb = (np.random.default_rng(6).uniform(0, 255, (150, 200, 3))
+           .astype(np.uint8))
+    cands = [dict(leaf_id=i + 1, x=float(20 + 35 * i), y=float(30 + 20 * i),
+                  geometric_score=0.9 - 0.1 * i) for i in range(4)]
+    batched = LlavaTorchScorer(model, tok, max_new_tokens=4, anyres=True)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        scores = batched.score(rgb, cands, "pick the best leaf")
+    torch.cuda.synchronize()
+    assert batched.last["prefill_route"] == "shared"
+    assert batched.last["n_image_tokens"] >= FLASH_MIN_TOKENS
+    assert kernels.launch_counts()["flash_prefill"] == 2 * cfg.layers
+    single = LlavaTorchScorer(model, tok, max_new_tokens=4, anyres=True,
+                              max_batch=1)
+    with torch.no_grad():
+        want = single.score(rgb, cands, "pick the best leaf")
+    assert single.last["prefill_route"] == "full"
+    assert batched.last["tokens"] == single.last["tokens"]
+    assert scores == want and all(np.isfinite(scores))

@@ -184,9 +184,10 @@ BN = 32                      # keys a tile of the forward kernel
 PV_TERMS = ((1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
 
-def emulated_forward(q, k, v, pad, s_planes=3, pv_terms=PV_TERMS):
-    """(out, lse) as the f32 forward kernel computes them: 32-key tiles
-    from the first pad's tile to t, S = Q K^T in ``s_planes`` planes, the
+def emulated_forward(q, k, v, pad, s_planes=3, pv_terms=PV_TERMS, o=0):
+    """(out, lse) as the f32 forward kernel computes them at query offset
+    o (query row i is key row o + i): 32-key tiles from the first pad's
+    tile to o + t, S = Q K^T in ``s_planes`` planes, the
     running maximum in raw score units, P = exp2(S scale log2(e) - m
     scale log2(e)) with one rounding (the kernel's fused multiply-add),
     O and the row sum rescaled by exp2((m_old - m) scale log2(e)), O += P
@@ -194,18 +195,19 @@ def emulated_forward(q, k, v, pad, s_planes=3, pv_terms=PV_TERMS):
     (m scale log2(e) + log2 l) ln 2, -inf on pad rows."""
     b, t, heads, hd = q.shape
     rep = heads // k.shape[2]
+    n_keys = o + t
     scale2 = torch.tensor(1.0 / math.sqrt(hd), dtype=F32) \
         * torch.tensor(LOG2E, dtype=F32)
     qh = q.to(F32).transpose(1, 2)                           # b, h, t, hd
-    kh = k[:, :t].to(F32).repeat_interleave(rep, 2).transpose(1, 2)
-    vh = v[:, :t].to(F32).repeat_interleave(rep, 2).transpose(1, 2)
-    rows = torch.arange(t)
+    kh = k[:, :n_keys].to(F32).repeat_interleave(rep, 2).transpose(1, 2)
+    vh = v[:, :n_keys].to(F32).repeat_interleave(rep, 2).transpose(1, 2)
+    rows = o + torch.arange(t)                       # on the key axis
     padl = pad.to(torch.int64)
     m = torch.full((b, heads, t), -math.inf)
     l_sum = torch.zeros((b, heads, t))
-    o = torch.zeros((b, heads, t, hd))
-    for c0 in range(int(padl.min()) // BN * BN, t, BN):
-        keys = torch.arange(c0, min(t, c0 + BN))
+    acc = torch.zeros((b, heads, t, v.shape[3]))
+    for c0 in range(int(padl.min()) // BN * BN, n_keys, BN):
+        keys = torch.arange(c0, min(n_keys, c0 + BN))
         s = split_mm(qh, kh[:, :, keys].transpose(-1, -2), s_planes)
         vis = (keys[None, None, :] <= rows[None, :, None]) \
             & (keys[None, None, :] >= padl[:, None, None])
@@ -218,12 +220,44 @@ def emulated_forward(q, k, v, pad, s_planes=3, pv_terms=PV_TERMS):
                         - (mu * scale2).double()[..., None]).to(F32))
         m = m_new
         l_sum = l_sum * alpha + p.sum(-1)
-        o = o * alpha[..., None] + split_mm(p, vh[:, :, keys], 0, pv_terms)
+        acc = acc * alpha[..., None] \
+            + split_mm(p, vh[:, :, keys], 0, pv_terms)
     real = (rows[None, :] >= padl[:, None])[:, None] & (l_sum > 0)
     inv = torch.where(real, 1.0 / l_sum, torch.zeros_like(l_sum))
     lse = torch.where(real, (m * scale2 + torch.log2(l_sum))
                       * 0.6931471805599453, torch.full_like(m, -math.inf))
-    return (o * inv[..., None]).transpose(1, 2), lse
+    return (acc * inv[..., None]).transpose(1, 2), lse
+
+
+def f32_walk(t, o, pad):
+    """The f32 kernel's walk at query offset o, its bounds only: a block
+    of 64 query rows of one batch row skips itself where all its rows
+    are pad rows, else walks the 32-key tiles from its pad's tile to the
+    shifted diagonal and masks a tile only where ``probs`` flags it.
+    Asserts that a tile left unmasked holds no key a row of the block may
+    not read, and that the walk covers every key each real row reads."""
+    n_keys = o + t
+    for p in (min(max(int(x), 0), n_keys) for x in pad):
+        for q0 in range(0, t, 64):
+            rows = q0 + torch.arange(64)
+            row_hi = min(q0 + 64, t)
+            real = (o + rows >= p) & (rows < t)
+            if o + row_hi <= p:                 # pad rows only
+                assert not bool(real.any())
+                continue
+            seen = torch.zeros((64, n_keys), dtype=torch.bool)
+            for kt in range(p // BN, (o + row_hi - 1) // BN + 1):
+                c0 = kt * BN
+                cols = c0 + torch.arange(BN)
+                vis = (cols[None] >= p) & (cols[None] <= o + rows[:, None]) \
+                    & (cols[None] < n_keys)
+                masked = c0 < p or c0 + BN - 1 > o + q0 or c0 + BN > n_keys
+                if not masked:
+                    assert bool(vis.all()), (p, q0, kt)
+                seen[:, cols[cols < n_keys]] |= vis[:, cols < n_keys]
+            key = torch.arange(n_keys)
+            want = (key[None] >= p) & (key[None] <= o + rows[:, None])
+            assert torch.equal(seen[real], want[real]), (p, q0)
 
 
 def float64_forward(q, k, v, pad):
@@ -384,3 +418,154 @@ def test_plain_f32_forward_needs_the_score_slack_at_large_scores():
         if ulps:
             slack = score_slack(q, k, v, pad, ulps)
             assert _over(want, exact, pad, slack) <= 0.0
+
+
+@pytest.mark.parametrize("t,o,pads", [
+    (61, 239, (0, 5, 200, 299, 300)),
+    (130, 170, (0, 171, 64, 250, 0)),
+    (7, 121, (0, 124, 127, 1, 5)),
+    (64, 2337, (0, 2340, 2401, 3, 2000)),
+])
+def test_split_forward_at_a_query_offset_matches_plain(t, o, pads):
+    """The f32 kernel at a query offset, emulated on the CPU (the card
+    runs the kernel itself): the rows' text after a prefix of o keys,
+    pads at 0, inside the prefix, inside the queries and past every key.
+    Its 32-key tiles cover exactly the keys each real row reads, an
+    unflagged tile holds no masked key (``f32_walk``), and its planes,
+    sum order and running softmax give the plain version's output at the
+    same offset within the card's f32 limit (2e-5) and its log-sum-exp
+    within 1e-5; pad rows zero, their log-sum-exp -inf."""
+    rng = np.random.default_rng(33)
+    b, heads, kvh, hd = len(pads), 4, 2, 64
+
+    def t_(*s):
+        return torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+
+    q, k, v = t_(b, t, heads, hd), t_(b, o + t + 5, kvh, hd), \
+        t_(b, o + t + 5, kvh, hd)
+    pad = torch.tensor(pads, dtype=torch.int32)
+    f32_walk(t, o, pad)
+    got, lse = emulated_forward(q, k, v, pad, o=o)
+    want, lse_plain = flash_prefill_plain(q, k, v, pad, o, return_lse=True)
+    real = ((o + torch.arange(t))[None, :]
+            >= pad.to(torch.int64)[:, None])[:, :, None, None]
+    assert bool(torch.isfinite(got).all())
+    assert not bool((got * ~real).any())
+    assert float(((got - want).abs() * real).max()) <= FLASH_TOL_F32
+    fin = torch.isfinite(lse_plain)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert float((lse - lse_plain)[fin].abs().max()) <= FLASH_LSE_TOL
+
+
+# ---- the bf16 kernel's walk at a query offset --------------------------------
+
+BF16_BM, BF16_BN, BF16_ROWS = 128, 128, 64     # flash_prefill_kernel's tiles
+
+
+def emulated_bf16_walk(q, k, v, pad, o):
+    """The bf16 kernel (``flash_prefill_kernel``) at query offset o, its
+    walk emulated: work items of 128 query rows of one head, two groups
+    of 64 rows, key tiles of 128 from the pad's tile up to the diagonal
+    shifted by o (``decode_work`` and the consumer's bounds), Q rows past
+    t and K/V rows past o + t zero (TMA's fill), the mask applied only on
+    the tiles the kernel flags, the running softmax in f32 with P in bf16
+    before P V. Asserts that a tile left unmasked has no key a row of the
+    group may not read, and that the walk covers every key a real row
+    reads."""
+    b, t, heads, hd = q.shape
+    rep = heads // k.shape[2]
+    n_keys = o + t
+    n_kt = -(-n_keys // BF16_BN)
+    kz = torch.zeros((b, n_kt * BF16_BN) + k.shape[2:])
+    vz = torch.zeros((b, n_kt * BF16_BN) + v.shape[2:])
+    kz[:, :n_keys], vz[:, :n_keys] = k[:, :n_keys].float(), \
+        v[:, :n_keys].float()
+    n_mt = -(-t // BF16_BM)
+    qz = torch.zeros((b, n_mt * BF16_BM, heads, hd))
+    qz[:, :t] = q.float()
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.zeros((b, t, heads, v.shape[3]))
+    for bi in range(b):
+        p = min(max(int(pad[bi]), 0), n_keys)
+        for h in range(heads):
+            for mt in range(n_mt):
+                q0, row_hi = mt * BF16_BM, min(mt * BF16_BM + BF16_BM, t)
+                if o + row_hi <= p:           # pad rows only: zeros
+                    continue
+                kt_first, kt_last = p // BF16_BN, (o + row_hi - 1) // BF16_BN
+                for wg in range(2):
+                    rows = q0 + wg * BF16_ROWS + torch.arange(BF16_ROWS)
+                    keys_of_rows = o + rows
+                    wg_first = o + q0 + wg * BF16_ROWS
+                    m = torch.full((BF16_ROWS,), -math.inf)
+                    l = torch.zeros(BF16_ROWS)
+                    acc = torch.zeros((BF16_ROWS, v.shape[3]))
+                    seen = torch.zeros((BF16_ROWS, n_kt * BF16_BN), dtype=bool)
+                    for kt in range(kt_first, kt_last + 1):
+                        k0 = kt * BF16_BN
+                        cols = k0 + torch.arange(BF16_BN)
+                        s = qz[bi, rows, h] @ kz[bi, cols, h // rep].T
+                        vis = (cols[None] >= p) \
+                            & (cols[None] <= keys_of_rows[:, None]) \
+                            & (cols[None] < n_keys)
+                        masked = k0 < p or k0 + BF16_BN - 1 > wg_first \
+                            or k0 + BF16_BN > n_keys
+                        if not masked:
+                            assert bool(vis.all()), (bi, h, mt, wg, kt)
+                        else:
+                            s = s.masked_fill(~vis, -math.inf)
+                        seen[:, cols] |= vis
+                        m_new = torch.maximum(m, s.amax(1))
+                        mu = torch.where(m_new == -math.inf,
+                                         torch.zeros(()), m_new)
+                        alpha = torch.exp((m - mu) * scale)
+                        pr = torch.exp((s - mu[:, None]) * scale)
+                        l = l * alpha + pr.sum(1)
+                        acc = acc * alpha[:, None] \
+                            + pr.to(torch.bfloat16).float() \
+                            @ vz[bi, cols, h // rep]
+                        m = m_new
+                    real = (keys_of_rows >= p) & (rows < t)
+                    want_seen = (torch.arange(n_kt * BF16_BN)[None]
+                                 <= keys_of_rows[:, None]) \
+                        & (torch.arange(n_kt * BF16_BN)[None] >= p)
+                    assert torch.equal(seen[real], want_seen[real])
+                    res = acc / l.clamp(min=1e-30)[:, None]
+                    keep = real.nonzero()[:, 0]
+                    out[bi, rows[keep], h] = res[keep]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("t,o,pads", [
+    (61, 239, (0, 5, 200, 299, 300)),
+    (130, 170, (0, 171, 64, 250, 0)),
+    (128, 0, (0, 3, 70, 127, 128)),
+    (7, 121, (0, 124, 127, 1, 5)),
+])
+def test_bf16_walk_at_a_query_offset_matches_plain(t, o, pads):
+    """The bf16 kernel's tile walk at a query offset, emulated on the CPU
+    (the card runs the kernel itself): the rows' text after a prefix of
+    o keys, 61 or 130 queries, 7 queries inside one key tile, and offset
+    0; pads at 0, inside the prefix, inside the queries and past every
+    key. Its tiles cover exactly the keys each real row reads, an
+    unflagged tile holds no masked key, and the result is the plain
+    version's within the card's bf16 tolerance (2^-6 of the value plus
+    2^-6 of the row's largest), pad rows zero."""
+    rng = np.random.default_rng(31)
+    b, heads, kvh, hd = len(pads), 2, 1, 16
+
+    def t_(*s):
+        return torch.as_tensor(rng.standard_normal(s).astype(np.float32)) \
+            .to(torch.bfloat16)
+
+    q, k, v = t_(b, t, heads, hd), t_(b, o + t + 5, kvh, hd), \
+        t_(b, o + t + 5, kvh, hd)
+    pad = torch.tensor(pads, dtype=torch.int32)
+    got = emulated_bf16_walk(q, k, v, pad, o)
+    want = flash_prefill_plain(q, k, v, pad, o)
+    allowed = 2.0 ** -6 * (want.float().abs()
+                           + want.float().abs().amax(-1, keepdim=True))
+    assert float(((got.float() - want.float()).abs() - allowed).max()) <= 0
+    for r, p in enumerate(pads):
+        assert not got[r, :max(p - o, 0)].any()
+        assert not want[r, :max(p - o, 0)].any()

@@ -923,3 +923,149 @@ def test_decode_stays_eager_off_the_card_and_under_tensor_parallel():
     attn = model.layers[1].self_attn
     attn.q_proj = ColumnParallel(attn.q_proj, axis=None)
     assert tl._decode_graphs(model, torch.device("cuda")) is None
+
+
+# ---- the shared image prefix (greedy_generate_llava's shared route) ------------------
+
+def _shared_rows(seed, n, texts, vocab=99):
+    """Rows of ``n`` image tokens then text of the given lengths, left
+    padded to one length: (ids, pads)."""
+    rng = np.random.default_rng(seed)
+    t = n + max(texts)
+    ids = np.zeros((len(texts), t), np.int64)
+    pads = []
+    for r, m in enumerate(texts):
+        p = t - n - m
+        ids[r, p:p + n] = TINY["image_token_index"]
+        ids[r, p + n:] = rng.integers(1, vocab, m)
+        pads.append(p)
+    return torch.from_numpy(ids), pads
+
+
+def _generate_with_first_logits(model, ids, feats, pads, n_new=6):
+    """(tokens, the last lm_head call's logits, timings)."""
+    seen = []
+    hook = model.lm_head.register_forward_hook(
+        lambda _m, _a, out: seen.append(out.detach().clone()))
+    timings = {}
+    try:
+        toks = tl.greedy_generate_llava(model, ids, image_features=feats,
+                                        max_new_tokens=n_new,
+                                        pad_lens=pads, timings=timings)
+    finally:
+        hook.remove()
+    first = [x for x in seen if x.shape[0] == ids.shape[0]][0]
+    return toks, first[:, -1], timings
+
+
+@pytest.mark.parametrize("features", ["single_tile", "anyres", "long"])
+@pytest.mark.parametrize("texts", [(25, 25, 25), (25, 18, 30), (9, 3, 21)])
+def test_shared_prefix_route_equals_the_single_pass(features, texts):
+    """Features of one image, (1, N, hidden), under several rows: the
+    prefix runs once, its K/V go into every row and the rows' text runs
+    over them. The first logits (f32) within 1e-4 of the single pass
+    over every row with the features repeated, the tokens equal; rows of
+    equal length and of unequal length, including a pad past N;
+    single-tile, anyres and a long prefix (130 tokens, the flash route's
+    plain version in both attentions)."""
+    kw = dict(image_grid_pinpoints=PINPOINTS) if features == "anyres" \
+        else dict(prefill_attn_impl="flash", prefill_attn_chunk=64) \
+        if features == "long" else {}
+    model = _random_model(7, **kw)
+    with torch.no_grad():
+        if features == "anyres":
+            image = np.random.default_rng(8).integers(
+                0, 256, (96, 128, 3)).astype(np.uint8)
+            feats, _ = tr.LlavaTorchScorer(model, _Tok(), anyres=True) \
+                ._encode_image(image)
+        elif features == "single_tile":
+            feats = model.vision_project(torch.from_numpy(
+                _inputs(8)[1][:1]))
+        else:
+            feats = torch.from_numpy(np.random.default_rng(8)
+                                     .standard_normal((1, 130, 64))
+                                     .astype(np.float32))
+    n = feats.shape[1]
+    ids, pads = _shared_rows(9, n, texts)
+    if features == "single_tile" and texts == (9, 3, 21):
+        assert max(pads) > n
+    got, got_first, got_t = _generate_with_first_logits(model, ids, feats,
+                                                        pads)
+    want, want_first, want_t = _generate_with_first_logits(
+        model, ids, feats.expand(len(texts), -1, -1), pads)
+    assert (got_t["prefill_route"], want_t["prefill_route"]) \
+        == ("shared", "full")
+    np.testing.assert_allclose(got_first.numpy(), want_first.numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, want)
+    assert len(set(map(tuple, want.tolist()))) > 1
+
+
+def test_shared_prefix_route_runs_both_attentions_through_the_flash_route(
+        monkeypatch):
+    """On the flash route each layer of the shared pass calls the
+    kernel's wrapper for the prefix (one row, no offset) and for the
+    rows' text (a query offset of N); every slot before a row's pad
+    stays as the store held it (zero), every slot from it is written."""
+    model = _random_model(10, prefill_attn_impl="flash")
+    feats = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (1, 130, 64)).astype(np.float32))
+    ids, pads = _shared_rows(12, 130, (20, 7, 14))
+    calls = []
+    real = tl._fp.flash_prefill
+    monkeypatch.setattr(
+        tl._fp, "flash_prefill",
+        lambda q, k, v, pad, o=0: calls.append((q.shape[:2], o))
+        or real(q, k, v, pad, o))
+    kv = tl._cache_store(model.cfg, 3, 160, ids.device)
+    kv.fill_(5.0)
+    tl._slots(kv, 0, max(pads)).zero_()
+    with torch.no_grad():
+        tl._generate_prefill_shared(model, ids, torch.tensor(
+            pads, dtype=torch.int32), pads, feats, kv)
+    t = ids.shape[1]
+    layers = model.cfg.layers
+    assert calls == [((1, 130), 0), ((3, t - 130), 130)] * layers
+    for r, p in enumerate(pads):
+        assert not kv[:, :, r, :p].any()           # (layers, 2, rows, ...)
+        assert kv[:, :, r, p:t].abs().amin() > 0
+
+
+def test_prefill_route_is_full_without_features_shared_by_rows():
+    """One row, no image, and features of every row keep the single pass
+    over every slot; the scorer reports the newest batch's route."""
+    model = _random_model(13, image_grid_pinpoints=PINPOINTS)
+    feats = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (1, 6, 64)).astype(np.float32))
+    ids, pads = _shared_rows(15, 6, (5, 9))
+    for kw, rows in ((dict(image_features=feats), 1),
+                     (dict(image_features=feats.expand(2, -1, -1)), 2),
+                     (dict(image_features=feats[0]), 1),
+                     ({}, 2)):
+        timings = {}
+        tl.greedy_generate_llava(model, ids[:rows], max_new_tokens=3,
+                                 pad_lens=pads[:rows], timings=timings, **kw)
+        assert timings["prefill_route"] == "full", (kw, rows)
+    scorer = tr.LlavaTorchScorer(model, _Tok(), max_new_tokens=4,
+                                 anyres=True)
+    image = np.random.default_rng(16).integers(0, 256, (60, 80, 3)) \
+        .astype(np.uint8)
+    scorer.score(image, _candidates(16), "Select")
+    assert scorer.last["prefill_route"] == "shared"
+    scorer.max_batch = 1
+    scorer.score(image, _candidates(16), "Select")
+    assert scorer.last["prefill_route"] == "full"
+    scorer.max_batch = None
+    scorer.score(None, _candidates(16), "Select")
+    assert scorer.last["prefill_route"] == "full"
+
+    class ImageIdTok(_Tok):
+        """Text ids that include the image token's: such a row holds
+        more image tokens than the image has features."""
+
+        def encode(self, text):
+            return super().encode(text)[:-1] + [TINY["image_token_index"]]
+
+    scorer.tokenizer = ImageIdTok()
+    scorer.score(image, _candidates(16), "Select")
+    assert scorer.last["prefill_route"] == "full"

@@ -224,3 +224,138 @@ def test_config_from_hf_reads_the_deepseek_fields():
             image_token_index=1))
     with pytest.raises(ValueError):
         lt.LlavaTorch(dataclasses.replace(TINY, lora_rank=4), device="meta")
+
+
+def _shared_rows(seed, n, texts, image_token=90):
+    rng = np.random.default_rng(seed)
+    t = n + max(texts)
+    ids = np.zeros((len(texts), t), np.int64)
+    pads = []
+    for r, m in enumerate(texts):
+        p = t - n - m
+        ids[r, p:p + n] = image_token
+        ids[r, p + n:] = rng.integers(1, 90, m)
+        pads.append(p)
+    return torch.from_numpy(ids), pads
+
+
+def _first_logits(model, ids, feats, pads, timings):
+    seen = []
+    hook = model.lm_head.register_forward_hook(
+        lambda _m, _a, out: seen.append(out.detach().clone()))
+    try:
+        toks = lt.greedy_generate_llava(model, ids, image_features=feats,
+                                        max_new_tokens=5, pad_lens=pads,
+                                        timings=timings)
+    finally:
+        hook.remove()
+    return toks, [x for x in seen if x.shape[0] == ids.shape[0]][0][:, -1]
+
+
+@pytest.mark.parametrize("impl,n", [("chunked", 9), ("flash", 130)])
+@pytest.mark.parametrize("texts", [(6, 6, 6), (6, 2, 11)])
+def test_shared_prefix_route_equals_the_single_pass(impl, n, texts):
+    """The deepseek_v3 decoder on the shared route (the prefix once, its
+    latents written into every row, the rows' text over every cached
+    latent up to its slot, expanded, at the prefix's query offset): the
+    first logits within 1e-4 of the single pass over every row, the
+    tokens equal, rows of equal and of unequal length; a long prefix
+    takes the flash route's plain version in both attentions."""
+    model = _model(seed=11)
+    model.set_prefill_attn(impl)
+    feats = torch.randn((1, n, TINY.hidden),
+                        generator=torch.Generator().manual_seed(12))
+    ids, pads = _shared_rows(13, n, texts)
+    t_shared, t_full = {}, {}
+    with torch.no_grad():
+        got, got_first = _first_logits(model, ids, feats, pads, t_shared)
+        want, want_first = _first_logits(
+            model, ids, feats.expand(len(texts), -1, -1), pads, t_full)
+    assert (t_shared["prefill_route"], t_full["prefill_route"]) \
+        == ("shared", "full")
+    assert float((got_first - want_first).abs().max()) <= LOGIT_TOL
+    assert torch.equal(got, want)
+
+
+def test_moe_load_covers_the_whole_prompt_of_the_shared_route(monkeypatch):
+    """``moe_load`` covers the whole prompt on the shared route: the
+    routed pairs of the prefix's N tokens, once, and of every row's
+    slots from N, in the one pass's counts."""
+    from leafgrasp_tpu_torch.vla import moe
+    model = _model(seed=14)
+    n, texts = 9, (6, 2, 11)
+    feats = torch.randn((1, n, TINY.hidden),
+                        generator=torch.Generator().manual_seed(15))
+    ids, pads = _shared_rows(16, n, texts)
+    passes = []
+    real = moe.expert_pairs
+    monkeypatch.setattr(moe, "expert_pairs",
+                        lambda m: passes.append(real(m)) or passes[-1])
+    timings = {}
+    with torch.no_grad():
+        lt.greedy_generate_llava(model, ids, image_features=feats,
+                                 max_new_tokens=3, pad_lens=pads,
+                                 timings=timings)
+    k = TINY.num_experts_per_tok
+    t = ids.shape[1]
+    assert len(passes) == 1
+    assert passes[0].sum(1).tolist() == [(n + 3 * (t - n)) * k] * 2
+    assert torch.equal(timings["moe_load"], moe.moe_load(passes[0]))
+
+
+def test_scorer_keeps_one_moe_load_a_generate_call():
+    from leafgrasp_tpu_torch.vla.llava_runtime import LlavaTorchScorer
+
+    class Tok:
+        def encode(self, text):
+            return [1 + len(text) % 7, 2 + len(text) % 5] \
+                + [3 + ord(ch) % 80 for ch in text[:6 + len(text) % 4]]
+
+        def decode(self, ids):
+            return "0." + "".join(str(int(i) % 10) for i in ids)
+
+    model = _model(seed=17)
+    scorer = LlavaTorchScorer(model, Tok(), max_new_tokens=3)
+    cands = [dict(leaf_id=i + 1, x=float(10 + 7 * i), y=float(30 - 3 * i),
+                  clutter_score=0.2 + 0.1 * i, distance_score=0.9 - 0.1 * i,
+                  geometric_score=0.5 + 0.05 * i) for i in range(5)]
+    image = np.random.default_rng(18).integers(0, 256, (40, 30, 3)) \
+        .astype(np.uint8)
+    for max_batch, calls, route in ((None, 1, "shared"), (2, 3, "full"),
+                                    (1, 5, "full")):
+        scorer.max_batch = max_batch
+        scorer.score(image, cands, "Select")
+        assert len(scorer.last["moe_load"]) == calls
+        assert scorer.last["prefill_route"] == route
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("pads", [(0, 0), (3, 12), (16, 30)])
+def test_flash_prefill_plain_with_an_offset_is_the_last_rows(split, pads):
+    """The plain version at a query offset o equals the last rows of the
+    same attention over every row from 0 (pad rows included: a pad past
+    o makes some of the offset rows pad rows, exactly zero), with the
+    log-sum-exp; one query head a K/V head and two; the query offset
+    reads the first o + t rows of a longer K/V only."""
+    gen = torch.Generator().manual_seed(19)
+    b, o, t = 2, 17, 9
+    h, kvh, dk, dv = (3, 3, 24, 8) if split else (4, 2, 16, 16)
+    q = torch.randn((b, o + t, h, dk), generator=gen)
+    k = torch.randn((b, o + t + 4, kvh, dk), generator=gen)
+    v = torch.randn((b, o + t + 4, kvh, dv), generator=gen)
+    k[:, o + t:] = float("nan")
+    v[:, o + t:] = float("nan")
+    pad = torch.tensor(pads, dtype=torch.int32)
+    full, lse = flash_prefill_plain(q, k, v, pad, return_lse=True)
+    got, got_lse = flash_prefill_plain(q[:, o:], k, v, pad, o, chunk=4,
+                                       return_lse=True)
+    assert got.shape == (b, t, h, dv)
+    assert torch.allclose(got, full[:, o:], atol=1e-6, rtol=1e-6)
+    assert torch.equal(torch.isfinite(got_lse), torch.isfinite(lse[..., o:]))
+    real = torch.isfinite(got_lse)
+    assert torch.allclose(got_lse[real], lse[..., o:][real], atol=1e-5)
+    for r, p in enumerate(pads):
+        assert not got[r, :max(p - o, 0)].any()
+    with pytest.raises(ValueError):
+        flash_prefill_plain(q[:, o:], k[:, :o + t - 1], v[:, :o + t - 1],
+                            pad, o)
