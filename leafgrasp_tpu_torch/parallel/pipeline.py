@@ -50,10 +50,12 @@ from leafgrasp_tpu_torch.parallel.collectives import (Axis,
                                                       ReduceFromAxis,
                                                       ShiftAlongAxis)
 from leafgrasp_tpu_torch.parallel.mesh import mesh_device
-from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch, _apply_rope,
-                                                 _Dense, _einsum_promoted,
-                                                 _matmul_f32, _MistralLayer,
-                                                 _rope_tables, causal_mask)
+from leafgrasp_tpu_torch.vla.layers import (PROMPT, Pass, _apply_rope,
+                                            _Dense, _matmul_f32,
+                                            _rope_tables)
+from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorch,
+                                                 _einsum_promoted,
+                                                 _MistralLayer, causal_mask)
 
 __all__ = ["split_decoder_stages", "shard_stage_params",
            "make_pp_llava_forward"]
@@ -131,8 +133,7 @@ class _TPMistralLayer(nn.Module):
                     setattr(dst, name, _slice_dense(
                         module, 0 if name in _TP_COL else 1, tp))
 
-    def forward(self, x, rope, mask, cache=None, pad=None):
-        del cache, pad                    # prompt pass, dense attention
+    def forward(self, x, rope, pass_: Pass):
         hd = self.cfg.head_dim
         b, t = x.shape[:2]
         sa = self.self_attn
@@ -144,14 +145,14 @@ class _TPMistralLayer(nn.Module):
         kr = torch.repeat_interleave(k, rep, dim=2)
         vr = torch.repeat_interleave(v, rep, dim=2)
         scores = _matmul_f32("bthd,bshd->bhts", q, kr) / math.sqrt(hd)
-        scores = scores.masked_fill(~mask, -1e30)
+        scores = scores.masked_fill(~pass_.mask, -1e30)
         probs = torch.softmax(scores, dim=-1).to(h.dtype)
         out = _einsum_promoted("bhts,bshd->bthd", probs, vr)
         x = x + ReduceFromAxis.apply(sa.o_proj(out.reshape(b, t, -1)),
                                      self.tp)
         h = CopyToAxis.apply(self.post_attention_layernorm(x), self.tp)
         down = self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
-        return x + ReduceFromAxis.apply(down, self.tp), None
+        return x + ReduceFromAxis.apply(down, self.tp)
 
 
 def shard_stage_params(mesh, stages, axis: str = "data",
@@ -224,13 +225,12 @@ def make_pp_llava_forward(mesh, model, n_microbatches: int,
             raise ValueError("tp_axis supports plain Dense layers only "
                              "(no quantized / LoRA TP stages)")
 
-    def stage_apply(stage, h, rope, mask, pad):
+    def stage_apply(stage, h, rope, prompt):
         for layer in stage:
             if remat and torch.is_grad_enabled():
-                h = checkpoint(layer, h, rope, mask, None, pad,
-                               use_reentrant=False)[0]
+                h = checkpoint(layer, h, rope, prompt, use_reentrant=False)
             else:
-                h = layer(h, rope, mask, None, pad)[0]
+                h = layer(h, rope, prompt)
         return h
 
     def fn(rest, stages, input_ids, pixel_values=None, image_features=None):
@@ -243,7 +243,7 @@ def make_pp_llava_forward(mesh, model, n_microbatches: int,
         dev = x.device
         # purely causal (no window, or t within it): pad zeros let the
         # stage layers take the flash route, as LlavaTorch.forward does
-        mask, pad = causal_mask(c, mb, t, dev)
+        prompt = Pass(PROMPT, *causal_mask(c, mb, t, dev))
         rope = _rope_tables(torch.arange(t, device=dev).expand(mb, t),
                             c.head_dim, c.rope_theta)
         xs = CopyToAxis.apply(x, pp).reshape(n_microbatches, mb, t,
@@ -253,8 +253,7 @@ def make_pp_llava_forward(mesh, model, n_microbatches: int,
         ys = []
         for k in range(n_steps):
             i = min(max(k - s, 0), n_microbatches - 1)
-            y = stage_apply(stages, _select(s == 0, xs[i], cur), rope, mask,
-                            pad)
+            y = stage_apply(stages, _select(s == 0, xs[i], cur), rope, prompt)
             ys.append(y)
             if k < n_steps - 1:
                 cur = ShiftAlongAxis.apply(y, pp)

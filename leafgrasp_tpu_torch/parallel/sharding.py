@@ -164,6 +164,10 @@ class ColumnParallel(nn.Module):
     base; ``lora_a`` stays whole on every rank, each rank's columns give
     part of its gradient, and that gradient sums over the axis."""
 
+    #: read by the VLA decode's graph route: a CUDA graph cannot hold the
+    #: gather's collective, so a model holding one decodes eagerly
+    graph_capturable = False
+
     def __init__(self, inner: nn.Module, axis: Axis):
         super().__init__()
         self.inner = inner

@@ -8,8 +8,7 @@ decoder (Moonlight, Kimi-VL) behind the same tower and projector, with
 latent attention (``vla/mla.py``) in every layer, a SwiGLU MLP in the
 first ``first_k_dense_replace`` layers and routed and shared experts
 (``vla/moe.py``) in the rest, served in the compute type (no LoRA, no
-quantization). Its caches are one latent tensor a layer, ``(b, total,
-kv_lora_rank + qk_rope_head_dim)``, in place of K and V.
+quantization), with a latent cache in place of K and V.
 
 Types follow the JAX module operation by operation, so that a bf16 run
 rounds where the JAX run rounds: a layer with a compute type casts its
@@ -27,13 +26,11 @@ The prompt pass of a long batched prompt has three routes, chosen as the
 JAX module chooses: ``"flash"`` (the CUDA kernel of
 ``kernels/flash_prefill``, with its backward kernels when autograd
 records; the plain versions for CPU tensors), the dense
-grouped einsum, and the same einsum over chunks of query rows. Caches
-are ``(b, total, kv_heads, hd)`` views of one tensor for all layers,
-written in place; the cache cursor is a Python int (the first slot of a
-prompt-sized pass, whose queries on the flash route are the key rows
-from it on), or on a decode step its slot as a tensor on the device.
-Pixel values are ``(B, H, W, 3)`` at every public function, as in the
-JAX package.
+grouped einsum, and the same einsum over chunks of query rows. Each
+decoder layer is told of its pass, its cache and the flash choice by a
+``vla/layers.py`` ``Pass``; caches are a ``KVCache``, views of one
+tensor for all layers, written in place. Pixel values are ``(B, H, W,
+3)`` at every public function, as in the JAX package.
 
 Greedy decode computes an image prefix that its rows share once
 (``greedy_generate_llava``'s shared route), and on a CUDA device
@@ -45,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -54,6 +51,11 @@ import torch.nn.functional as F
 from leafgrasp_tpu_torch.kernels import flash_prefill as _fp
 from leafgrasp_tpu_torch.utils.device import resolve_device
 from leafgrasp_tpu_torch.utils.profiler import span
+from leafgrasp_tpu_torch.vla import moe
+from leafgrasp_tpu_torch.vla.layers import (PROMPT, SHARED, STEP, KVCache,
+                                            Pass, _apply_rope, _Dense,
+                                            _matmul_f32, _rope_tables,
+                                            _RMSNorm)
 from leafgrasp_tpu_torch.vla.lora import LoRADense, PromotedLinear
 from leafgrasp_tpu_torch.vla.quant import QuantDense, QuantLoRADense
 
@@ -61,8 +63,6 @@ __all__ = ["LlavaTorchConfig", "LlavaTorch", "convert_hf_llava_state_dict",
            "config_from_hf", "attach_lora", "init_random_",
            "random_llava_state", "iter_random_llava_state",
            "causal_mask", "greedy_generate_llava"]
-
-FLASH_MIN_TOKENS = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +109,9 @@ class LlavaTorchConfig:
     # rows at a time, so the f32 scores are (b, heads, chunk, total) and
     # not (b, heads, t, t). None disables chunking.
     prefill_attn_chunk: Optional[int] = 512
-    # "chunked" (above) or "flash": prompts of at least 128 tokens with
-    # the causal-plus-left-pad mask of the generate functions and an
-    # inactive sliding window go through kernels/flash_prefill (on the
-    # card it raises for a head size or type its kernel lacks);
-    # everything else takes "chunked"
+    # "chunked" (above) or "flash": the passes that vla/layers.py
+    # Pass.flash admits go through kernels/flash_prefill (on the card it
+    # raises for a head size or type its kernel lacks), the rest chunked
     prefill_attn_impl: str = "chunked"
     # the decoder: "mistral" (the fields above) or "deepseek_v3" (the
     # fields below with ``hidden``, ``intermediate`` (the dense layers'
@@ -201,22 +199,6 @@ def config_from_hf(hf_config) -> "LlavaTorchConfig":
 
 # ------------------------------------------------------ typed primitives --
 
-class _Dense(nn.Linear):
-    """A projection with a compute type (Flax's ``nn.Dense(dtype=dt)``):
-    input, weight and bias cast to it. The language model's are
-    bias-free."""
-
-    def __init__(self, in_features, features, dt, bias: bool = False,
-                 **fk):
-        super().__init__(in_features, features, bias=bias, **fk)
-        self.compute_dtype = dt
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
-
-
 def _layer_norm(x, ln: nn.LayerNorm, dt: torch.dtype):
     """LayerNorm with statistics and affine in f32, result in ``dt``."""
     y = F.layer_norm(x.to(torch.float32), ln.normalized_shape,
@@ -227,13 +209,6 @@ def _layer_norm(x, ln: nn.LayerNorm, dt: torch.dtype):
 
 def _quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
-
-
-def _matmul_f32(eq: str, a, b):
-    """einsum with f32 accumulation AND an f32 result (the JAX einsum
-    with ``preferred_element_type=float32``): bf16 values are exact in
-    f32, so the products are exact either way."""
-    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
 
 
 def _einsum_promoted(eq: str, a, b):
@@ -358,85 +333,10 @@ def _proj(in_features: int, features: int, cfg: LlavaTorchConfig, **fk):
     return _Dense(in_features, features, cfg.torch_dtype, **fk)
 
 
-class _RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, **fk):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, **fk))
-
-    def forward(self, x):
-        xf = x.to(torch.float32)
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps)).to(x.dtype) * self.weight
-
-
-def _rope_tables(positions, d: int, theta: float):
-    """f32 cos and sin of the rotary angles, (..., T, 1, d): the same
-    for every layer of a pass, so a pass computes them once."""
-    half = d // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=positions.device)
-                             * 2.0 / d))
-    ang = positions[..., None].to(torch.float32) * freqs
-    cos = torch.cat([torch.cos(ang), torch.cos(ang)], dim=-1)[..., None, :]
-    sin = torch.cat([torch.sin(ang), torch.sin(ang)], dim=-1)[..., None, :]
-    return cos, sin
-
-
-def _apply_rope(x, cos, sin):
-    half = x.shape[-1] // 2
-    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    return (x * cos + rot * sin).to(x.dtype)
-
-
 def _rope_hf(x, positions, theta: float):
     """HF rotate_half convention: pairs split at half the head size.
     Angles, cos and sin are f32; the result is rounded to x's type once."""
     return _apply_rope(x, *_rope_tables(positions, x.shape[-1], theta))
-
-
-@dataclasses.dataclass
-class _SharedPrompt:
-    """A layer's cache on the prompt pass of rows that share an image
-    (``_generate_prefill_shared``), in place of (K, V, cursor). The pass
-    runs flat tokens, (1, n + rows * (t - n), ...): the n image tokens
-    once, then each row's slots [n, t). ``attend`` is the layer's
-    attention over them."""
-    caches: tuple                # the layer's: (K, V), or (latents,)
-    n: int
-    t: int
-    rows: int
-    runs: List[tuple]            # (lo, hi, p): rows lo .. hi - 1 of pad p
-    prefix_mask: torch.Tensor    # (1, 1, n, n)
-    prefix_pad: torch.Tensor     # (1,) zeros
-    text_mask: torch.Tensor      # (rows, 1, t - n, t)
-    pad: torch.Tensor            # (rows,)
-
-    def text(self, x):
-        """The flat tokens' text part as (rows, t - n, ...)."""
-        return x[0, self.n:].reshape(self.rows, self.t - self.n,
-                                     *x.shape[2:])
-
-    def attend(self, rows, attend):
-        """Writes what each flat token leaves in each cache (``rows``, one
-        a cache, (1, n + rows * (t - n), ...)): the prefix's into each
-        row's slots [pad, n), the text's into [n, t). Then attends the
-        prefix over its own and each row's text over its cache's first t
-        slots from its pad, at the cursor n, through the layer's
-        ``attend(part, keys, mask, pad, cursor)``, where ``part`` takes a
-        query tensor's prefix or text. Returns the flat tokens' output."""
-        n, t = self.n, self.t
-        rows = [row.to(cache.dtype) for cache, row in zip(self.caches, rows)]
-        for cache, row in zip(self.caches, rows):
-            for lo, hi, p in self.runs:
-                cache[lo:hi, p:n] = row[:, :n - p]
-            cache[:, n:t] = self.text(row)
-        out_p = attend(lambda x: x[:, :n], [row[:, :n] for row in rows],
-                       self.prefix_mask, self.prefix_pad, 0)
-        out_t = attend(self.text, [cache[:, :t] for cache in self.caches],
-                       self.text_mask, self.pad, n)
-        return torch.cat([out_p, out_t.reshape(1, -1, *out_t.shape[2:])],
-                         dim=1)
 
 
 class _MistralAttention(nn.Module):
@@ -449,46 +349,23 @@ class _MistralAttention(nn.Module):
         self.v_proj = _proj(cfg.hidden, cfg.kv_heads * hd, cfg, **fk)
         self.o_proj = _proj(cfg.heads * hd, cfg.hidden, cfg, **fk)
 
-    def forward(self, x, rope, mask, cache=None, pad=None):
+    def forward(self, x, rope, pass_: Pass):
         """``rope``: the (cos, sin) of ``_rope_tables`` for this pass's
-        positions. ``pad`` (b,) int32 is the caller's word that ``mask``
-        is exactly causal from the cache cursor (key <= cursor + query
-        row) AND key >= pad: only then may the flash route replace the
-        mask by the pad lengths and the cursor."""
+        positions; K and V are what a token leaves in the cache."""
         c = self.cfg
         hd = c.head_dim
         b, t = x.shape[:2]
         q = _apply_rope(self.q_proj(x).reshape(b, t, c.heads, hd), *rope)
         k = _apply_rope(self.k_proj(x).reshape(b, t, c.kv_heads, hd), *rope)
         v = self.v_proj(x).reshape(b, t, c.kv_heads, hd)
-        if isinstance(cache, _SharedPrompt):
-            out = cache.attend((k, v), lambda part, kv, mask, pad, cur:
-                               self._attend(part(q), *kv, mask, pad, cur,
-                                            x.dtype))
-            return self.o_proj(out.reshape(b, t, c.heads * hd)), cache
+        out = pass_.attend(lambda: (k, v), lambda part, kv, p: self._attend(
+            part(q), *kv, p, x.dtype))
+        return self.o_proj(out.reshape(b, t, c.heads * hd))
 
-        cur = 0
-        if cache is not None:
-            # written in place; under f32 parameters k may be wider than
-            # the cache: cast at the boundary. The cursor is the first
-            # slot as a Python int, or the (t,) slots as a tensor on the
-            # device, which a captured decode step reads at each replay
-            ck, cv, cur = cache
-            if isinstance(cur, torch.Tensor):
-                ck.index_copy_(1, cur, k.to(ck.dtype))
-                cv.index_copy_(1, cur, v.to(cv.dtype))
-            else:
-                ck[:, cur:cur + t] = k.to(ck.dtype)
-                cv[:, cur:cur + t] = v.to(cv.dtype)
-            k, v = ck, cv
-            cache = (ck, cv, cur + t)
-        out = self._attend(q, k, v, mask, pad, cur, x.dtype)
-        return self.o_proj(out.reshape(b, t, c.heads * hd)), cache
-
-    def _attend(self, q, k, v, mask, pad, cur, dt):
+    def _attend(self, q, k, v, p: Pass, dt):
         """(b, t, heads, hd) attention of the queries ``q`` (the key rows
-        from the cursor ``cur`` on) over the keys ``k``/``v`` under
-        ``mask``, by the configured route; probabilities in ``dt``."""
+        from the cursor ``p.cursor`` on) over the keys ``k``/``v`` under
+        ``p.mask``, by the configured route; probabilities in ``dt``."""
         c = self.cfg
         hd = c.head_dim
         t = q.shape[1]
@@ -513,14 +390,9 @@ class _MistralAttention(nn.Module):
             return out.reshape(bq, tq, c.heads, hd)
 
         tc = c.prefill_attn_chunk
-        head1_prefill_mask = (mask.dim() == 4 and mask.shape[1] == 1
-                              and mask.shape[2] == t)
+        mask = p.mask
         kernel_dt = torch.promote_types(q.dtype, k.dtype)
-        keys = None if isinstance(cur, torch.Tensor) else cur + t
-        if (c.prefill_attn_impl == "flash" and head1_prefill_mask
-                and pad is not None and keys is not None
-                and keys >= FLASH_MIN_TOKENS
-                and (c.sliding_window is None or keys <= c.sliding_window)):
+        if p.flash(c, t):
             # K/V go in as the cache holds them: kv_heads heads, the row
             # stride of the whole cache, the first cur + t rows read; the
             # queries are the key rows from the cursor on. On the card
@@ -530,8 +402,9 @@ class _MistralAttention(nn.Module):
             # autograd Function, and the gradient through the casts
             out = _fp.flash_prefill_trainable(q.to(kernel_dt),
                                               k.to(kernel_dt),
-                                              v.to(kernel_dt), pad, cur)
-        elif tc is None or t <= tc or not head1_prefill_mask:
+                                              v.to(kernel_dt), p.pad,
+                                              p.cursor)
+        elif tc is None or t <= tc or not p.one_head(t):
             # chunking assumes a head-dim-1 mask; a per-head mask takes
             # the exact unchunked path
             out = attend(q, mask)
@@ -557,13 +430,10 @@ class _MistralLayer(nn.Module):
         self.up_proj = _proj(cfg.hidden, cfg.intermediate, cfg, **fk)
         self.down_proj = _proj(cfg.intermediate, cfg.hidden, cfg, **fk)
 
-    def forward(self, x, rope, mask, cache=None, pad=None):
-        h, cache = self.self_attn(self.input_layernorm(x), rope, mask,
-                                  cache, pad)
-        x = x + h
+    def forward(self, x, rope, pass_: Pass):
+        x = x + self.self_attn(self.input_layernorm(x), rope, pass_)
         h = self.post_attention_layernorm(x)
-        x = x + self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
-        return x, cache
+        return x + self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
 
 
 class LlavaTorch(nn.Module):
@@ -694,8 +564,9 @@ class LlavaTorch(nn.Module):
                 logits_last_only: bool = False, pad=None):
         """input_ids: (B, T); pixel_values: (B, H, W, 3) or None (see
         ``embed``). ``mask`` None means causal (with the sliding window,
-        if any). ``pad``: see ``_MistralAttention``.
-        Returns (logits (B, T, vocab), caches)."""
+        if any). ``pad``: see ``Pass``. ``caches``: a ``KVCache`` that the
+        pass fills from slot 0, or None. Returns (logits (B, T, vocab),
+        caches)."""
         c = self.cfg
         x = self.embed(input_ids, pixel_values, image_features)
         b, t = input_ids.shape
@@ -704,22 +575,23 @@ class LlavaTorch(nn.Module):
             positions = torch.arange(t, device=dev).expand(b, t)
         if mask is None:
             mask, pad = causal_mask(c, b, t, dev)
+        x = self.decoder(x, positions, Pass(PROMPT, mask, pad, cache=caches))
+        return self.head(x, logits_last_only), caches
 
+    def decoder(self, x, positions, pass_: Pass):
+        """The decoder layers over the embedded ``x`` in ``pass_``: the
+        hidden states before the final norm."""
+        c = self.cfg
         rope = _rope_tables(positions, c.rope_dim, c.rope_theta)
-        new_caches = []
         for i, layer in enumerate(self.layers):
-            cache = caches[i] if caches is not None else None
-            x, nc = layer(x, rope, mask, cache, pad)
-            new_caches.append(nc)
-        logits = self.head(x, logits_last_only)
-        return logits, (new_caches if caches is not None else None)
+            x = layer(x, rope, pass_.at(i))
+        return x
 
 
 def _decoder_layer(cfg: LlavaTorchConfig, i: int, **fk) -> nn.Module:
     if not cfg.mla:
         return _MistralLayer(cfg, **fk)
-    from leafgrasp_tpu_torch.vla.moe import DeepseekLayer
-    return DeepseekLayer(cfg, i, **fk)
+    return moe.DeepseekLayer(cfg, i, **fk)
 
 
 def causal_mask(c: LlavaTorchConfig, b: int, t: int, dev):
@@ -904,89 +776,55 @@ def attach_lora(model: LlavaTorch, state: Dict[str, Any],
 CACHE_QUANTUM = 64
 
 
-def _cache_store(c: LlavaTorchConfig, b: int, total: int, dev):
-    """Every layer's cache as one zeroed tensor: K and V of the Mistral
-    decoder, (layers, 2, b, total, kv_heads, hd), or the latents of latent
-    attention, (layers, b, total, kv_lora_rank + rope)."""
-    shape = (c.layers, b, total, c.kv_lora_rank + c.qk_rope_head_dim) \
-        if c.mla else (c.layers, 2, b, total, c.kv_heads, c.head_dim)
-    return torch.zeros(shape, dtype=c.torch_dtype, device=dev)
-
-
-def _layer_caches(kv) -> List:
-    """A cache a layer, views of ``_cache_store``'s tensor ``kv``: (K, V,
-    cursor 0) of the Mistral decoder, (latent, None, cursor 0) of latent
-    attention."""
-    if kv.dim() == 4:
-        return [(kv[i], None, 0) for i in range(kv.shape[0])]
-    return [(kv[i, 0], kv[i, 1], 0) for i in range(kv.shape[0])]
-
-
-def _new_caches(c: LlavaTorchConfig, b: int, total: int, dev) -> List:
-    """Zeroed caches of ``total`` slots, a (K, V, cursor) or (latent,
-    None, cursor) a layer."""
-    return _layer_caches(_cache_store(c, b, total, dev))
-
-
-def _slots(kv, lo: int, n: int):
-    """Slots lo .. lo + n - 1 of every row and layer in ``kv``."""
-    return kv.narrow(2 if kv.dim() == 4 else 3, lo, n)
-
-
-def _expert_pairs(model: LlavaTorch):
-    """For a decoder with experts, each expert layer's routed pairs an
-    expert in its last pass (``moe.expert_pairs``); else None."""
-    if not model.cfg.mla:
-        return None
-    from leafgrasp_tpu_torch.vla.moe import expert_pairs
-    return expert_pairs(model)
+def _slot_mask(c: LlavaTorchConfig, q, k, pad=None):
+    """(1 or b, 1, queries, keys) bool: the key slots ``k`` at or before
+    each query slot ``q``, within the sliding window, if any, and with
+    ``pad`` (b,) at or after the row's pad."""
+    mask = k[None, :] <= q[:, None]
+    if c.sliding_window is not None:
+        # pad is a shared prefix, so absolute distance == pad-relative
+        mask = mask & (q[:, None] - k[None, :] < c.sliding_window)
+    if pad is None:
+        return mask[None, None]
+    return mask[None, None] & (k[None, None, None, :]
+                               >= pad[:, None, None, None])
 
 
 def _generate_prefill(model: LlavaTorch, input_ids, pad, pixel_values,
-                      image_features, caches):
-    """Prompt pass: fill ``caches`` (in the compute type, zero past the
-    prompt; their length is the key axis), return the first greedy
-    token."""
+                      image_features, cache: KVCache):
+    """Prompt pass: fill ``cache`` (in the compute type, zero past the
+    prompt; its capacity is the key axis). Returns the first greedy token
+    and the pass."""
     c = model.cfg
     dev = input_ids.device
     t = input_ids.shape[1]
-    total = caches[0][0].shape[1]
-    positions = torch.clamp(torch.arange(t, device=dev)[None, :]
-                            - pad[:, None], min=0)
-    mask = torch.tril(torch.ones((t, total), dtype=torch.bool, device=dev))
-    if c.sliding_window is not None:
-        # pad is a shared prefix, so absolute distance == pad-relative
-        qi = torch.arange(t, device=dev)[:, None]
-        ki = torch.arange(total, device=dev)[None, :]
-        mask = mask & (qi - ki < c.sliding_window)
-    mask = mask[None, None] \
-        & (torch.arange(total, device=dev)[None, None, None, :]
-           >= pad[:, None, None, None])
-    logits, caches = model(input_ids, pixel_values=pixel_values,
-                           image_features=image_features,
-                           positions=positions, mask=mask, caches=caches,
-                           logits_last_only=True, pad=pad)
-    return torch.argmax(logits[:, -1, :], dim=-1), caches
+    slot = torch.arange(cache.capacity, device=dev)
+    positions = torch.clamp(slot[None, :t] - pad[:, None], min=0)
+    prompt = Pass(PROMPT, _slot_mask(c, slot[:t], slot, pad), pad,
+                  cache=cache)
+    x = model.decoder(model.embed(input_ids, pixel_values, image_features),
+                      positions, prompt)
+    logits = model.head(x, logits_last_only=True)
+    return torch.argmax(logits[:, -1, :], dim=-1), prompt
 
 
 def _generate_prefill_shared(model: LlavaTorch, input_ids, pad, pads,
-                             image_features, kv):
+                             image_features, cache: KVCache):
     """The prompt pass of rows that share one image, into the zeroed
-    store ``kv``: ``image_features`` (1, N, hidden) are the N tokens that
+    ``cache``: ``image_features`` (1, N, hidden) are the N tokens that
     follow each row's pad (``pads``, ``pad`` on the host).
 
     One pass over flat tokens: the N image tokens once, then every row's
     slots [N, t). Each layer runs the token-wise work once over them and
     writes the prefix's K/V (latents) into each row's slots [pad_r, N)
-    and the text's into [N, t) (``_SharedPrompt``); its attention runs
+    and the text's into [N, t) (a ``SHARED`` ``Pass``); its attention runs
     the prefix over itself and the text over each row's keys from its
     pad, at cache cursor N. A row's slots from N start with its last
     pad_r image tokens (features N - pad_r on), which it recomputes:
     their features go in in that order.
 
-    The slots before each row's pad stay as ``kv`` held them. Returns the
-    first greedy token, the caches and, for a decoder with experts, the
-    routed pairs of the pass (else None)."""
+    The slots before each row's pad stay as ``cache`` held them. Returns
+    the first greedy token and the pass."""
     c = model.cfg
     dev = input_ids.device
     b, t = input_ids.shape
@@ -1013,57 +851,41 @@ def _generate_prefill_shared(model: LlavaTorch, input_ids, pad, pads,
     text = slot[n:]
     positions = torch.cat([slot[:n], torch.clamp(
         text[None, :] - pad[:, None], min=0).reshape(-1)])[None]
-    rope = _rope_tables(positions, c.rope_dim, c.rope_theta)
-    prefix_mask = slot[None, :n] <= slot[:n, None]
-    text_mask = slot[None, :] <= text[:, None]
-    if c.sliding_window is not None:
-        # pad is a shared prefix, so absolute distance == pad-relative
-        prefix_mask = prefix_mask \
-            & (slot[:n, None] - slot[None, :n] < c.sliding_window)
-        text_mask = text_mask \
-            & (text[:, None] - slot[None, :] < c.sliding_window)
-    shared = _SharedPrompt(
-        (), n, t, b, runs, prefix_mask[None, None],
-        torch.zeros((1,), dtype=torch.int32, device=dev),
-        text_mask[None, None]
-        & (slot[None, None, None, :] >= pad[:, None, None, None]), pad)
-    caches = _layer_caches(kv)
-    for layer, (ck, cv, _) in zip(model.layers, caches):
-        x, _ = layer(x, rope, None, dataclasses.replace(
-            shared, caches=(ck,) if cv is None else (ck, cv)), pad)
-    logits = model.head(shared.text(x), logits_last_only=True)
-    return torch.argmax(logits[:, -1, :], dim=-1), caches, \
-        _expert_pairs(model)
+    shared = Pass(
+        SHARED, cache=cache, n=n, t=t, runs=runs,
+        prefix=Pass(SHARED, _slot_mask(c, slot[:n], slot[:n]), torch.zeros(
+            (1,), dtype=torch.int32, device=dev)),
+        text=Pass(SHARED, _slot_mask(c, text, slot, pad), pad, cursor=n))
+    x = model.decoder(x, positions, shared)
+    logits = model.head(shared.text_rows(x), logits_last_only=True)
+    return torch.argmax(logits[:, -1, :], dim=-1), shared
 
 
-def _generate_decode_step(model: LlavaTorch, caches, last, pad, step_i: int,
-                          prompt_len):
-    """One decode token against the caches (written in place).
+def _generate_decode_step(model: LlavaTorch, cache: KVCache, last, pad,
+                          step_i: int, prompt_len):
+    """One decode token against ``cache`` (written in place).
     ``prompt_len`` is a 0-d int64 tensor on the device: the rotary
     positions, the slot written and the key mask come from it, so a
-    captured step serves any prompt that fits the caches. ``step_i`` is a
+    captured step serves any prompt that fits the cache. ``step_i`` is a
     Python int."""
     c = model.cfg
     dev = last.device
     pos = prompt_len + step_i
     positions = (pos - pad)[:, None]
-    key_idx = torch.arange(caches[0][0].shape[1], device=dev)
-    mask = (key_idx[None, :] <= pos) & (key_idx[None, :] >= pad[:, None])
-    if c.sliding_window is not None:
-        mask = mask & (pos - key_idx[None, :] < c.sliding_window)
-    mask = mask[:, None, None, :]
     slot = pos.reshape(1)
-    logits, _ = model(last[:, None], positions=positions, mask=mask,
-                      caches=[(ck, cv, slot) for ck, cv, _ in caches])
-    return torch.argmax(logits[:, -1, :], dim=-1)
+    step = Pass(STEP, _slot_mask(c, slot, torch.arange(
+        cache.capacity, device=dev), pad), cursor=slot, cache=cache)
+    x = model.decoder(model.embed(last[:, None]), positions, step)
+    return torch.argmax(model.head(x)[:, -1, :], dim=-1)
 
 
-def _decode_steps(model: LlavaTorch, caches, last, pad, prompt_len, n: int):
+def _decode_steps(model: LlavaTorch, cache: KVCache, last, pad, prompt_len,
+                  n: int):
     """The ``n`` greedy tokens after ``last``, (b, n) int64: the loop that
     the graph route captures and the eager route runs."""
     toks = []
     for i in range(n):
-        last = _generate_decode_step(model, caches, last, pad, i, prompt_len)
+        last = _generate_decode_step(model, cache, last, pad, i, prompt_len)
         toks.append(last)
     if not toks:
         return last.new_zeros((last.shape[0], 0))
@@ -1072,21 +894,18 @@ def _decode_steps(model: LlavaTorch, caches, last, pad, prompt_len, n: int):
 
 class _DecodeGraph:
     """The decode loop of one (rows, capacity, steps), captured once as a
-    CUDA graph over static caches (``kv``: (layers, 2, rows, capacity,
-    kv_heads, hd), or the latent caches (layers, rows, capacity, width))
-    and static inputs, and replayed by every later call of that shape."""
+    CUDA graph over a static ``cache`` and static inputs, and replayed by
+    every later call of that shape."""
 
-    def __init__(self, model: LlavaTorch, kv, n: int, pool):
-        dev = kv.device
-        b = kv.shape[1 if kv.dim() == 4 else 2]
-        self.kv = kv
-        self.caches = _layer_caches(kv)
+    def __init__(self, model: LlavaTorch, cache: KVCache, n: int, pool):
+        dev, b = cache.data.device, cache.rows
+        self.cache = cache
         self.last = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.pad = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.prompt_len = torch.zeros((), dtype=torch.int64, device=dev)
 
         def loop():
-            return _decode_steps(model, self.caches, self.last, self.pad,
+            return _decode_steps(model, cache, self.last, self.pad,
                                  self.prompt_len, n)
 
         # warm up on the capture's stream (cuBLAS's and the allocator's
@@ -1115,7 +934,7 @@ class _DecodeGraph:
 
 
 class _DecodeGraphs:
-    """What the graph route keeps with a model: K/V buffers for each
+    """What the graph route keeps with a model: a ``KVCache`` for each
     (rows, capacity, compute type), a captured loop on them for each
     number of steps, one memory pool for the graphs, and the addresses
     of the parameters they were captured on. A graph reads the weights
@@ -1123,7 +942,7 @@ class _DecodeGraphs:
     everything is captured anew."""
 
     def __init__(self):
-        self.kv: Dict[tuple, torch.Tensor] = {}
+        self.caches: Dict[tuple, KVCache] = {}
         self.graphs: Dict[tuple, _DecodeGraph] = {}
         self.pool = torch.cuda.graph_pool_handle()
         self.params: tuple = ()
@@ -1133,7 +952,7 @@ class _DecodeGraphs:
         captured it, else "replayed")."""
         params = tuple(p.data_ptr() for p in model.parameters())
         if params != self.params:
-            self.kv.clear()
+            self.caches.clear()
             self.graphs.clear()
             self.params = params
         c = model.cfg
@@ -1141,23 +960,22 @@ class _DecodeGraphs:
         graph = self.graphs.get((*key, n))
         if graph is not None:
             return graph, "replayed"
-        if key not in self.kv:
-            self.kv[key] = _cache_store(c, b, cap, model.device)
+        if key not in self.caches:
+            self.caches[key] = KVCache(c, b, cap, model.device)
         with span("vla_graph_capture"):
-            graph = _DecodeGraph(model, self.kv[key], n, self.pool)
+            graph = _DecodeGraph(model, self.caches[key], n, self.pool)
         self.graphs[(*key, n)] = graph
         return graph, "captured"
 
 
 def _decode_graphs(model: LlavaTorch, dev) -> Optional[_DecodeGraphs]:
     """The model's graph store where its decode replays a CUDA graph: on
-    a CUDA device, for a model without the tensor-parallel projections
-    that ``parallel/sharding.py`` ``tensor_parallel_`` installs (a capture
-    cannot hold their collectives). None where the steps run eagerly."""
-    if dev.type != "cuda":
-        return None
-    from leafgrasp_tpu_torch.parallel.sharding import ColumnParallel
-    if any(isinstance(m, ColumnParallel) for m in model.modules()):
+    a CUDA device, for a model none of whose modules says
+    ``graph_capturable = False`` (as the tensor-parallel projections of
+    ``parallel/sharding.py`` do: a capture cannot hold their
+    collectives). None where the steps run eagerly."""
+    if dev.type != "cuda" or not all(getattr(m, "graph_capturable", True)
+                                     for m in model.modules()):
         return None
     store = getattr(model, "_decode_graphs", None)
     if store is None:
@@ -1240,30 +1058,29 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
         ev[0].record()
     with span("vla_prefill"):
         if graph is None:
-            kv = _cache_store(model.cfg, b, t + max_new_tokens, dev)
+            cache = KVCache(model.cfg, b, t + max_new_tokens, dev)
         else:                       # what the last call left: zero it
-            kv = graph.kv
-            _slots(kv, t, cap - t).zero_()
+            cache = graph.cache
+            cache.zero_(t, cap - t)
         if shared:
             pads = [0] * b if pad_lens is None else \
                 [int(p) for p in torch.as_tensor(pad_lens).tolist()]
             if graph is not None and max(pads) > 0:
-                _slots(kv, 0, max(pads)).zero_()
-            first, caches, pairs = _generate_prefill_shared(
-                model, input_ids, pad, pads, image_features, kv)
+                cache.zero_(0, max(pads))
+            first, prompt = _generate_prefill_shared(
+                model, input_ids, pad, pads, image_features, cache)
         else:
-            first, caches = _generate_prefill(model, input_ids, pad,
+            first, prompt = _generate_prefill(model, input_ids, pad,
                                               pixel_values, image_features,
-                                              _layer_caches(kv))
-            pairs = _expert_pairs(model)
-        if timings is not None and pairs is not None:
-            from leafgrasp_tpu_torch.vla.moe import moe_load
-            timings["moe_load"] = moe_load(pairs)
+                                              cache)
+        if timings is not None and prompt.routed:
+            timings["moe_load"] = moe.moe_load(moe.expert_pairs(
+                prompt.routed))
     if timed:
         ev[1].record()
     with span("vla_decode"):
         if graph is None:
-            steps = _decode_steps(model, caches, first, pad,
+            steps = _decode_steps(model, cache, first, pad,
                                   torch.full((), t, dtype=torch.int64,
                                              device=dev), n)
         else:

@@ -15,18 +15,17 @@ rotate-half rotation. A layer's cache is one tensor, (b, total,
 kv_lora_rank + rope): the normalised latent and the rotated k_r of each
 token, shared by every head.
 
-The prompt pass (a cache cursor of 0, or no cache) expands the latent to
-per-head K (nope + rope) and V and attends over the prompt. On the
-shared route of rows that share an image (``_SharedPrompt``) a layer
-expands twice: the prefix's own latents, and each row's cached latents
-for its text, whose queries sit at the prefix's offset on the key axis.
-Both go through ``kernels/flash_prefill`` (its split-head instantiation
-on the card) on the ``"flash"`` route, else its plain version or a
-masked einsum. Any other pass (a decode step, whose cursor is a tensor
-on the device) takes the absorbed form over the whole cache:
-``kv_b_proj``'s key half folded into the query, its value half applied
-after the sum, so that every head reads the one shared latent; scores
-and sums in f32.
+The form follows the pass's kind (``vla/layers.py`` ``Pass``). A prompt
+pass expands its own latents to per-head K (nope + rope) and V and
+attends over the prompt. On the shared route of rows that share an image
+a layer expands twice: the prefix's latents as cached, and each row's
+cached latents for its text, whose queries sit at the prefix's offset on
+the key axis. Both go through ``kernels/flash_prefill`` (its split-head
+instantiation on the card) on the ``"flash"`` route, else its plain
+version or a masked einsum. A decode step takes the absorbed form over
+the whole cache: ``kv_b_proj``'s key half folded into the query, its
+value half applied after the sum, so that every head reads the one
+shared latent; scores and sums in f32.
 """
 
 from __future__ import annotations
@@ -37,10 +36,8 @@ import torch
 from torch import nn
 
 from leafgrasp_tpu_torch.kernels import flash_prefill as _fp
-from leafgrasp_tpu_torch.vla.llava_torch import (FLASH_MIN_TOKENS,
-                                                 LlavaTorchConfig, _Dense,
-                                                 _RMSNorm, _SharedPrompt,
-                                                 _apply_rope, _matmul_f32)
+from leafgrasp_tpu_torch.vla.layers import (PROMPT, STEP, Pass, _apply_rope,
+                                            _Dense, _matmul_f32, _RMSNorm)
 
 __all__ = ["MLAttention", "deinterleave"]
 
@@ -63,7 +60,7 @@ def _attend_masked(q, k, v, mask, scale: float):
 
 
 class MLAttention(nn.Module):
-    def __init__(self, cfg: LlavaTorchConfig, **fk):
+    def __init__(self, cfg, **fk):
         super().__init__()
         self.cfg = cfg
         dt = cfg.torch_dtype
@@ -77,9 +74,9 @@ class MLAttention(nn.Module):
         self.kv_b_proj = _Dense(r, h * (dn + dv), dt, **fk)
         self.o_proj = _Dense(h * dv, cfg.hidden, dt, **fk)
 
-    def forward(self, x, rope, mask, cache=None, pad=None):
-        """As ``_MistralAttention.forward``; ``cache`` is (latent, None,
-        cursor)."""
+    def forward(self, x, rope, pass_: Pass):
+        """As ``_MistralAttention.forward``; what a token leaves in the
+        cache is ``_cache_row``."""
         c = self.cfg
         h, r = c.heads, c.kv_lora_rank
         dn, dr, dv = c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
@@ -91,57 +88,44 @@ class MLAttention(nn.Module):
         ckv = self.kv_a_proj_with_mqa(x)
         lat = self.kv_a_layernorm(ckv[..., :r])
         k_rope = _apply_rope(deinterleave(ckv[..., None, r:]), *rope)
-        if isinstance(cache, _SharedPrompt):
-            def attend(part, keys, mask, pad, cur):
-                lk = keys[0]
-                return self._expanded(part(q_nope), part(q_rope),
-                                      lk[..., :r], lk[..., None, r:], mask,
-                                      pad, cur, scale)
-            out = cache.attend((self._cache_row(ckv, lat, k_rope),), attend)
-            return self.o_proj(out.reshape(b, t, h * dv)), cache
 
-        cur = 0
-        if cache is not None:
-            lc, _, cur = cache
-            row = self._cache_row(ckv, lat, k_rope).to(lc.dtype)
-            if isinstance(cur, torch.Tensor):
-                lc.index_copy_(1, cur, row)
-            else:
-                lc[:, cur:cur + t] = row
-            cache = (lc, None, cur + t)
-            if isinstance(cur, torch.Tensor) or cur != 0:
-                out = self._absorbed(q_nope, q_rope, lc, mask, scale)
-                return self.o_proj(out.reshape(b, t, h * dv)), cache
-        out = self._expanded(q_nope, q_rope, lat, k_rope, mask, pad, 0,
-                             scale)
-        return self.o_proj(out.reshape(b, t, h * dv)), cache
+        def attend(part, keys, p: Pass):
+            if p.kind == STEP:
+                return self._absorbed(q_nope, q_rope, keys[0], p.mask, scale)
+            if p.kind == PROMPT:     # its own latents, not their cast
+                return self._expanded(q_nope, q_rope, lat, k_rope, p, scale)
+            lk = keys[0]
+            return self._expanded(part(q_nope), part(q_rope), lk[..., :r],
+                                  lk[..., None, r:], p, scale)
 
-    def _expanded(self, q_nope, q_rope, lat, k_rope, mask, pad, cur, scale):
+        out = pass_.attend(lambda: (self._cache_row(ckv, lat, k_rope),),
+                           attend)
+        return self.o_proj(out.reshape(b, t, h * dv))
+
+    def _expanded(self, q_nope, q_rope, lat, k_rope, p: Pass, scale):
         """(b, t, heads, v) attention of the queries (the key rows from
-        the cursor ``cur`` on) over the keys' latents ``lat`` (b, cur + t,
-        rank) and rotated ``k_rope`` expanded to per-head K and V."""
+        the cursor ``p.cursor`` on) over the keys' latents ``lat`` (b,
+        cursor + t, rank) and rotated ``k_rope`` expanded to per-head K
+        and V."""
         c = self.cfg
         h, dn, dr, dv = c.heads, c.qk_nope_head_dim, c.qk_rope_head_dim, \
             c.v_head_dim
         b, t = q_nope.shape[:2]
-        s = cur + t
+        s = p.cursor + t
         kv = self.kv_b_proj(lat).reshape(b, s, h, dn + dv)
         k = torch.cat([kv[..., :dn], k_rope.expand(b, s, h, dr)
                        .to(kv.dtype)], dim=-1)
         qq = torch.cat([q_nope, q_rope.to(q_nope.dtype)], dim=-1)
         v = kv[..., dn:]
-        mask = mask[..., :s]
-        pure = pad is not None and mask.dim() == 4 and mask.shape[1] == 1 \
-            and mask.shape[2] == t
-        if pure and c.prefill_attn_impl == "flash" and s >= FLASH_MIN_TOKENS:
+        if p.flash(c, t):
             # on the card the split-head kernel (q/k 192, v 128 in bf16);
             # it raises for sizes or types it lacks
-            out = _fp.flash_prefill(qq, k, v, pad, cur)
-        elif pure:
-            out = _fp.flash_prefill_plain(qq, k, v, pad, cur,
+            out = _fp.flash_prefill(qq, k, v, p.pad, p.cursor)
+        elif p.causal(t):
+            out = _fp.flash_prefill_plain(qq, k, v, p.pad, p.cursor,
                                           chunk=c.prefill_attn_chunk)
         else:
-            out = _attend_masked(qq, k, v, mask, scale)
+            out = _attend_masked(qq, k, v, p.mask[..., :s], scale)
         return out
 
     def _cache_row(self, ckv, lat, k_rope):

@@ -14,26 +14,22 @@ the host, so a prompt pass does not stall and a decode step can be
 captured in a CUDA graph.
 
 A layer of the first ``first_k_dense_replace`` is a dense SwiGLU of
-``intermediate``; every later layer has experts. The prompt pass times
-each layer's attention and experts under the spans ``mla`` and ``moe``
-(a decode step, whose cache cursor is a tensor, records none); an expert
-layer keeps the last pass's pair count of each expert on the device
-(``last_counts``), which ``expert_pairs`` gathers and ``moe_load`` turns
-into the load of a pass, or of the passes of one prompt summed.
+``intermediate``; every later layer has experts. An expert layer adds
+its pair count of each expert, on the device, to its pass's ``routed``
+(``vla/layers.py`` ``Pass``), which ``expert_pairs`` stacks and
+``moe_load`` turns into the load of the pass.
 """
 
 from __future__ import annotations
 
-import contextlib
+from typing import Optional
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from leafgrasp_tpu_torch.kernels import moe_experts as _moe
-from leafgrasp_tpu_torch.utils.profiler import span
-from leafgrasp_tpu_torch.vla.llava_torch import (LlavaTorchConfig, _Dense,
-                                                 _RMSNorm)
+from leafgrasp_tpu_torch.vla.layers import Pass, _Dense, _RMSNorm
 from leafgrasp_tpu_torch.vla.mla import MLAttention
 
 __all__ = ["Router", "Experts", "SwiGLU", "MoE", "DeepseekLayer",
@@ -57,7 +53,7 @@ class Router(nn.Module):
     """DeepSeek-V3's gate: ``forward(x)`` -> (ids (T, k) int64, weights
     (T, k) f32)."""
 
-    def __init__(self, cfg: LlavaTorchConfig, **fk):
+    def __init__(self, cfg, **fk):
         super().__init__()
         self.cfg = cfg
         self.weight = nn.Parameter(torch.empty(
@@ -81,7 +77,7 @@ class Experts(nn.Module):
     """The routed experts' SwiGLU weights, stacked: ``gate_proj`` and
     ``up_proj`` (E, width, hidden), ``down_proj`` (E, hidden, width)."""
 
-    def __init__(self, cfg: LlavaTorchConfig, **fk):
+    def __init__(self, cfg, **fk):
         super().__init__()
         e, w, h = cfg.n_routed_experts, cfg.moe_intermediate_size, cfg.hidden
         self.gate_proj = nn.Parameter(torch.empty((e, w, h), **fk))
@@ -90,7 +86,7 @@ class Experts(nn.Module):
 
 
 class MoE(nn.Module):
-    def __init__(self, cfg: LlavaTorchConfig, **fk):
+    def __init__(self, cfg, **fk):
         super().__init__()
         self.cfg = cfg
         self.gate = Router(cfg, **fk)
@@ -98,16 +94,18 @@ class MoE(nn.Module):
         self.shared_experts = SwiGLU(
             cfg.hidden, cfg.moe_intermediate_size * cfg.n_shared_experts,
             cfg.torch_dtype, **fk)
-        self.last_counts = None
 
-    def forward(self, x):
+    def forward(self, x, pairs: Optional[list] = None):
+        """``pairs``, where given, receives the call's routed pairs an
+        expert, (experts,) on the device."""
         c = self.cfg
         dt = c.torch_dtype
         b, t, hidden = x.shape
         flat = x.reshape(b * t, hidden).to(dt)
         ids, w = self.gate(flat)
         counts = _moe.expert_counts(ids, c.n_routed_experts)
-        self.last_counts = counts
+        if pairs is not None:
+            pairs.append(counts)
         ex = self.experts
         routed = _moe.moe_experts(flat, ids, w, ex.gate_proj.to(dt),
                                   ex.up_proj.to(dt), ex.down_proj.to(dt),
@@ -119,7 +117,7 @@ class DeepseekLayer(nn.Module):
     """Pre-norm residual layer: latent attention, then a dense SwiGLU
     (``i < first_k_dense_replace``) or the experts."""
 
-    def __init__(self, cfg: LlavaTorchConfig, i: int, **fk):
+    def __init__(self, cfg, i: int, **fk):
         super().__init__()
         self.input_layernorm = _RMSNorm(cfg.hidden, cfg.rms_eps, **fk)
         self.self_attn = MLAttention(cfg, **fk)
@@ -129,23 +127,18 @@ class DeepseekLayer(nn.Module):
                           **fk) if i < cfg.first_k_dense_replace \
             else MoE(cfg, **fk)
 
-    def forward(self, x, rope, mask, cache=None, pad=None):
-        step = isinstance(cache, tuple) and isinstance(cache[2], torch.Tensor)
-        timed = (lambda _: contextlib.nullcontext()) if step else span
-        with timed("mla"):
-            h, cache = self.self_attn(self.input_layernorm(x), rope, mask,
-                                      cache, pad)
-        x = x + h
-        with timed("moe"):
-            x = x + self.mlp(self.post_attention_layernorm(x))
-        return x, cache
+    def forward(self, x, rope, pass_: Pass):
+        x = x + self.self_attn(self.input_layernorm(x), rope, pass_)
+        h = self.post_attention_layernorm(x)
+        if isinstance(self.mlp, MoE):
+            return x + self.mlp(h, pass_.routed)
+        return x + self.mlp(h)
 
 
-def expert_pairs(model) -> torch.Tensor:
-    """(expert layers, experts) f32 on the device: each expert layer's
-    routed pairs an expert in its last pass."""
-    return torch.stack([layer.mlp.last_counts for layer in model.layers
-                        if isinstance(layer.mlp, MoE)]).to(torch.float32)
+def expert_pairs(routed: list) -> torch.Tensor:
+    """(expert layers, experts) f32 on the device: the routed pairs an
+    expert that each expert layer added to a pass's ``routed``."""
+    return torch.stack(routed).to(torch.float32)
 
 
 def moe_load(pairs: torch.Tensor) -> torch.Tensor:

@@ -1189,14 +1189,14 @@ def _uncaptured_tokens(model, ids, pad, n_new):
     into fresh caches of the graph route's capacity, then the same step
     function, run eagerly."""
     from leafgrasp_tpu_torch.vla import llava_torch as tl
+    from leafgrasp_tpu_torch.vla.layers import KVCache
     b, t = ids.shape
     cap = -(-(t + n_new) // tl.CACHE_QUANTUM) * tl.CACHE_QUANTUM
-    caches = tl._new_caches(model.cfg, b, cap, ids.device)
+    cache = KVCache(model.cfg, b, cap, ids.device)
     with torch.no_grad():
-        first, caches = tl._generate_prefill(model, ids, pad, None, None,
-                                             caches)
+        first, _ = tl._generate_prefill(model, ids, pad, None, None, cache)
         steps = tl._decode_steps(
-            model, caches, first, pad,
+            model, cache, first, pad,
             torch.full((), t, dtype=torch.int64, device=ids.device),
             n_new - 1)
     return torch.cat([first[:, None], steps], dim=1).to(torch.int32)
@@ -1446,6 +1446,7 @@ def test_moe_prefill_and_decode_step_never_synchronize(cuda):
     ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the
     card (after one warm-up pass that builds the kernels)."""
     from leafgrasp_tpu_torch.vla import llava_torch as tl
+    from leafgrasp_tpu_torch.vla.layers import KVCache
     model = _graph_moe_llava(cuda)
     b, t = 5, 140
     ids = torch.randint(1, 200, (b, t), device=cuda)
@@ -1453,10 +1454,9 @@ def test_moe_prefill_and_decode_step_never_synchronize(cuda):
     prompt_len = torch.full((), t, dtype=torch.int64, device=cuda)
 
     def passes():
-        caches = tl._new_caches(model.cfg, b, 192, cuda)
-        first, caches = tl._generate_prefill(model, ids, pad, None, None,
-                                             caches)
-        return tl._generate_decode_step(model, caches, first, pad, 0,
+        cache = KVCache(model.cfg, b, 192, cuda)
+        first, _ = tl._generate_prefill(model, ids, pad, None, None, cache)
+        return tl._generate_decode_step(model, cache, first, pad, 0,
                                         prompt_len)
 
     with torch.no_grad():
@@ -1555,14 +1555,15 @@ def _uncaptured_shared_tokens(model, ids, pad, pads, feats, n_new):
     fresh store of the graph route's capacity, then the step function,
     run eagerly."""
     from leafgrasp_tpu_torch.vla import llava_torch as tl
+    from leafgrasp_tpu_torch.vla.layers import KVCache
     b, t = ids.shape
     cap = -(-(t + n_new) // tl.CACHE_QUANTUM) * tl.CACHE_QUANTUM
-    kv = tl._cache_store(model.cfg, b, cap, ids.device)
+    cache = KVCache(model.cfg, b, cap, ids.device)
     with torch.no_grad():
-        first, caches, _ = tl._generate_prefill_shared(model, ids, pad, pads,
-                                                       feats, kv)
+        first, _ = tl._generate_prefill_shared(model, ids, pad, pads, feats,
+                                               cache)
         steps = tl._decode_steps(
-            model, caches, first, pad,
+            model, cache, first, pad,
             torch.full((), t, dtype=torch.int64, device=ids.device),
             n_new - 1)
     return torch.cat([first[:, None], steps], dim=1).to(torch.int32)
@@ -1616,15 +1617,16 @@ def test_shared_prefix_route_never_synchronizes(cuda, decoder):
     ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the
     card (after one warm-up that builds the kernels)."""
     from leafgrasp_tpu_torch.vla import llava_torch as tl
+    from leafgrasp_tpu_torch.vla.layers import KVCache
     model = _graph_llava(cuda, False) if decoder == "mistral" \
         else _graph_moe_llava(cuda)
     ids, pad, pads, feats = _shared_prefix_inputs(cuda, model, 140,
                                                   (20, 9, 31, 2, 14), 30)
 
     def prefill():
-        kv = tl._cache_store(model.cfg, ids.shape[0], 256, cuda)
+        cache = KVCache(model.cfg, ids.shape[0], 256, cuda)
         return tl._generate_prefill_shared(model, ids, pad, pads, feats,
-                                           kv)[0]
+                                           cache)[0]
 
     with torch.no_grad():
         prefill()
@@ -1650,8 +1652,8 @@ def test_checkpoint_scorer_in_f32_shares_the_image_prefix_on_card(cuda,
     from leafgrasp_tpu_torch.vla.checkpoint_io import (
         load_llava_checkpoint, write_synthetic_llava_checkpoint)
     from leafgrasp_tpu_torch.vla.llava_runtime import LlavaTorchScorer
-    from leafgrasp_tpu_torch.vla.llava_torch import (FLASH_MIN_TOKENS,
-                                                     LlavaTorchConfig)
+    from leafgrasp_tpu_torch.vla.layers import FLASH_MIN_TOKENS
+    from leafgrasp_tpu_torch.vla.llava_torch import LlavaTorchConfig
     cfg = LlavaTorchConfig(
         vis_hidden=64, vis_intermediate=128, vis_layers=2, vis_heads=2,
         image_size=112, patch_size=14, vocab_size=256, hidden=256,

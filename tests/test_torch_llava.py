@@ -34,6 +34,7 @@ from leafgrasp_tpu_torch.vla import convert
 from leafgrasp_tpu_torch.vla import llava_next as tn
 from leafgrasp_tpu_torch.vla import llava_runtime as tr
 from leafgrasp_tpu_torch.vla import llava_torch as tl
+from leafgrasp_tpu_torch.vla.layers import PROMPT, KVCache, Pass
 
 RTOL, ATOL = 1e-4, 1e-5
 BF16_ATOL = 0.15
@@ -145,27 +146,26 @@ def test_mistral_layer_matches_jax(with_cache):
     total = 14
     x, positions, mask, _ = _layer_io(4, total=total)
     b, t = x.shape[:2]
-    jcache = tcache = None
+    jcache, tcache = None, ()
     if with_cache:
         shape = (b, total, 2, 16)
         jcache = (jnp.zeros(shape), jnp.zeros(shape), jnp.int32(0))
-        tcache = (torch.zeros(shape), torch.zeros(shape), 0)
+        tcache = (torch.zeros(shape), torch.zeros(shape))
     else:
         mask = mask[..., :t]
     want, jnew = jl._MistralLayer(jmodel.cfg).apply(
         {"params": variables["params"]["layer_0"]}, jnp.asarray(x),
         jnp.asarray(positions), jnp.asarray(mask), jcache)
     rope = tl._rope_tables(torch.from_numpy(positions), 16, 1e6)
-    got, tnew = tmodel.layers[0](torch.from_numpy(x), rope,
-                                 torch.from_numpy(mask), tcache)
+    got = tmodel.layers[0](torch.from_numpy(x), rope,
+                           Pass(PROMPT, torch.from_numpy(mask), kv=tcache))
     # rows 0..2 of the second example are left pad: unread downstream
     _close(got[0], want[0])
     _close(got[1, 3:], want[1, 3:])
-    if with_cache:
-        assert tnew[2] == int(jnew[2]) == t
-        _close(tnew[0][:, :t], jnew[0][:, :t])
-        _close(tnew[1][:, :t], jnew[1][:, :t])
-        assert tnew[0] is tcache[0]          # written in place
+    if with_cache:                           # written in place
+        assert int(jnew[2]) == t
+        _close(tcache[0][:, :t], jnew[0][:, :t])
+        _close(tcache[1][:, :t], jnew[1][:, :t])
 
 
 @pytest.mark.parametrize("how", ["pixel_values", "image_features",
@@ -889,14 +889,14 @@ def test_decode_at_a_rounded_capacity_gives_the_exact_lengths_tokens():
                                     max_new_tokens=6, pad_lens=pad)
     cap = tl.CACHE_QUANTUM
     assert cap > 13 + 6
-    caches = tl._new_caches(model.cfg, 3, cap, ids.device)
+    cache = KVCache(model.cfg, 3, cap, ids.device)
     with torch.no_grad():
-        for ck, cv, _ in caches:
+        for i in range(model.cfg.layers):
+            ck, cv = cache.layers[i]
             ck[:, 13:].fill_(7.0)
             cv[:, 13:].fill_(-3.0)
-        first, caches = tl._generate_prefill(model, ids, pad, None, feats,
-                                             caches)
-        steps = tl._decode_steps(model, caches, first, pad,
+        first, _ = tl._generate_prefill(model, ids, pad, None, feats, cache)
+        steps = tl._decode_steps(model, cache, first, pad,
                                  torch.full((), 13, dtype=torch.int64), 5)
     got = torch.cat([first[:, None], steps], dim=1).to(torch.int32)
     assert len(set(map(tuple, want.tolist()))) > 1
@@ -967,7 +967,8 @@ def test_shared_prefix_route_equals_the_single_pass(features, texts):
     over every row with the features repeated, the tokens equal; rows of
     equal length and of unequal length, including a pad past N;
     single-tile, anyres and a long prefix (130 tokens, the flash route's
-    plain version in both attentions)."""
+    plain version in both attentions). The two prompt passes' caches
+    agree to the same tolerance in every slot from each row's pad."""
     kw = dict(image_grid_pinpoints=PINPOINTS) if features == "anyres" \
         else dict(prefill_attn_impl="flash", prefill_attn_chunk=64) \
         if features == "long" else {}
@@ -999,6 +1000,17 @@ def test_shared_prefix_route_equals_the_single_pass(features, texts):
                                rtol=RTOL, atol=ATOL)
     assert torch.equal(got, want)
     assert len(set(map(tuple, want.tolist()))) > 1
+    b, t = ids.shape
+    shared, full = (KVCache(model.cfg, b, t + 6, ids.device) for _ in range(2))
+    pad = torch.tensor(pads, dtype=torch.int32)
+    with torch.no_grad():
+        tl._generate_prefill_shared(model, ids, pad, pads, feats, shared)
+        tl._generate_prefill(model, ids, pad, None, feats.expand(b, -1, -1),
+                             full)
+    for r, p in enumerate(pads):                 # (layers, 2, rows, ...)
+        np.testing.assert_allclose(shared.data[:, :, r, p:].numpy(),
+                                   full.data[:, :, r, p:].numpy(),
+                                   rtol=RTOL, atol=ATOL)
 
 
 def test_shared_prefix_route_runs_both_attentions_through_the_flash_route(
@@ -1017,17 +1029,18 @@ def test_shared_prefix_route_runs_both_attentions_through_the_flash_route(
         tl._fp, "flash_prefill",
         lambda q, k, v, pad, o=0: calls.append((q.shape[:2], o))
         or real(q, k, v, pad, o))
-    kv = tl._cache_store(model.cfg, 3, 160, ids.device)
-    kv.fill_(5.0)
-    tl._slots(kv, 0, max(pads)).zero_()
+    cache = KVCache(model.cfg, 3, 160, ids.device)
+    cache.data.fill_(5.0)
+    cache.zero_(0, max(pads))
     with torch.no_grad():
         tl._generate_prefill_shared(model, ids, torch.tensor(
-            pads, dtype=torch.int32), pads, feats, kv)
+            pads, dtype=torch.int32), pads, feats, cache)
     t = ids.shape[1]
     layers = model.cfg.layers
     assert calls == [((1, 130), 0), ((3, t - 130), 130)] * layers
+    kv = cache.data                              # (layers, 2, rows, ...)
     for r, p in enumerate(pads):
-        assert not kv[:, :, r, :p].any()           # (layers, 2, rows, ...)
+        assert not kv[:, :, r, :p].any()
         assert kv[:, :, r, p:t].abs().amin() > 0
 
 

@@ -13,6 +13,9 @@ within 1e-6.
 
 import dataclasses
 import math
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from leafgrasp_tpu_torch.kernels.moe_experts import (expert_counts,
                                                      moe_experts,
                                                      moe_experts_plain)
 from leafgrasp_tpu_torch.vla import llava_torch as lt
+from leafgrasp_tpu_torch.vla.layers import STEP, KVCache, Pass
 from leafgrasp_tpu_torch.vla.moe import MoE
 from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -98,7 +102,7 @@ def test_prefill_then_latent_cache_decode_match_reference(impl):
     b, t = ids.shape
     pad = torch.tensor(pads, dtype=torch.int32)
     total = t + feed.shape[1]
-    caches = lt._new_caches(c, b, total, "cpu")
+    caches = KVCache(c, b, total, "cpu")
     positions = torch.clamp(torch.arange(t)[None] - pad[:, None], min=0)
     mask = torch.tril(torch.ones((t, total), dtype=torch.bool))[None, None] \
         & (torch.arange(total)[None, None, None] >= pad[:, None, None, None])
@@ -111,10 +115,10 @@ def test_prefill_then_latent_cache_decode_match_reference(impl):
             pos = torch.tensor(t + i)
             key = torch.arange(total)
             step_mask = ((key[None] <= pos) & (key[None] >= pad[:, None]))
-            logits, _ = model(feed[:, i:i + 1], positions=(pos - pad)[:, None],
-                              mask=step_mask[:, None, None],
-                              caches=[(lc, None, pos.reshape(1))
-                                      for lc, _, _ in caches])
+            step = Pass(STEP, step_mask[:, None, None],
+                        cursor=pos.reshape(1), cache=caches)
+            logits = model.head(model.decoder(
+                model.embed(feed[:, i:i + 1]), (pos - pad)[:, None], step))
             got.append(logits[:, -1])
     got = torch.stack(got, 1)
     emb = model.embed_tokens.weight.detach()
@@ -124,6 +128,20 @@ def test_prefill_then_latent_cache_decode_match_reference(impl):
         want = ref.decoder_logits(W, c, emb[row[:0]], emb[row][None],
                                   t - pads[r] - 1)[0]
         assert float((got[r] - want).abs().max()) <= LOGIT_TOL, r
+
+
+def test_decoder_modules_import_one_way():
+    """``vla.mla`` imports first in a fresh interpreter, and the model
+    layer ``vla.llava_torch`` loads nothing of the parallel layer above
+    it."""
+    code = ("import sys\n"
+            "import leafgrasp_tpu_torch.vla.mla\n"
+            "import leafgrasp_tpu_torch.vla.llava_torch\n"
+            "up = [m for m in sys.modules\n"
+            "      if m.startswith('leafgrasp_tpu_torch.parallel')]\n"
+            "assert not up, up\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=pathlib.Path(__file__).resolve().parents[1])
 
 
 def test_router_picks_and_weights_match_reference():
@@ -260,7 +278,9 @@ def test_shared_prefix_route_equals_the_single_pass(impl, n, texts):
     latent up to its slot, expanded, at the prefix's query offset): the
     first logits within 1e-4 of the single pass over every row, the
     tokens equal, rows of equal and of unequal length; a long prefix
-    takes the flash route's plain version in both attentions."""
+    takes the flash route's plain version in both attentions. The two
+    prompt passes' latent caches agree within 1e-4 in every slot from
+    each row's pad."""
     model = _model(seed=11)
     model.set_prefill_attn(impl)
     feats = torch.randn((1, n, TINY.hidden),
@@ -275,6 +295,16 @@ def test_shared_prefix_route_equals_the_single_pass(impl, n, texts):
         == ("shared", "full")
     assert float((got_first - want_first).abs().max()) <= LOGIT_TOL
     assert torch.equal(got, want)
+    b, t = ids.shape
+    shared, full = (KVCache(model.cfg, b, t + 5, "cpu") for _ in range(2))
+    pad = torch.tensor(pads, dtype=torch.int32)
+    with torch.no_grad():
+        lt._generate_prefill_shared(model, ids, pad, pads, feats, shared)
+        lt._generate_prefill(model, ids, pad, None, feats.expand(b, -1, -1),
+                             full)
+    for r, p in enumerate(pads):                 # (layers, rows, slots, ...)
+        gap = (shared.data[:, r, p:] - full.data[:, r, p:]).abs().max()
+        assert float(gap) <= LOGIT_TOL
 
 
 def test_moe_load_covers_the_whole_prompt_of_the_shared_route(monkeypatch):
@@ -290,7 +320,7 @@ def test_moe_load_covers_the_whole_prompt_of_the_shared_route(monkeypatch):
     passes = []
     real = moe.expert_pairs
     monkeypatch.setattr(moe, "expert_pairs",
-                        lambda m: passes.append(real(m)) or passes[-1])
+                        lambda r: passes.append(real(r)) or passes[-1])
     timings = {}
     with torch.no_grad():
         lt.greedy_generate_llava(model, ids, image_features=feats,

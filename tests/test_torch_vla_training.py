@@ -49,6 +49,7 @@ from leafgrasp_tpu_torch.kernels import flash_prefill as tfp
 from leafgrasp_tpu_torch.vla import convert
 from leafgrasp_tpu_torch.vla import experiments as texp
 from leafgrasp_tpu_torch.vla import llava_torch as tl
+from leafgrasp_tpu_torch.vla.layers import FLASH_MIN_TOKENS
 from leafgrasp_tpu_torch.vla import lora as tlora
 from leafgrasp_tpu_torch.vla import trainer as ttr
 from leafgrasp_tpu_torch.vla.llava_trainer import LlavaLoRATrainer
@@ -411,7 +412,7 @@ def test_llava_lora_step_matches_jax():
     for a, b in zip(ex_j, ex_t):
         assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
     pad_to = max(len(e[0]) for e in ex_t) + 1
-    assert pad_to - 1 >= tl.FLASH_MIN_TOKENS
+    assert pad_to - 1 >= FLASH_MIN_TOKENS
     toks_j, lmask_j, imgs_j = jt._pad_batch(ex_j, pad_to)
     toks, lmask, imgs = tt._pad_batch(ex_t, pad_to)
     assert np.array_equal(np.asarray(toks_j), toks.numpy())

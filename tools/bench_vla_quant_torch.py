@@ -137,27 +137,28 @@ def time_steps_decode(model, b, t, dev, steps=32):
     """(wall s, device s) a step of the per-token decode at batch ``b``
     after a ``t``-token prompt: ``steps - 1`` chained steps, best of 3."""
     import torch
+    from leafgrasp_tpu_torch.vla.layers import KVCache
     from leafgrasp_tpu_torch.vla.llava_torch import (_generate_decode_step,
-                                                     _generate_prefill,
-                                                     _new_caches)
+                                                     _generate_prefill)
     n_new = steps + 1
     ids = torch.full((b, t), 7, dtype=torch.long, device=dev)
     pad = torch.zeros((b,), dtype=torch.int32, device=dev)
     prompt_len = torch.full((), t, dtype=torch.int64, device=dev)
 
     def prefill():
-        caches = _new_caches(model.cfg, b, t + n_new, dev)
-        return _generate_prefill(model, ids, pad, None, None, caches)
+        cache = KVCache(model.cfg, b, t + n_new, dev)
+        return _generate_prefill(model, ids, pad, None, None, cache)[0], \
+            cache
 
-    last, caches = prefill()
-    _generate_decode_step(model, caches, last, pad, 0, prompt_len)
+    last, cache = prefill()
+    _generate_decode_step(model, cache, last, pad, 0, prompt_len)
     start, stop = _timer(dev)
     out = []
     for _ in range(3):
-        last, caches = prefill()
+        last, cache = prefill()
         start()
         for i in range(1, steps):
-            last = _generate_decode_step(model, caches, last, pad, i,
+            last = _generate_decode_step(model, cache, last, pad, i,
                                          prompt_len)
         wall, dev_s = stop()
         out.append((wall / (steps - 1),
