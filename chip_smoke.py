@@ -337,7 +337,8 @@ VLA_PINPOINTS = ((336, 672), (672, 336), (672, 672), (1008, 336),
 FLASH_TOL = {"float32": {"abs": 2e-5, "rel": 0.0, "row": 0.0},
              "bfloat16": {"abs": 0.0, "rel": 2.0 ** -6, "row": 2.0 ** -6}}
 PEAK_BF16_OPS_PER_S = 989e12
-VLA_ONLY_KERNELS = ("flash_prefill",)    # not on the frame path
+# not on the frame path
+VLA_ONLY_KERNELS = ("flash_prefill", "moe_experts", "decode_attention")
 TRAIN_ONLY_KERNELS = ("attention_gate_backward", "flash_prefill_bwd_dq",
                       "flash_prefill_bwd_dkv")        # the trainers' only
 NOT_ON_FRAMES = VLA_ONLY_KERNELS + TRAIN_ONLY_KERNELS
@@ -356,7 +357,14 @@ KERNEL_FUNCTIONS = {
     "flash_prefill_bwd_dq_kernel": "flash_prefill_bwd_dq",
     "flash_prefill_bwd_dkv_kernel": "flash_prefill_bwd_dkv",
     "moe_experts_gate_up_kernel": "moe_experts",
-    "moe_experts_down_kernel": "moe_experts"}
+    "moe_experts_down_kernel": "moe_experts",
+    "decode_attention_scores_kernel": "decode_attention",
+    "decode_attention_pv_kernel": "decode_attention"}
+DECODE_KERNELS = ("decode_attention_scores_kernel",
+                  "decode_attention_pv_kernel")
+# the decode attention against its plain version in bf16: 2^-7 of the
+# value plus 2^-7 of the row's largest (tests/test_torch_cuda.py says why)
+DECODE_TOL = 2.0 ** -7
 # Late in this script a profile loses the records of the first kernels
 # it runs (NVIDIA H100 80GB HBM3, 700.00 W: 0 of 10 launches and then
 # 4 of the next kernel's, 3 of 10, 15 of 20, 0 of 3), never the last, so
@@ -1599,7 +1607,9 @@ def build_llava(torch, dev):
 
 def profile_rerank(torch, scorer, rgb, cands, instruction, phase):
     """Where a rerank's time goes: one profiled rerank, and one that stops
-    after the prompt pass, so the difference is the nine decode steps."""
+    after the prompt pass, so the difference is the nine decode steps;
+    in each, the decode attention's kernels as the card ran them (a
+    replayed graph's too)."""
     from torch.profiler import ProfilerActivity, profile
     prof_out = {}
     for name, new_tokens in (("rerank", 10), ("prompt_pass_only", 1)):
@@ -1625,6 +1635,10 @@ def profile_rerank(torch, scorer, rgb, cands, instruction, phase):
                 r[0] for r in rows
                 if kernel_function(r[2]) in ("flash_prefill_kernel",
                                              "flash_prefill_f32_kernel")),
+            "decode_attention_launches": sum(
+                r[1] for r in rows if kernel_function(r[2]) in DECODE_KERNELS),
+            "decode_attention_ms": sum(
+                r[0] for r in rows if kernel_function(r[2]) in DECODE_KERNELS),
             "top": [{"ms": ms, "count": n, "name": key[:60]}
                     for ms, n, key in rows[:6]]}
         log(f"{phase} profile {name} {json.dumps(prof_out[name])}")
@@ -1639,6 +1653,75 @@ def profile_rerank(torch, scorer, rgb, cands, instruction, phase):
         f"{prof_out['decode_step_launches']} kernels and keeps the device "
         f"busy {prof_out['decode_step_device_ms']} ms (under the profiler)")
     return prof_out
+
+
+def check_decode_attention(torch, dev):
+    """Phase 6.1's decode attention at the 7B cell's step: five rows of the
+    graph route's cache (2432 slots), the tenth token's slot 2409 of a
+    2400-slot prompt, left pads as the cell's rows have them, 32 query
+    heads over 8 of 128, bf16. The kernel against its plain version, its
+    time (its two kernels' device time) beside its bound (the live
+    keys' K and V bytes at 3.35 TB/s), the plain version's, and
+    ``scaled_dot_product_attention``'s as a yardstick only (K and V
+    repeated to the query heads before the timed call, the live keys by
+    a boolean mask)."""
+    import torch.nn.functional as F
+    from leafgrasp_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    b, cap, heads, kvh, hd, pos = 5, 2432, 32, 8, 128, 2409
+    pads = (0, 2, 5, 1, 3)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, k, v = draw(b, 1, heads, hd), draw(b, cap, kvh, hd), \
+        draw(b, cap, kvh, hd)
+    pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+    cursor = torch.tensor([pos], dtype=torch.int64, device=dev)
+
+    def kernel():
+        return decode_attention(q, k, v, pad, cursor, bf16)
+
+    def plain():
+        return decode_attention_plain(q, k, v, pad, cursor, bf16)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    over = float((diff - DECODE_TOL * (w.abs() + w.abs().amax(
+        -1, keepdim=True))).max())
+    if not over <= 0.0 or not bool(torch.isfinite(g).all()) \
+            or not torch.equal(got, kernel()):
+        raise RuntimeError(f"phase 6.1 decode attention: over the "
+                           f"tolerance by {over}, or not deterministic")
+    live = sum(pos + 1 - p for p in pads)
+    moved = 2.0 * live * kvh * hd * 2      # K and V rows, bf16, read once
+    key = torch.arange(cap, device=dev)
+    mask = ((key[None, :] >= pad[:, None])
+            & (key[None, :] <= pos))[:, None, None, :]
+    rep = heads // kvh
+    kr = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    vr = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    qs = q.transpose(1, 2)
+    rec = {"name": "decode_attention", "route": "cuda",
+           "source": "leafgrasp_tpu_torch/kernels/csrc/decode_attention.cu",
+           "replaces": "none (the JAX decode's grouped einsum, "
+                       "leafgrasp_tpu/vla/llava_jax.py:355-379)",
+           "shape": [b, cap, pos, heads, kvh, hd], "pads": list(pads),
+           "max_abs_err": float(diff.max()), "tolerance_rel": DECODE_TOL,
+           "ms": kernel_ms(kernel, DECODE_KERNELS, iters=50),
+           "event_ms": cuda_ms(kernel, iters=50),
+           "bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bytes": moved, "plain_ms": cuda_ms(plain, iters=20),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               qs, kr, vr, attn_mask=mask), iters=50)}
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"phase 6.1 decode attention {json.dumps(rec)}")
+    return rec
 
 
 def run_vla(torch, dev, cnn, scenes):
@@ -1713,12 +1796,34 @@ def run_vla(torch, dev, cnn, scenes):
                            f"{last['n_image_tokens']} image tokens, t "
                            f"{last['prompt_len']}")
 
+    if last["decode_attention"] != "kernel":
+        raise RuntimeError(f"phase 6.1: the steps' attention ran "
+                           f"{last['decode_attention']}")
     prof_out = profile_rerank(torch, scorer, rgb, cands, instruction,
                               "phase 6.1")
+    # the replayed steps' attention, as the profile saw it: its scores and
+    # pv kernels once a layer and step, none in the prompt pass
+    steps = scorer.max_new_tokens - 1
+    da_launches = prof_out["rerank"]["decode_attention_launches"]
+    if da_launches != len(DECODE_KERNELS) * layers * steps \
+            or prof_out["prompt_pass_only"]["decode_attention_launches"]:
+        raise RuntimeError(
+            f"phase 6.1: the profiled rerank ran {da_launches} decode "
+            f"attention kernels, not {len(DECODE_KERNELS)} x {layers} "
+            f"layers x {steps} steps")
+    decode_attention = check_decode_attention(torch, dev)
+    decode_attention["rerank_calls"] = da_launches // len(DECODE_KERNELS)
+    decode_attention["rerank_kernel_launches"] = da_launches
+    decode_attention["rerank_ms"] = \
+        prof_out["rerank"]["decode_attention_ms"]
+    log(f"phase 6.1 profile: the rerank's steps ran the decode attention's "
+        f"kernels {da_launches} times "
+        f"({decode_attention['rerank_ms']} ms)")
     perf = {"encode_ms": last.get("encode_ms"),
             "prefill_ms": last["prefill_ms"],
             "decode_ms": last["decode_ms"],
-            "decode_step_device_ms": prof_out["decode_step_device_ms"]}
+            "decode_step_device_ms": prof_out["decode_step_device_ms"],
+            "decode_attention": decode_attention}
 
     # 6.2 the same candidates through the chunked route, and one by one
     def differing(a, b):
@@ -5358,6 +5463,7 @@ def main() -> int:
 
     with torch.no_grad():
         vla_counts, rerank_perf = run_vla(torch, dev, model, scenes)
+    records.append(rerank_perf["decode_attention"])
     log("phase 6: the VLA serve path ran at full width")
 
     records.append(check_attention_backward(torch, dev))

@@ -13,9 +13,9 @@ accurate forms. Flags differ by file: ``attention.cu``, ``histogram.cu``,
 ``minplus.cu``, ``rowband.cu`` and ``scoring.cu`` get ``-fmad=false``,
 which keeps ``a*b + c`` as two rounded operations, as their plain
 PyTorch versions compute them (the EDT kernels are bit-exact);
-``flash_prefill.cu`` and ``flash_prefill_bwd.cu`` are built without it,
-so their f32 accumulation may fuse multiply-adds as a matrix product on
-the card does. Headers
+``flash_prefill.cu``, ``flash_prefill_bwd.cu`` and ``decode_attention.cu``
+are built without it, so their f32 accumulation may fuse multiply-adds
+as a matrix product on the card does. Headers
 (``csrc/*.cuh``: ``hopper.cuh`` holds the inline PTX for mbarriers, TMA
 and ``wgmma``) are part of the hash. The library links against the CUDA
 runtime and ``libdl`` only: the one ``libcuda`` function the kernels
@@ -44,7 +44,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 # flags of one source, by file name; every other file gets the default
 DEFAULT_FILE_FLAGS = ["-fmad=false"]
-FILE_FLAGS = {"flash_prefill.cu": [], "flash_prefill_bwd.cu": []}
+FILE_FLAGS = {"flash_prefill.cu": [], "flash_prefill_bwd.cu": [],
+              "decode_attention.cu": []}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,6 +81,10 @@ _SIGNATURES = {
     # q, k, v, dout, pad, lse, dsum, dk, dv, b, t, heads, kv_heads, hd,
     # is_bf16, strides (18 int64), scale, stream
     "flash_prefill_bwd_dkv": [_VP] * 9 + [_I] * 6 + [_VP, _F, _VP],
+    # q, k, v, pad, cursor, out, work, b, heads, kv_heads, cap, hd,
+    # kv_bf16, q_bf16, p_bf16, out_bf16, n_split, window, strides (8
+    # int64), scale, stream
+    "decode_attention": [_VP] * 7 + [_I] * 11 + [_VP, _F, _VP],
 }
 
 _LOCK = threading.Lock()

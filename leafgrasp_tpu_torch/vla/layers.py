@@ -2,7 +2,8 @@
 ``mla`` and ``moe``'s deepseek_v3 layers) share, below all three: typed
 primitives, the cache (``KVCache``) and the pass every decoder layer is
 told of (``Pass``), which decides in one place whether an attention
-takes the flash kernel (``Pass.flash``).
+takes the flash kernel (``Pass.flash``) or the decode step's kernel
+(``Pass.decode_kernel``).
 """
 
 from __future__ import annotations
@@ -110,11 +111,15 @@ class Pass:
 
     ``mask`` (b or 1, 1 or heads, queries, keys). ``pad`` (b,) int32 is
     the caller's word that ``mask`` is exactly causal from the cursor
-    (key <= cursor + query row) AND key >= pad, so that the flash route
-    may replace it by the pad lengths and the cursor; else None.
+    (key <= cursor + query row) AND key >= pad, and on a step within the
+    configuration's sliding window, if any, so that the flash route and
+    the decode kernel may replace it by the pad lengths and the cursor;
+    else None.
     ``cursor``: the first query's slot, 0 on a prompt pass, a (1,)
     tensor on a step. ``kv`` are a layer's views of ``cache`` (``at``).
-    Expert layers add each call's routed pairs an expert to ``routed``.
+    Expert layers add each call's routed pairs an expert to ``routed``;
+    grouped-query attentions add the route their step took ("kernel" or
+    "plain") to ``attended``.
     On the shared route ``runs`` are (lo, hi, p): rows lo .. hi - 1 of
     pad p < n; ``prefix`` and ``text`` are its two attentions' passes."""
     kind: str
@@ -124,6 +129,7 @@ class Pass:
     cache: Optional[KVCache] = None
     kv: tuple = ()
     routed: list = dataclasses.field(default_factory=list)
+    attended: set = dataclasses.field(default_factory=set)
     n: int = 0
     t: int = 0
     runs: Sequence[tuple] = ()
@@ -158,6 +164,14 @@ class Pass:
         keys = self.cursor + t
         return keys >= FLASH_MIN_TOKENS and (cfg.sliding_window is None
                                              or keys <= cfg.sliding_window)
+
+    def decode_kernel(self) -> bool:
+        """Whether the grouped-query decoder's attention in this pass takes
+        the decode step's route (``kernels/decode_attention``: the kernel
+        on the card, its plain version on the CPU) in place of the mask:
+        every step, whose ``pad`` the caller gives. Latent attention does
+        not ask: its step keeps its mask and its absorbed form."""
+        return self.kind == STEP
 
     def text_rows(self, x):
         """The shared route's flat tokens' text as (rows, t - n, ...)."""

@@ -107,8 +107,9 @@ class LlavaTorchScorer:
     ``prefill_route`` of the newest batch ("shared" where its rows'
     image prefix ran once, else "full"), the decode's route
     ``decode_graph`` ("captured" where one of its batches captured a
-    graph, else "replayed" or "eager") and, on a CUDA device, the split
-    into
+    graph, else "replayed" or "eager"), for a grouped-query decoder the
+    route of its steps' attention ``decode_attention`` ("kernel" or
+    "plain", the newest batch's) and, on a CUDA device, the split into
     encode / prefill / decode milliseconds; for a decoder with experts
     ``moe_load``, each expert layer's busiest expert's routed pairs over
     the mean in a batch's prompt pass (computed on the device, fetched
@@ -233,6 +234,9 @@ class LlavaTorchScorer:
         self.last["prompt_len"] = t
         self.last.setdefault("tokens", []).extend(gen)
         self.last["prefill_route"] = timings.pop("prefill_route")
+        attention = timings.pop("decode_attention", None)
+        if attention is not None:
+            self.last["decode_attention"] = attention
         route = timings.pop("decode_graph")
         if self.last.get("decode_graph") != "captured":
             self.last["decode_graph"] = route

@@ -35,7 +35,9 @@ tensor for all layers, written in place. Pixel values are ``(B, H, W,
 Greedy decode computes an image prefix that its rows share once
 (``greedy_generate_llava``'s shared route), and on a CUDA device
 replays one CUDA graph of its steps over static caches; elsewhere the
-same steps run eagerly.
+same steps run eagerly. A step's grouped-query attention goes through
+``kernels/decode_attention`` (the kernel over the live slots of the
+cache on the card, the dense masked attention on the CPU).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from leafgrasp_tpu_torch.kernels import decode_attention as _da
 from leafgrasp_tpu_torch.kernels import flash_prefill as _fp
 from leafgrasp_tpu_torch.utils.device import resolve_device
 from leafgrasp_tpu_torch.utils.profiler import span
@@ -365,34 +368,20 @@ class _MistralAttention(nn.Module):
     def _attend(self, q, k, v, p: Pass, dt):
         """(b, t, heads, hd) attention of the queries ``q`` (the key rows
         from the cursor ``p.cursor`` on) over the keys ``k``/``v`` under
-        ``p.mask``, by the configured route; probabilities in ``dt``."""
+        ``p.mask``, by the route the pass gives; probabilities in
+        ``dt``."""
         c = self.cfg
-        hd = c.head_dim
         t = q.shape[1]
-        rep = c.heads // c.kv_heads
-
-        def attend(qc, mc):
-            """Exact attention for a block of query rows against the
-            whole key axis, in grouped-query form: K/V are never
-            repeated to the query heads. mc is (b, 1 or heads, tq, s)."""
-            bq, tq = qc.shape[:2]
-            qg = qc.reshape(bq, tq, c.kv_heads, rep, hd)
-            scores = _matmul_f32("btkrd,bskd->bkrts", qg, k)
-            scores = scores / math.sqrt(hd)
-            if mc.shape[1] == c.heads:        # per-head mask
-                mcb = mc.reshape(mc.shape[0], c.kv_heads, rep,
-                                 *mc.shape[2:])
-            else:                             # head-dim-1 mask
-                mcb = mc[:, :, None]
-            scores = scores.masked_fill(~mcb, -1e30)
-            probs = torch.softmax(scores, dim=-1).to(dt)
-            out = _einsum_promoted("bkrts,bskd->btkrd", probs, v)
-            return out.reshape(bq, tq, c.heads, hd)
-
         tc = c.prefill_attn_chunk
         mask = p.mask
         kernel_dt = torch.promote_types(q.dtype, k.dtype)
-        if p.flash(c, t):
+        if p.decode_kernel():
+            # the cache as it lies, its live slots only; on the card the
+            # wrapper raises for a head size or type its kernel lacks
+            out = _da.decode_attention(q, k, v, p.pad, p.cursor, dt,
+                                       c.sliding_window)
+            p.attended.add(_da.route(q.device))
+        elif p.flash(c, t):
             # K/V go in as the cache holds them: kv_heads heads, the row
             # stride of the whole cache, the first cur + t rows read; the
             # queries are the key rows from the cursor on. On the card
@@ -407,15 +396,15 @@ class _MistralAttention(nn.Module):
         elif tc is None or t <= tc or not p.one_head(t):
             # chunking assumes a head-dim-1 mask; a per-head mask takes
             # the exact unchunked path
-            out = attend(q, mask)
+            out = _da.grouped_attention(q, k, v, mask, dt)
         else:
             # long prompt: query chunks of equal size, so the f32 scores
             # are (b, heads, tc, total)
             n = -(-t // tc)
             tc = -(-t // n)
-            out = torch.cat([attend(q[:, lo:lo + tc],
-                                    mask[:, :, lo:lo + tc])
-                             for lo in range(0, t, tc)], dim=1)
+            out = torch.cat([_da.grouped_attention(
+                q[:, lo:lo + tc], k, v, mask[:, :, lo:lo + tc], dt)
+                for lo in range(0, t, tc)], dim=1)
         return out
 
 
@@ -776,20 +765,6 @@ def attach_lora(model: LlavaTorch, state: Dict[str, Any],
 CACHE_QUANTUM = 64
 
 
-def _slot_mask(c: LlavaTorchConfig, q, k, pad=None):
-    """(1 or b, 1, queries, keys) bool: the key slots ``k`` at or before
-    each query slot ``q``, within the sliding window, if any, and with
-    ``pad`` (b,) at or after the row's pad."""
-    mask = k[None, :] <= q[:, None]
-    if c.sliding_window is not None:
-        # pad is a shared prefix, so absolute distance == pad-relative
-        mask = mask & (q[:, None] - k[None, :] < c.sliding_window)
-    if pad is None:
-        return mask[None, None]
-    return mask[None, None] & (k[None, None, None, :]
-                               >= pad[:, None, None, None])
-
-
 def _generate_prefill(model: LlavaTorch, input_ids, pad, pixel_values,
                       image_features, cache: KVCache):
     """Prompt pass: fill ``cache`` (in the compute type, zero past the
@@ -800,7 +775,8 @@ def _generate_prefill(model: LlavaTorch, input_ids, pad, pixel_values,
     t = input_ids.shape[1]
     slot = torch.arange(cache.capacity, device=dev)
     positions = torch.clamp(slot[None, :t] - pad[:, None], min=0)
-    prompt = Pass(PROMPT, _slot_mask(c, slot[:t], slot, pad), pad,
+    prompt = Pass(PROMPT, _da.slot_mask(slot[:t], slot, pad,
+                                        c.sliding_window), pad,
                   cache=cache)
     x = model.decoder(model.embed(input_ids, pixel_values, image_features),
                       positions, prompt)
@@ -853,39 +829,47 @@ def _generate_prefill_shared(model: LlavaTorch, input_ids, pad, pads,
         text[None, :] - pad[:, None], min=0).reshape(-1)])[None]
     shared = Pass(
         SHARED, cache=cache, n=n, t=t, runs=runs,
-        prefix=Pass(SHARED, _slot_mask(c, slot[:n], slot[:n]), torch.zeros(
-            (1,), dtype=torch.int32, device=dev)),
-        text=Pass(SHARED, _slot_mask(c, text, slot, pad), pad, cursor=n))
+        prefix=Pass(SHARED, _da.slot_mask(slot[:n], slot[:n],
+                                          window=c.sliding_window),
+                    torch.zeros((1,), dtype=torch.int32, device=dev)),
+        text=Pass(SHARED, _da.slot_mask(text, slot, pad, c.sliding_window),
+                  pad, cursor=n))
     x = model.decoder(x, positions, shared)
     logits = model.head(shared.text_rows(x), logits_last_only=True)
     return torch.argmax(logits[:, -1, :], dim=-1), shared
 
 
 def _generate_decode_step(model: LlavaTorch, cache: KVCache, last, pad,
-                          step_i: int, prompt_len):
+                          step_i: int, prompt_len,
+                          attended: Optional[set] = None):
     """One decode token against ``cache`` (written in place).
     ``prompt_len`` is a 0-d int64 tensor on the device: the rotary
     positions, the slot written and the key mask come from it, so a
     captured step serves any prompt that fits the cache. ``step_i`` is a
-    Python int."""
+    Python int. ``attended``, if given, receives the route the step's
+    attention took (``Pass.attended``)."""
     c = model.cfg
     dev = last.device
     pos = prompt_len + step_i
     positions = (pos - pad)[:, None]
     slot = pos.reshape(1)
-    step = Pass(STEP, _slot_mask(c, slot, torch.arange(
-        cache.capacity, device=dev), pad), cursor=slot, cache=cache)
+    step = Pass(STEP, _da.slot_mask(slot, torch.arange(
+        cache.capacity, device=dev), pad, c.sliding_window), pad,
+        cursor=slot, cache=cache,
+        attended=set() if attended is None else attended)
     x = model.decoder(model.embed(last[:, None]), positions, step)
     return torch.argmax(model.head(x)[:, -1, :], dim=-1)
 
 
 def _decode_steps(model: LlavaTorch, cache: KVCache, last, pad, prompt_len,
-                  n: int):
+                  n: int, attended: Optional[set] = None):
     """The ``n`` greedy tokens after ``last``, (b, n) int64: the loop that
-    the graph route captures and the eager route runs."""
+    the graph route captures and the eager route runs. ``attended``, if
+    given, receives the routes the steps' attention took."""
     toks = []
     for i in range(n):
-        last = _generate_decode_step(model, cache, last, pad, i, prompt_len)
+        last = _generate_decode_step(model, cache, last, pad, i, prompt_len,
+                                     attended)
         toks.append(last)
     if not toks:
         return last.new_zeros((last.shape[0], 0))
@@ -895,7 +879,8 @@ def _decode_steps(model: LlavaTorch, cache: KVCache, last, pad, prompt_len,
 class _DecodeGraph:
     """The decode loop of one (rows, capacity, steps), captured once as a
     CUDA graph over a static ``cache`` and static inputs, and replayed by
-    every later call of that shape."""
+    every later call of that shape. ``attended``: the routes its captured
+    steps' attention took."""
 
     def __init__(self, model: LlavaTorch, cache: KVCache, n: int, pool):
         dev, b = cache.data.device, cache.rows
@@ -903,10 +888,11 @@ class _DecodeGraph:
         self.last = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.pad = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.prompt_len = torch.zeros((), dtype=torch.int64, device=dev)
+        self.attended: set = set()
 
         def loop():
             return _decode_steps(model, cache, self.last, self.pad,
-                                 self.prompt_len, n)
+                                 self.prompt_len, n, self.attended)
 
         # warm up on the capture's stream (cuBLAS's and the allocator's
         # lazy state), then capture. Both write slots 0 to n - 1, which
@@ -918,6 +904,7 @@ class _DecodeGraph:
         with torch.cuda.stream(side):
             loop()
         torch.cuda.current_stream(dev).wait_stream(side)
+        self.attended.clear()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, stream=side,
                               capture_error_mode="thread_local"):
@@ -1025,7 +1012,11 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
     and give the same tokens.
 
     timings: optional dict. It receives ``prefill_route``: "shared" or
-    "full"; ``decode_graph``: "captured", "replayed" or "eager"; for a
+    "full"; ``decode_graph``: "captured", "replayed" or "eager"; where
+    the steps' attention took ``kernels/decode_attention`` (the
+    grouped-query decoder's), ``decode_attention``: the route it took, as
+    the steps' passes recorded it, eagerly or at the graph's capture:
+    "kernel" (the CUDA kernel) or "plain" (its plain version); for a
     decoder with experts ``moe_load``, on the device: each expert
     layer's busiest expert's routed pairs over the mean, over the
     prompt; on a CUDA device also
@@ -1078,13 +1069,15 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
                 prompt.routed))
     if timed:
         ev[1].record()
+    attended = set()
     with span("vla_decode"):
         if graph is None:
             steps = _decode_steps(model, cache, first, pad,
                                   torch.full((), t, dtype=torch.int64,
-                                             device=dev), n)
+                                             device=dev), n, attended)
         else:
             steps = graph.replay(first, pad, t)
+            attended = graph.attended
     out = torch.cat([first[:, None], steps], dim=1).to(torch.int32)
     if timed:
         ev[2].record()
@@ -1095,4 +1088,6 @@ def greedy_generate_llava(model: LlavaTorch, input_ids, pixel_values=None,
     if timings is not None:
         timings["prefill_route"] = "shared" if shared else "full"
         timings["decode_graph"] = route
+        if attended:
+            timings["decode_attention"] = "+".join(sorted(attended))
     return out

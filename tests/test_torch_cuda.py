@@ -17,7 +17,13 @@ being up to 2^-7 of the value, and the probabilities are rounded
 before, not after, the division by the row sum; an output that cancels
 to near zero carries an ulp of the values it was summed from, which the
 row's largest stands for: ``chip_smoke.py`` reads at most 0.0051 of it
-over the relative part), pad rows exactly zero.
+over the relative part), pad rows exactly zero. The decode step's
+attention against its plain version: in f32 1e-5 absolute plus 1e-5 of
+the value (another order of the f32 sums, ``expf``'s last bit); in bf16
+2^-7 of the value plus 2^-7 of the largest value of the same output row
+(the output is rounded to bf16, where an ulp is up to 2^-7 of the value,
+and a probability on a rounding edge may round the other way); its
+launches bit-equal to each other, eager or replayed.
 """
 
 import math
@@ -1684,3 +1690,168 @@ def test_checkpoint_scorer_in_f32_shares_the_image_prefix_on_card(cuda,
     assert single.last["prefill_route"] == "full"
     assert batched.last["tokens"] == single.last["tokens"]
     assert scores == want and all(np.isfinite(scores))
+
+
+# ------------------------------------------- the decode step's attention --
+
+# (b, capacity, heads, kv_heads, hd, cursor, pads): the 7B cell's step
+# (2400 prompt slots, the graph route's capacity), its heads as two and
+# four tensor-parallel ranks would hold them (16 over 4, 8 over 2: on 132
+# SMs 26 and 52 shares a row), the card tests' model (head size 64), and
+# a capacity over 8192 slots (33 shares of 256 keys at most); past 32
+# shares the pv kernel's lanes merge more than one share's (max, sum)
+DECODE_SHAPES = [
+    (5, 2432, 32, 8, 128, 2405, (0, 3, 700, 2401, 2405)),
+    (5, 2432, 32, 8, 128, 2409, (0, 0, 0, 0, 0)),
+    (5, 2432, 16, 4, 128, 2405, (0, 3, 700, 2401, 2405)),
+    (5, 2432, 8, 2, 128, 2409, (0, 2, 5, 1, 3)),
+    (3, 192, 4, 2, 64, 150, (0, 7, 40)),
+    (2, 64, 12, 2, 64, 63, (0, 63)),
+    (2, 8448, 32, 8, 64, 8400, (0, 5000)),
+]
+
+
+def _decode_inputs(cuda, dtype, b, cap, heads, kvh, hd, pos, pads,
+                   seed=9):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    q = (2.0 * torch.randn((b, 1, heads, hd), generator=gen,
+                           device=cuda)).to(dtype)
+    kv = torch.randn((2, b, cap, kvh, hd), generator=gen,
+                     device=cuda).to(dtype)
+    pad = torch.tensor(pads, dtype=torch.int32, device=cuda)
+    cursor = torch.tensor([pos], dtype=torch.int64, device=cuda)
+    return q, kv, pad, cursor
+
+
+def _dead_slots(kv, pads, pos, window=None):
+    """A copy of the caches with every slot that is no live key of its
+    row filled with NaN in K and 1e4 in V."""
+    kv = kv.clone()
+    key = torch.arange(kv.shape[2], device=kv.device)
+    for r, p in enumerate(pads):
+        lo = p if window is None else max(p, pos - window + 1)
+        dead = (key < lo) | (key > pos)
+        kv[0, r, dead] = float("nan")
+        kv[1, r, dead] = 1e4
+    return kv
+
+
+def _check_decode_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        bound = 1e-5 + 1e-5 * w.abs()
+    else:
+        bound = 2.0 ** -7 * (w.abs() + w.abs().amax(-1, keepdim=True))
+    assert bool(((g - w).abs() <= bound).all()), \
+        float(((g - w).abs() - bound).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_attention_kernel_matches_plain_on_card(cuda, dtype, shape):
+    """The kernel against its plain version at the 7B cell's step and the
+    test model's, unequal pads (one row's only live key the cursor);
+    slots before the pad and past the cursor filled with NaN and 1e4
+    change no bit; two launches are bit-equal; one count a call."""
+    from leafgrasp_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    b, cap, heads, kvh, hd, pos, pads = shape
+    q, kv, pad, cursor = _decode_inputs(cuda, dtype, b, cap, heads, kvh,
+                                        hd, pos, pads)
+    want = decode_attention_plain(q, kv[0], kv[1], pad, cursor, dtype)
+    kernels.reset_launch_counts()
+    got = decode_attention(q, kv[0], kv[1], pad, cursor, dtype)
+    again = decode_attention(q, kv[0], kv[1], pad, cursor, dtype)
+    dead = _dead_slots(kv, pads, pos)
+    filled = decode_attention(q, dead[0], dead[1], pad, cursor, dtype)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == 3
+    _check_decode_close(got, want)
+    assert torch.equal(got, again) and torch.equal(got, filled)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [1, 37, 600])
+def test_decode_attention_kernel_keeps_to_the_window_on_card(cuda, dtype,
+                                                             window):
+    """With a sliding window the keys before ``pos - window + 1`` are left
+    out: the plain version under the window, and NaN there changes no
+    bit."""
+    from leafgrasp_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    b, cap, heads, kvh, hd, pos = 3, 1024, 8, 2, 128, 1000
+    pads = (0, 980, 430)
+    q, kv, pad, cursor = _decode_inputs(cuda, dtype, b, cap, heads, kvh,
+                                        hd, pos, pads, seed=10)
+    want = decode_attention_plain(q, kv[0], kv[1], pad, cursor, dtype,
+                                  window)
+    got = decode_attention(q, kv[0], kv[1], pad, cursor, dtype, window)
+    dead = _dead_slots(kv, pads, pos, window)
+    filled = decode_attention(q, dead[0], dead[1], pad, cursor, dtype,
+                              window)
+    _check_decode_close(got, want)
+    assert torch.equal(got, filled)
+
+
+def test_decode_attention_graph_reads_the_cursor_on_card(cuda):
+    """One captured graph of the kernel, replayed at two cursors and two
+    sets of pads written into its static inputs, gives the eager
+    launches' bits at each: nothing of the first call is baked in."""
+    from leafgrasp_tpu_torch.kernels.decode_attention import decode_attention
+    b, cap, heads, kvh, hd = 5, 2432, 32, 8, 128
+    q, kv, pad, cursor = _decode_inputs(cuda, torch.bfloat16, b, cap, heads,
+                                        kvh, hd, 2405, (0, 1, 2, 3, 4))
+    decode_attention(q, kv[0], kv[1], pad, cursor, torch.bfloat16)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, kv[0], kv[1], pad, cursor,
+                               torch.bfloat16)
+    seen = []
+    for pos, pads in ((2405, (0, 1, 2, 3, 4)), (1300, (9, 0, 1299, 5, 77))):
+        cursor.fill_(pos)
+        pad.copy_(torch.tensor(pads, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = decode_attention(q, kv[0], kv[1], pad, cursor,
+                                 torch.bfloat16)
+        assert torch.equal(out, eager), pos
+        seen.append(out.clone())
+    assert not torch.equal(seen[0], seen[1])
+
+
+def test_decode_attention_raises_on_card_for_what_it_lacks(cuda):
+    from leafgrasp_tpu_torch.kernels.decode_attention import decode_attention
+    for hd, dtype in ((96, torch.bfloat16), (128, torch.float16)):
+        q, kv, pad, cursor = _decode_inputs(cuda, dtype, 2, 64, 4, 2, hd, 30,
+                                            (0, 1))
+        with pytest.raises(ValueError, match="the kernel takes"):
+            decode_attention(q, kv[0], kv[1], pad, cursor, dtype)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_steps_launch_the_kernel_once_a_layer_on_card(cuda,
+                                                             quantized):
+    """Eager steps launch the decode kernel once a layer and step; the
+    graph route's timings and the scorer's record say "kernel"."""
+    from leafgrasp_tpu_torch.vla.llava_torch import greedy_generate_llava
+    model = _graph_llava(cuda, quantized)
+    b, t, n_new = 3, 150, 6
+    ids = torch.randint(1, 200, (b, t), device=cuda)
+    pad = torch.tensor([0, 7, 40], dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    _uncaptured_tokens(model, ids, pad, n_new)
+    assert kernels.launch_counts()["decode_attention"] == \
+        model.cfg.layers * (n_new - 1)
+    timings = {}
+    greedy_generate_llava(model, ids, max_new_tokens=n_new, pad_lens=pad,
+                          timings=timings)
+    assert timings["decode_graph"] == "captured"
+    assert timings["decode_attention"] == "kernel"
+    timings = {}
+    greedy_generate_llava(model, ids, max_new_tokens=n_new, pad_lens=pad,
+                          timings=timings)
+    assert timings["decode_graph"] == "replayed"
+    assert timings["decode_attention"] == "kernel"

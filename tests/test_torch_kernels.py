@@ -487,19 +487,21 @@ def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     names = sorted(p.name for p in build._sources())
-    assert names == ["attention.cu", "flash_prefill.cu",
-                     "flash_prefill_bwd.cu", "histogram.cu", "minplus.cu",
-                     "rowband.cu", "scoring.cu"]
+    assert names == ["attention.cu", "decode_attention.cu",
+                     "flash_prefill.cu", "flash_prefill_bwd.cu",
+                     "histogram.cu", "minplus.cu", "rowband.cu",
+                     "scoring.cu"]
     # the one header (inline PTX for mbarriers, TMA, wgmma) is hashed too
     assert [p.name for p in build.CSRC_DIR.glob("*.cuh")] == ["hopper.cuh"]
     flash = (build.CSRC_DIR / "flash_prefill.cu").read_text()
     assert '#include "hopper.cuh"' in flash and "mma.sync" not in flash
     assert "wgmma.mma_async" in (build.CSRC_DIR / "hopper.cuh").read_text()
     # the bit-exact kernels keep separate multiply and add; the flash
-    # prefill and its backward alone may fuse them
+    # prefill, its backward and the decode attention alone may fuse them
     for p in build._sources():
         assert ("-fmad=false" in build._file_flags(p)) == \
-            (p.name not in ("flash_prefill.cu", "flash_prefill_bwd.cu"))
+            (p.name not in ("flash_prefill.cu", "flash_prefill_bwd.cu",
+                            "decode_attention.cu"))
     for p in build._sources():
         text = p.read_text()
         assert "extern \"C\" int " in text and "Replaces" in text
@@ -622,3 +624,87 @@ def test_flash_prefill_checks_its_arguments():
     # a CPU tensor takes the plain version at any head size and type
     assert flash_prefill(q.half(), k.half(), v.half(), pad).dtype \
         == torch.float16
+
+
+# ---- decode attention ------------------------------------------------------------
+
+def _decode_case(seed, b, cap, heads, kvh, hd):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, 1, heads, hd), generator=g)
+    k = torch.randn((b, cap, kvh, hd), generator=g)
+    v = torch.randn((b, cap, kvh, hd), generator=g)
+    return q, k, v
+
+
+@pytest.mark.parametrize("window", [None, 1, 7])
+@pytest.mark.parametrize("shape,pads,pos", [
+    ((2, 30, 4, 2, 16), (0, 11), 25),
+    ((3, 40, 6, 2, 8), (0, 39, 5), 39),   # a row whose one live key is pos
+    ((1, 12, 2, 2, 16), (0,), 0),
+])
+def test_decode_attention_plain_reads_the_live_keys_alone(shape, pads, pos,
+                                                          window):
+    """The plain version against a float64 loop over the live keys
+    ``max(pad, pos - window + 1) <= j <= pos`` of each row (1e-6; f32
+    sums in another order), whatever the other slots hold."""
+    from leafgrasp_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    b, cap, heads, kvh, hd = shape
+    q, k, v = _decode_case(41, b, cap, heads, kvh, hd)
+    pad = torch.tensor(pads, dtype=torch.int32)
+    cursor = torch.tensor([pos], dtype=torch.int64)
+    got = decode_attention_plain(q, k, v, pad, cursor, torch.float32, window)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    assert torch.equal(decode_attention(q, k, v, pad, cursor, torch.float32,
+                                        window), got)
+    want = np.zeros(q.shape)
+    qd, kd, vd = (x.double().numpy() for x in (q, k, v))
+    rep = heads // kvh
+    for r in range(b):
+        lo = pads[r] if window is None else max(pads[r], pos - window + 1)
+        for h in range(heads):
+            s = kd[r, lo:pos + 1, h // rep] @ qd[r, 0, h] / np.sqrt(hd)
+            p = np.exp(s - s.max())
+            want[r, 0, h] = (p / p.sum()) @ vd[r, lo:pos + 1, h // rep]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_decode_attention_checks_its_arguments():
+    """Shapes, pad and cursor types raise everywhere; a CPU tensor takes
+    the plain version at any head size and type; on any other device
+    the wrapper raises for a head size or type its kernel lacks (here
+    meta tensors, which reach the kernel's checks and no further)."""
+    from leafgrasp_tpu_torch.kernels.decode_attention import decode_attention
+    q, k, v = _decode_case(43, 2, 20, 4, 2, 16)
+    pad = torch.zeros((2,), dtype=torch.int32)
+    cur = torch.tensor([9])
+    f32 = torch.float32
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q, k, v, pad.long(), cur, f32)
+    with pytest.raises(ValueError, match="int64"):
+        decode_attention(q, k, v, pad, cur.int(), f32)
+    with pytest.raises(ValueError, match="heads"):
+        decode_attention(q[:, :, :3], k, v, pad, cur, f32)
+    with pytest.raises(ValueError, match="want"):
+        decode_attention(q.expand(2, 2, 4, 16), k, v, pad, cur, f32)
+    with pytest.raises(ValueError, match="window"):
+        decode_attention(q, k, v, pad, cur, f32, 0)
+    half = decode_attention(q.half(), k.half(), v.half(), pad, cur,
+                            torch.float16)
+    assert half.dtype == torch.float16 and half.shape == q.shape
+
+    def meta(hd, dtype=torch.bfloat16, dt=torch.bfloat16):
+        z = dict(device="meta", dtype=dtype)
+        return (torch.empty((5, 1, 32, hd), **z),
+                torch.empty((5, 64, 8, hd), **z),
+                torch.empty((5, 64, 8, hd), **z),
+                torch.empty((5,), dtype=torch.int32, device="meta"),
+                torch.empty((1,), dtype=torch.int64, device="meta"), dt)
+
+    for bad in (meta(96), meta(16, torch.float32, torch.float32),
+                meta(128, torch.float16), meta(64, dt=torch.float16)):
+        with pytest.raises(ValueError, match="the kernel takes"):
+            decode_attention(*bad)
+    for good in (meta(128), meta(64, torch.float32, torch.float32)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            decode_attention(*good)

@@ -903,6 +903,94 @@ def test_decode_at_a_rounded_capacity_gives_the_exact_lengths_tokens():
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+def _step_logits(model, ids, pad):
+    """One decode step after the prompt pass into caches of 4 more
+    slots: its logits and the caches."""
+    from leafgrasp_tpu_torch.kernels.decode_attention import slot_mask
+    from leafgrasp_tpu_torch.vla.layers import STEP
+    b, t = ids.shape
+    cache = KVCache(model.cfg, b, t + 4, "cpu")
+    with torch.no_grad():
+        first, _ = tl._generate_prefill(model, ids, pad, None, None, cache)
+        slot = torch.tensor([t])
+        step = Pass(STEP, slot_mask(slot, torch.arange(t + 4), pad,
+                                    model.cfg.sliding_window),
+                    pad, cursor=slot, cache=cache)
+        x = model.decoder(model.embed(first[:, None]),
+                          (torch.tensor(t) - pad)[:, None], step)
+        return model.head(x), cache.data, step.attended
+
+
+@pytest.mark.parametrize("kw,param_dtype", [
+    ({}, torch.float32),
+    ({"dtype": "bfloat16"}, torch.bfloat16),
+    ({"dtype": "bfloat16"}, torch.float32),  # f32 layer input, bf16 cache
+    ({"sliding_window": 6}, torch.float32),
+])
+def test_decode_step_route_equals_the_dense_masked_step(monkeypatch, kw,
+                                                        param_dtype):
+    """A step of the grouped-query decoder takes
+    ``kernels/decode_attention`` (``Pass.decode_kernel``); on CPU tensors
+    its plain version gives the dense masked step's logits, caches and
+    greedy tokens bit for bit (the dense step is the route the step took
+    before the kernel, here with ``Pass.decode_kernel`` off), and the
+    step's pass, ``timings`` and the scorer say "plain" where the steps
+    took it, and nothing where they did not."""
+    gen = torch.Generator().manual_seed(21)
+    model = tl.init_random_(tl.LlavaTorch(tl.LlavaTorchConfig(**{**TINY,
+                                                                 **kw}),
+                                          device="cpu",
+                                          param_dtype=param_dtype),
+                            gen, std=0.2)
+    ids, _ = _inputs(22, b=3, t=13)
+    ids = torch.from_numpy(ids).long()
+    pad = torch.tensor([0, 4, 9], dtype=torch.int32)
+    ids[torch.arange(13)[None, :] < pad[:, None]] = 0
+    logits, caches, attended = _step_logits(model, ids, pad)
+    assert attended == {"plain"}
+    timings = {}
+    got = tl.greedy_generate_llava(model, ids, max_new_tokens=7,
+                                   pad_lens=pad, timings=timings)
+    assert timings["decode_attention"] == "plain"
+    calls = []
+    monkeypatch.setattr(tl._da, "decode_attention",
+                        lambda *a: calls.append(1))
+    monkeypatch.setattr(Pass, "decode_kernel", lambda self: False)
+    want_logits, want_caches, attended = _step_logits(model, ids, pad)
+    timings = {}
+    want = tl.greedy_generate_llava(model, ids, max_new_tokens=7,
+                                    pad_lens=pad, timings=timings)
+    assert calls == [] and not attended
+    assert "decode_attention" not in timings
+    assert torch.equal(logits, want_logits)
+    assert torch.equal(caches, want_caches)
+    assert torch.equal(got, want)
+    assert len(set(map(tuple, got.tolist()))) > 1
+
+
+def test_scorer_keeps_the_decode_attention_route():
+    """``LlavaTorchScorer.last["decode_attention"]`` reads the steps'
+    route ("plain" on the CPU); a rerank of one new token has no step and
+    keeps none."""
+    class Tok:
+        def encode(self, text):
+            return [1 + len(text) % 7] + [3 + ord(ch) % 90
+                                          for ch in text[:8]]
+
+        def decode(self, ids):
+            return "0." + "".join(str(int(i) % 10) for i in ids)
+
+    cands = [dict(leaf_id=i + 1, x=float(10 + 7 * i), y=float(30 - 3 * i),
+                  clutter_score=0.2 + 0.1 * i, distance_score=0.9 - 0.1 * i,
+                  geometric_score=0.5 + 0.05 * i) for i in range(3)]
+    scorer = tr.LlavaTorchScorer(_random_model(23), Tok(), max_new_tokens=3)
+    scorer.score(None, cands, "Select")
+    assert scorer.last["decode_attention"] == "plain"
+    scorer.max_new_tokens = 1
+    scorer.score(None, cands, "Select")
+    assert "decode_attention" not in scorer.last
+
+
 def test_decode_stays_eager_off_the_card_and_under_tensor_parallel():
     """The route follows what the call observes: a CPU device, or a
     tensor-parallel projection anywhere in the model (a capture cannot

@@ -359,6 +359,29 @@ def test_scorer_keeps_one_moe_load_a_generate_call():
         assert scorer.last["prefill_route"] == route
 
 
+def test_latent_decode_keeps_its_mask_and_records_no_decode_attention(
+        monkeypatch):
+    """The deepseek_v3 decoder's steps keep the absorbed form under the
+    step's mask: ``kernels/decode_attention`` is never called, the steps
+    give the same tokens as with ``Pass.decode_kernel`` off, and
+    ``timings`` has no ``decode_attention``."""
+    from leafgrasp_tpu_torch.kernels import decode_attention as da
+    model = _model(seed=19)
+    ids = _rows(20)
+    pad = torch.tensor([0, 2, 5], dtype=torch.int32)
+    ids[torch.arange(ids.shape[1])[None, :] < pad[:, None]] = 0
+    calls = []
+    monkeypatch.setattr(da, "decode_attention", lambda *a: calls.append(1))
+    timings = {}
+    got = lt.greedy_generate_llava(model, ids, max_new_tokens=5,
+                                   pad_lens=pad, timings=timings)
+    assert calls == [] and "decode_attention" not in timings
+    assert timings["decode_graph"] == "eager"
+    monkeypatch.setattr(Pass, "decode_kernel", lambda self: False)
+    assert torch.equal(lt.greedy_generate_llava(model, ids, max_new_tokens=5,
+                                                pad_lens=pad), got)
+
+
 @pytest.mark.parametrize("split", [False, True])
 @pytest.mark.parametrize("pads", [(0, 0), (3, 12), (16, 30)])
 def test_flash_prefill_plain_with_an_offset_is_the_last_rows(split, pads):
